@@ -1,0 +1,41 @@
+"""Public circuit-building entry point (the "jaqsi" surface).
+
+Exposes :class:`Script` and quantum-information utilities (probability
+marginalisation, parity observables).
+
+Counterpart of ``qml_essentials_tpu/core/jaqsi.py`` (Hamiltonians and
+partial traces come with the pulse and density slices).
+"""
+
+from __future__ import annotations
+
+from functools import reduce
+from typing import List, Tuple
+
+import torch
+
+from qml_essentials_tpu_torch.core.executor import Script  # noqa: F401
+from qml_essentials_tpu_torch.ops.operations import Hermitian, PauliZ
+
+
+def marginalize_probs(
+    probs: torch.Tensor, n_qubits: int, keep: Tuple[int, ...]
+) -> torch.Tensor:
+    """Marginalise probability vector(s) onto the *keep* qubits; returns
+    ``(batch, 2**len(keep))`` (batch 1 for a single vector)."""
+    dim = 2**n_qubits
+    reduce_axes = tuple(q for q in range(n_qubits) if q not in keep)
+    batch = probs.reshape(-1, dim)
+    t = batch.reshape((batch.shape[0],) + (2,) * n_qubits)
+    if reduce_axes:
+        t = t.sum(dim=tuple(1 + q for q in reduce_axes))
+    return t.reshape(batch.shape[0], -1)
+
+
+def build_parity_observable(qubit_group: List[int]) -> Hermitian:
+    """Multi-qubit Z-parity observable Z⊗...⊗Z on *qubit_group*, tagged with
+    ``_pauli_label`` so the diagonal measurement never needs its matrix."""
+    mat = reduce(torch.kron, [PauliZ._matrix] * len(qubit_group))
+    obs = Hermitian(matrix=mat, wires=qubit_group, record=False)
+    obs._pauli_label = "Z" * len(qubit_group)
+    return obs

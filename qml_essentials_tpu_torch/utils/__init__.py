@@ -1,0 +1,28 @@
+"""Small shared utilities.
+
+Counterpart of ``qml_essentials_tpu/utils/__init__.py``: JAX PRNG keys
+become explicit ``torch.Generator`` objects.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+
+def safe_random_split(
+    generator: Optional[torch.Generator], num: int = 2
+) -> Union[Tuple[None, ...], Tuple[torch.Generator, ...]]:
+    """Derive *num* independent generators from *generator*.
+
+    Each child is seeded with one 63-bit draw of the parent, so the parent
+    advances and the children do not share its stream.  ``None`` flows
+    through as a tuple of ``None`` (noise-free circuits never draw).
+    """
+    if generator is None:
+        return (None,) * num
+    seeds = torch.randint(
+        0, 2**63 - 1, (num,), generator=generator, dtype=torch.int64
+    ).tolist()
+    return tuple(torch.Generator().manual_seed(int(s)) for s in seeds)
