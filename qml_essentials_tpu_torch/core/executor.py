@@ -6,7 +6,9 @@ records the tape and hands it to
 :func:`~qml_essentials_tpu_torch.ops.simulation.simulate_and_measure` on an
 explicit device and dtype.  A batch (``in_axes``) runs as a plain loop over
 its elements, stacked at the end: PyTorch runs eagerly, so there is no jit,
-no vmap and no plan cache.
+no vmap and no plan cache.  Under autograd every element's saved states stay
+alive until the backward, so the loop passes the batch size down to the
+simulator's memory estimate (the JAX package reads it off the vmap batch).
 
 Counterpart of ``qml_essentials_tpu/core/executor.py`` (memory-aware
 chunking, sharding and shot sampling come later).
@@ -51,13 +53,14 @@ class Script:
             self.f(*args, **kwargs)
         return tape
 
-    def _run_one(self, type: str, obs: List[Operation], args: tuple, kwargs: dict) -> torch.Tensor:
+    def _run_one(self, type: str, obs: List[Operation], args: tuple, kwargs: dict,
+                 batch: int = 1) -> torch.Tensor:
         tape = self._record(*args, **kwargs)
         n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
         use_density = simulation.uses_density(tape, type)
         return simulation.simulate_and_measure(
             tape, n_qubits, type, obs, use_density,
-            dtype=self.dtype, device=self.device,
+            dtype=self.dtype, device=self.device, batch=batch,
         )
 
     def execute(
@@ -98,6 +101,7 @@ class Script:
                 obs,
                 tuple(a if ax is None else a.select(ax, i) for a, ax in zip(args, in_axes)),
                 kwargs,
+                batch,
             )
             for i in range(batch)
         ]

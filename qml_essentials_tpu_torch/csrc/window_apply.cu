@@ -25,13 +25,9 @@
 
 namespace {
 
-struct WindowMap {
-  int64_t K, B;
-  int log_b;
-  // Column c of the (K, A*B) right operand: x[a, :, b] with a = c / B.
-  __device__ __forceinline__ int64_t col(int64_t c) const {
-    return (c >> log_b) * K * B + (c & (B - 1));
-  }
+struct WindowMap : qml::WindowCols {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = true;
   __device__ __forceinline__ int64_t a_off(int64_t i, int64_t j) const { return i * K + j; }
   __device__ __forceinline__ int64_t b_off(int64_t j, int64_t c) const { return col(c) + j * B; }
   __device__ __forceinline__ int64_t c_off(int64_t i, int64_t c) const { return col(c) + i * B; }
@@ -44,17 +40,8 @@ struct WindowMap {
 extern "C" int qml_window_apply(const float* x, const float* w, float* y,
                                 long long A, long long K, long long B,
                                 void* stream) {
-  int log_b = 0;
-  while ((1LL << log_b) < B) ++log_b;
-  const WindowMap map{K, B, log_b};
+  const WindowMap map{qml::window_cols(K, B)};
   const int64_t plane = (int64_t)A * K * B;
-  const int64_t M = K, N = (int64_t)A * B;
-  const int64_t tiles_m = qml::ceil_div(M, qml::BM);
-  const int64_t tiles_n = qml::ceil_div(N, qml::BN);
-  const int64_t blocks = tiles_m * tiles_n;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  qml::cgemm_tile_kernel<WindowMap, false, true>
-      <<<(unsigned)blocks, qml::NT, 0, (cudaStream_t)stream>>>(
-          w, K * K, x, plane, y, plane, M, N, K, tiles_m, tiles_n, map);
-  return (int)cudaGetLastError();
+  return qml::launch_cgemm(w, K * K, x, plane, y, plane, 0, K, (int64_t)A * B, K, 1,
+                           map, (cudaStream_t)stream);
 }

@@ -22,6 +22,8 @@
 namespace {
 
 struct TopMap {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true;
+  static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = false;
   int64_t K;
   __device__ __forceinline__ int64_t a_off(int64_t a, int64_t j) const { return a * K + j; }
   __device__ __forceinline__ int64_t b_off(int64_t j, int64_t i) const { return i * K + j; }
@@ -36,13 +38,6 @@ extern "C" int qml_window_apply_top(const float* x, const float* w, float* y,
                                     long long A, long long K, void* stream) {
   const TopMap map{K};
   const int64_t plane = (int64_t)A * K;
-  const int64_t M = A, N = K;
-  const int64_t tiles_m = qml::ceil_div(M, qml::BM);
-  const int64_t tiles_n = qml::ceil_div(N, qml::BN);
-  const int64_t blocks = tiles_m * tiles_n;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  qml::cgemm_tile_kernel<TopMap, true, false>
-      <<<(unsigned)blocks, qml::NT, 0, (cudaStream_t)stream>>>(
-          x, plane, w, K * K, y, plane, M, N, K, tiles_m, tiles_n, map);
-  return (int)cudaGetLastError();
+  return qml::launch_cgemm(x, plane, w, K * K, y, plane, 0, A, K, K, 1, map,
+                           (cudaStream_t)stream);
 }

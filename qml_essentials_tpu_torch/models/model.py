@@ -9,9 +9,11 @@ where state preparation goes.  The model therefore compiles it once into a
 
 The model lives on one explicit ``device`` in one explicit real ``dtype``
 (float32 by default, float64 on request).  Its variational parameters are an
-``nn.Parameter`` of shape ``[batch, impl_layers, n_params_per_layer]``.  On
-the CPU the forward pass is differentiable; on the card the kernels have no
-backward yet, so serve under ``torch.inference_mode()``.
+``nn.Parameter`` of shape ``[batch, impl_layers, n_params_per_layer]``.  The
+forward pass is differentiable with respect to ``params`` (and ``enc_params``
+with ``trainable_frequencies``) on the CPU and on the card, where the
+gradient runs through the kernels' backwards; serve forward-only requests
+under ``torch.inference_mode()``, which keeps no residuals.
 
 Counterpart of ``qml_essentials_tpu/models/model.py`` (unitary gates,
 ``expval`` / ``probs`` / ``state``; noise, shots, density and pulses come

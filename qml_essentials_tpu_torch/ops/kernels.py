@@ -14,8 +14,10 @@ the real-split pair ``psi2`` of shape ``(2, 2**n)`` (``psi2[0] = Re``,
   ``[0, k)``, and move back;
 * diagonal gates broadcast-multiply against the same view.
 
-``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain`` are
-the plain PyTorch versions of the three hand-written CUDA kernels in
+``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain`` and
+the backward versions ``window_apply_bwd_plain`` /
+``window_apply_top_bwd_plain`` are the plain PyTorch versions of the
+hand-written CUDA kernels in
 :mod:`qml_essentials_tpu_torch.ops.cuda_kernels`.  The kernel wrappers run
 them for tensors on the CPU; on a CUDA tensor the wrappers launch the kernel
 or raise.  Unlike the JAX package, no window is padded to a lane tile and
@@ -261,9 +263,58 @@ def window_apply_top_plain(
     return torch.stack([yr, yi]).reshape(psi2.shape)
 
 
+def window_apply_bwd_plain(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, a: int, k: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the window backward kernel: for ``y = W x`` on the
+    ``(2, A, K, B)`` view, given the output cotangent ``g`` and the saved
+    input ``x``, returns ``(gp, gw)``:
+
+    * ``gp = W^† g`` (Re ``Wr^T gr + Wi^T gi``, Im ``Wr^T gi - Wi^T gr``),
+      cast to *out_dtype*;
+    * ``gw = g conj(x)^T`` summed over all ``A*B`` columns (Re ``gr xr^T +
+      gi xi^T``, Im ``gi xr^T - gr xi^T``), in the working dtype of ``x``.
+
+    ``g`` may be bfloat16; it is upcast to the working dtype first."""
+    K = 2**k
+    A = 2**a
+    g = g.to(x.dtype)
+    gv = g.reshape(2, A, K, -1)
+    wrT, wiT = w2[0].T, w2[1].T
+    gpr = _real_window_product(wrT, gv[0]) + _real_window_product(wiT, gv[1])
+    gpi = _real_window_product(wrT, gv[1]) - _real_window_product(wiT, gv[0])
+    gp = torch.stack([gpr, gpi]).reshape(x.shape).to(out_dtype)
+    gc = gv.transpose(1, 2).reshape(2, K, -1)
+    xc = x.reshape(2, A, K, -1).transpose(1, 2).reshape(2, K, -1)
+    gwr = gc[0] @ xc[0].T + gc[1] @ xc[1].T
+    gwi = gc[1] @ xc[0].T - gc[0] @ xc[1].T
+    return gp, torch.stack([gwr, gwi])
+
+
+def window_apply_top_bwd_plain(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, k: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the top-window backward kernel: for ``Y = X W^T`` on
+    ``(2, A, K)``, returns ``gp = g conj(W)`` (in *out_dtype*) and
+    ``gw[i, j] = sum_t g[t, i] conj(x[t, j])`` (in the working dtype)."""
+    K = 2**k
+    g = g.to(x.dtype)
+    gv = g.reshape(2, -1, K)
+    xv = x.reshape(2, -1, K)
+    wr, wi = w2[0], w2[1]
+    gpr = gv[0] @ wr + gv[1] @ wi
+    gpi = gv[1] @ wr - gv[0] @ wi
+    gp = torch.stack([gpr, gpi]).reshape(x.shape).to(out_dtype)
+    gwr = gv[0].T @ xv[0] + gv[1].T @ xv[1]
+    gwi = gv[1].T @ xv[0] - gv[0].T @ xv[1]
+    return gp, torch.stack([gwr, gwi])
+
+
 def rotate_plain(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
     """Plain version of the rotation kernel: qubit q -> (q + r) mod n, the
-    transpose ``(2, X, R) -> (2, R, X)`` with ``R = 2**r``."""
+    transpose ``(2, X, R) -> (2, R, X)`` with ``R = 2**r``, in any dtype."""
     R = 2 ** (r % n)
     return psi2.reshape(2, -1, R).transpose(1, 2).reshape(psi2.shape)
 

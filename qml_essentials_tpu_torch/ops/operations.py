@@ -45,13 +45,16 @@ _CONST_CACHE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 def _placed(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """*t* on *device* in *dtype*.  Copies of constant matrices are cached
     (the entry holds *t* itself, so its id cannot be reused) and a gate on
-    the card does not re-upload its fixed matrix every time."""
+    the card does not re-upload its fixed matrix every time.  The copy is
+    made outside inference mode: a copy first made while serving under
+    ``torch.inference_mode()`` must still serve a later gradient."""
     if t.device == device and t.dtype == dtype:
         return t
     key = (id(t), str(device), dtype)
     entry = _CONST_CACHE.get(key)
     if entry is None or entry[0] is not t:
-        entry = (t, t.to(device=device, dtype=dtype))
+        with torch.inference_mode(False):
+            entry = (t, t.to(device=device, dtype=dtype))
         _CONST_CACHE[key] = entry
     return entry[1]
 

@@ -22,8 +22,14 @@ the same plan for the same tape.
 *Diagonal observables.*  Z-type expectation values fold the probability
 vector (:func:`_expval_from_probs`); no dense observable is built.
 
+*Gradients.*  :func:`simulate_pure_ri` chooses the backward: the
+saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`) in the
+large-state regime, the kernels' own autograd backwards below it, and the
+adjoint-state backward (not ported yet: it raises) when the residuals would
+not fit in memory or ``BACKWARD_MODE = "adjoint"``.
+
 Counterpart of ``qml_essentials_tpu/ops/simulation.py`` (the statevector
-part; density simulation, shots and the gradient executors come later).
+part; density simulation, shots and the adjoint executor come later).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from qml_essentials_tpu_torch.ops import kernels
+from qml_essentials_tpu_torch.core import memory
+from qml_essentials_tpu_torch.ops import adjoint, kernels, saved
 from qml_essentials_tpu_torch.ops.dtypes import cdtype
 from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
@@ -548,14 +555,83 @@ def scheduled_plan(
     return schedule_layout(_drop_indices(plan, peeled), n_qubits), psi2
 
 
+# Backward-pass strategy: "auto" keeps per-step residuals (the saved
+# executor, 3 state passes per backward step) while they fit in device
+# memory and sends gradients to the residual-free adjoint-state backward
+# beyond that.  "adjoint" / "autodiff" force one side.  The adjoint backward
+# is not ported yet: a gradient sent there raises NotImplementedError.
+BACKWARD_MODE: str = "auto"
+
+# Fraction of currently-available device memory the residual stack may
+# occupy before "auto" switches to the adjoint backward.
+_RESIDUAL_MEM_FRACTION: float = 0.35
+
+
+def set_backward_mode(mode: str) -> None:
+    """Select the gradient strategy: ``"auto"`` (default), ``"adjoint"``,
+    or ``"autodiff"``."""
+    global BACKWARD_MODE
+    if mode not in ("auto", "adjoint", "autodiff"):
+        raise ValueError(f"unknown backward mode: {mode!r}")
+    BACKWARD_MODE = mode
+
+
+def _adjoint_pays_off(plan: list, n_qubits: int, batch: int = 1, device=None) -> bool:
+    """True when the adjoint-state backward should handle gradients."""
+    if BACKWARD_MODE == "adjoint":
+        return True
+    if BACKWARD_MODE == "autodiff":
+        return False
+    # Residual stack: one (2, 2**n) float32 pair per plan step, per element
+    # of the batch (the executor keeps every element's residuals alive until
+    # the backward).
+    residual_bytes = len(plan) * 8 * (2**n_qubits) * batch
+    return residual_bytes > _RESIDUAL_MEM_FRACTION * memory.available_memory_bytes(device)
+
+
+def _payload_tensors(kind: str, payload) -> list:
+    if kind in ("mat", "diag"):
+        return [payload]
+    if kind in ("rotmat", "matrot"):
+        return [payload[1]]
+    if kind == "op" and payload._matrix is not None:
+        return [payload._matrix]  # a diagonal op's matrix is built from its diagonal
+    return []
+
+
+def _needs_grad(plan: list, psi2: torch.Tensor) -> bool:
+    """Whether autograd will ask for a gradient of this simulation."""
+    if not torch.is_grad_enabled():
+        return False
+    return psi2.requires_grad or any(
+        t.requires_grad for kind, payload, _ in plan for t in _payload_tensors(kind, payload)
+    )
+
+
 def simulate_pure_ri(
-    tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None
+    tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
+    batch: int = 1,
 ) -> torch.Tensor:
     """Real-split statevector simulation; returns the ``(2, 2**n)`` pair in
-    real *dtype* on *device*."""
+    real *dtype* on *device*.
+
+    When autograd needs a gradient, the backward strategy is chosen here:
+    the adjoint backward when ``_adjoint_pays_off`` (not ported: raises),
+    else in the large-state regime the saved-residual executor
+    (:mod:`~qml_essentials_tpu_torch.ops.saved`), else the per-step loop,
+    whose kernels carry their own autograd backwards.  *batch* is the number
+    of simulations whose residuals stay alive together (the executor's batch
+    loop), for the memory estimate."""
     plan, psi2 = scheduled_plan(tape, n_qubits, dtype, device)
     if psi2 is None:
         psi2 = kernels.zero_state_ri(n_qubits, dtype, device)
+    if _needs_grad(plan, psi2):
+        if _adjoint_pays_off(plan, n_qubits, batch, psi2.device):
+            raise NotImplementedError("the adjoint backward comes with its slice")
+        if saved.ENABLED and saved.usable(n_qubits):
+            static, payloads = adjoint.normalize_plan(plan, n_qubits)
+            if payloads:
+                return saved.execute_plan_saved_ri(psi2, payloads, static, n_qubits)
     for kind, payload, wires in plan:
         psi2 = _apply_step_ri(psi2, kind, payload, wires, n_qubits)
     return psi2
@@ -596,12 +672,14 @@ def simulate_and_measure(
     *,
     dtype: torch.dtype = torch.float32,
     device=None,
+    batch: int = 1,
 ) -> torch.Tensor:
     """Simulate the tape and measure ``expval`` / ``probs`` / ``state``
-    (density simulation and shot sampling are not ported yet)."""
+    (density simulation and shot sampling are not ported yet).  *batch*: see
+    :func:`simulate_pure_ri`."""
     if use_density:
         raise NotImplementedError("density simulation comes with the density slice")
-    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device)
+    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch)
     return measure_state_ri(psi2, n_qubits, type, obs)
 
 
