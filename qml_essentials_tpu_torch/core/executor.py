@@ -8,7 +8,11 @@ explicit device and dtype.  A batch (``in_axes``) runs as a plain loop over
 its elements, stacked at the end: PyTorch runs eagerly, so there is no jit,
 no vmap and no plan cache.  Under autograd every element's saved states stay
 alive until the backward, so the loop passes the batch size down to the
-simulator's memory estimate (the JAX package reads it off the vmap batch).
+simulator's memory estimate (the JAX package reads it off the vmap batch),
+and one :class:`~qml_essentials_tpu_torch.ops.simulation.BackwardChoice`
+for the whole batch: the first element decides between the saved-residual
+and the adjoint backward, from the memory free before the batch, and every
+element takes that executor.
 
 Counterpart of ``qml_essentials_tpu/core/executor.py`` (memory-aware
 chunking, sharding and shot sampling come later).
@@ -54,13 +58,14 @@ class Script:
         return tape
 
     def _run_one(self, type: str, obs: List[Operation], args: tuple, kwargs: dict,
-                 batch: int = 1) -> torch.Tensor:
+                 batch: int = 1, choice: Optional[simulation.BackwardChoice] = None
+                 ) -> torch.Tensor:
         tape = self._record(*args, **kwargs)
         n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
         use_density = simulation.uses_density(tape, type)
         return simulation.simulate_and_measure(
             tape, n_qubits, type, obs, use_density,
-            dtype=self.dtype, device=self.device, batch=batch,
+            dtype=self.dtype, device=self.device, batch=batch, choice=choice,
         )
 
     def execute(
@@ -95,6 +100,7 @@ class Script:
         if len(sizes) > 1:
             raise ValueError(f"batched arguments disagree on the batch size: {sorted(sizes)}")
         batch = sizes.pop() if sizes else 1
+        choice = simulation.BackwardChoice()
         results = [
             self._run_one(
                 type,
@@ -102,6 +108,7 @@ class Script:
                 tuple(a if ax is None else a.select(ax, i) for a, ax in zip(args, in_axes)),
                 kwargs,
                 batch,
+                choice,
             )
             for i in range(batch)
         ]

@@ -1,6 +1,6 @@
-// Shared block tile of the window kernels (window_apply.cu, window_apply_top.cu
-// and their backwards window_apply_bwd.cu, window_apply_top_bwd.cu): a
-// complex matrix product C = op(A) * op(B) on real-split planes (each operand
+// Shared block tile of the window kernels (window_apply.cu, window_apply_top.cu,
+// their backwards window_apply_bwd.cu, window_apply_top_bwd.cu, and the adjoint
+// steps adjoint_step.cu, adjoint_step_top.cu): a complex matrix product C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.
 //
@@ -29,6 +29,10 @@
 // Element types: A and B are float or __nv_bfloat16 (a bfloat16 cotangent),
 // C is float or __nv_bfloat16 (rounded to nearest even at the store); the
 // arithmetic is float32 throughout.
+//
+// cgemm_pair_kernel runs two products that share one operand in one pass
+// (the adjoint step's state and cotangent through one W^dagger).  The maps of
+// the window layouts that several kernels use live at the end of this file.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +48,7 @@ constexpr int TM = 4;    // C rows per thread
 constexpr int TN = 4;    // C columns per thread
 constexpr int NT = (BM / TM) * (BN / TN);  // 256 threads
 constexpr int PAD = 4;   // keeps rows 16-byte aligned for float4 reads
+static_assert(BM == BN, "row and column stages share one shared-memory shape");
 
 __device__ __forceinline__ float load_f32(const float* p, int64_t off) { return p[off]; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t off) {
@@ -62,6 +67,105 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t off, float v
 //   INNER_M     consecutive blocks walk the row tiles first (they then share
 //               one column tile of B through L2), else the column tiles.
 // The loads put neighbouring threads on the contiguous index.
+// One BK-deep stage of a row operand (A: rows m, depth k) into s[re/im][k][m].
+template <class Map, class T>
+__device__ __forceinline__ void stage_a(float (&s)[2][BK][BM + PAD], const T* __restrict__ a,
+                                        int64_t a_plane, const Map& map, int64_t m0,
+                                        int64_t k0, int64_t M, int64_t kend, int tid) {
+#pragma unroll
+  for (int r = 0; r < BM * BK / NT; ++r) {
+    const int e = tid + r * NT;
+    const int mm = Map::A_M_CONTIG ? e % BM : e / BK;
+    const int kk = Map::A_M_CONTIG ? e / BM : e % BK;
+    const int64_t m = m0 + mm, k = k0 + kk;
+    float vr = 0.f, vi = 0.f;
+    if (m < M && k < kend) {
+      const int64_t off = map.a_off(m, k);
+      vr = load_f32(a, off);
+      vi = load_f32(a, off + a_plane);
+      if (Map::CONJ_A) vi = -vi;
+    }
+    s[0][kk][mm] = vr;
+    s[1][kk][mm] = vi;
+  }
+}
+
+// One BK-deep stage of a column operand (B: depth k, columns n) into s[re/im][k][n].
+template <class Map, class T>
+__device__ __forceinline__ void stage_b(float (&s)[2][BK][BN + PAD], const T* __restrict__ b,
+                                        int64_t b_plane, const Map& map, int64_t n0,
+                                        int64_t k0, int64_t N, int64_t kend, int tid) {
+#pragma unroll
+  for (int r = 0; r < BK * BN / NT; ++r) {
+    const int e = tid + r * NT;
+    const int kk = Map::B_K_CONTIG ? e % BK : e / BN;
+    const int nn = Map::B_K_CONTIG ? e / BK : e % BN;
+    const int64_t k = k0 + kk, n = n0 + nn;
+    float vr = 0.f, vi = 0.f;
+    if (k < kend && n < N) {
+      const int64_t off = map.b_off(k, n);
+      vr = load_f32(b, off);
+      vi = load_f32(b, off + b_plane);
+      if (Map::CONJ_B) vi = -vi;
+    }
+    s[0][kk][nn] = vr;
+    s[1][kk][nn] = vi;
+  }
+}
+
+// The thread's TM x TN complex sub-tile += one staged A slice times one B slice.
+__device__ __forceinline__ void mac_stage(const float (&As)[2][BK][BM + PAD],
+                                          const float (&Bs)[2][BK][BN + PAD], int ty, int tx,
+                                          float (&accr)[TM][TN], float (&acci)[TM][TN]) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 ar4 = *reinterpret_cast<const float4*>(&As[0][kk][ty * TM]);
+    const float4 ai4 = *reinterpret_cast<const float4*>(&As[1][kk][ty * TM]);
+    const float4 br4 = *reinterpret_cast<const float4*>(&Bs[0][kk][tx * TN]);
+    const float4 bi4 = *reinterpret_cast<const float4*>(&Bs[1][kk][tx * TN]);
+    const float ar[TM] = {ar4.x, ar4.y, ar4.z, ar4.w};
+    const float ai[TM] = {ai4.x, ai4.y, ai4.z, ai4.w};
+    const float br[TN] = {br4.x, br4.y, br4.z, br4.w};
+    const float bi[TN] = {bi4.x, bi4.y, bi4.z, bi4.w};
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
+        accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
+        acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
+        acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ void zero_tile(float (&accr)[TM][TN], float (&acci)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = 0.f;
+}
+
+template <class Map, class TC>
+__device__ __forceinline__ void store_tile(TC* __restrict__ c, int64_t c_plane, const Map& map,
+                                           int64_t m0, int64_t n0, int64_t M, int64_t N,
+                                           int ty, int tx, const float (&accr)[TM][TN],
+                                           const float (&acci)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t m = m0 + ty * TM + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t n = n0 + tx * TN + j;
+      if (n >= N) continue;
+      const int64_t off = map.c_off(m, n);
+      store_f32(c, off, accr[i][j]);
+      store_f32(c, off + c_plane, acci[i][j]);
+    }
+  }
+}
+
 template <class Map, class TA, class TB, class TC>
 __global__ void __launch_bounds__(NT)
 cgemm_tile_kernel(const TA* __restrict__ a, int64_t a_plane,
@@ -85,82 +189,69 @@ cgemm_tile_kernel(const TA* __restrict__ a, int64_t a_plane,
   c += (int64_t)blockIdx.y * c_split;
 
   float accr[TM][TN], acci[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = 0.f;
-
+  zero_tile(accr, acci);
   for (int64_t k0 = kbeg; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < BM * BK / NT; ++r) {
-      const int e = tid + r * NT;
-      const int mm = Map::A_M_CONTIG ? e % BM : e / BK;
-      const int kk = Map::A_M_CONTIG ? e / BM : e % BK;
-      const int64_t m = m0 + mm, k = k0 + kk;
-      float vr = 0.f, vi = 0.f;
-      if (m < M && k < kend) {
-        const int64_t off = map.a_off(m, k);
-        vr = load_f32(a, off);
-        vi = load_f32(a, off + a_plane);
-        if (Map::CONJ_A) vi = -vi;
-      }
-      As[0][kk][mm] = vr;
-      As[1][kk][mm] = vi;
-    }
-#pragma unroll
-    for (int r = 0; r < BK * BN / NT; ++r) {
-      const int e = tid + r * NT;
-      const int kk = Map::B_K_CONTIG ? e % BK : e / BN;
-      const int nn = Map::B_K_CONTIG ? e / BK : e % BN;
-      const int64_t k = k0 + kk, n = n0 + nn;
-      float vr = 0.f, vi = 0.f;
-      if (k < kend && n < N) {
-        const int64_t off = map.b_off(k, n);
-        vr = load_f32(b, off);
-        vi = load_f32(b, off + b_plane);
-        if (Map::CONJ_B) vi = -vi;
-      }
-      Bs[0][kk][nn] = vr;
-      Bs[1][kk][nn] = vi;
+    stage_a(As, a, a_plane, map, m0, k0, M, kend, tid);
+    stage_b(Bs, b, b_plane, map, n0, k0, N, kend, tid);
+    __syncthreads();
+    mac_stage(As, Bs, ty, tx, accr, acci);
+    __syncthreads();
+  }
+  store_tile(c, c_plane, map, m0, n0, M, N, ty, tx, accr, acci);
+}
+
+// Two products that share one operand S, in one pass over it:
+//   SHARED_A:  C0 = S * P0 and C1 = S * P1  (S is the row operand A)
+//   otherwise: C0 = P0 * S and C1 = P1 * S  (S is the column operand B)
+// P0 and C0 are float (a state), P1 and C1 float or bfloat16 (a cotangent).
+// A block stages its slice of S once per depth stage and both streams' slices
+// beside it, and keeps two complex sub-tiles (64 accumulators) a thread.  The
+// adjoint step pulls the state and its cotangent back through one W^dagger
+// this way.  No split reduction: the depth is the window's K.
+template <class Map, bool SHARED_A, class TP1, class TC1>
+__global__ void __launch_bounds__(NT)
+cgemm_pair_kernel(const float* __restrict__ s, int64_t s_plane,
+                  const float* __restrict__ p0, const TP1* __restrict__ p1, int64_t p_plane,
+                  float* __restrict__ c0, TC1* __restrict__ c1, int64_t c_plane,
+                  int64_t M, int64_t N, int64_t KD, int64_t tiles_m, int64_t tiles_n, Map map) {
+  __shared__ __align__(16) float Ss[2][BK][BM + PAD];
+  __shared__ __align__(16) float P0s[2][BK][BM + PAD];
+  __shared__ __align__(16) float P1s[2][BK][BM + PAD];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN);
+  const int ty = tid / (BN / TN);
+  const int64_t t = blockIdx.x;
+  const int64_t mt = Map::INNER_M ? t % tiles_m : t / tiles_n;
+  const int64_t nt = Map::INNER_M ? t / tiles_m : t % tiles_n;
+  const int64_t m0 = mt * BM;
+  const int64_t n0 = nt * BN;
+
+  float r0[TM][TN], i0[TM][TN], r1[TM][TN], i1[TM][TN];
+  zero_tile(r0, i0);
+  zero_tile(r1, i1);
+  for (int64_t k0 = 0; k0 < KD; k0 += BK) {
+    if (SHARED_A) {
+      stage_a(Ss, s, s_plane, map, m0, k0, M, KD, tid);
+      stage_b(P0s, p0, p_plane, map, n0, k0, N, KD, tid);
+      stage_b(P1s, p1, p_plane, map, n0, k0, N, KD, tid);
+    } else {
+      stage_a(P0s, p0, p_plane, map, m0, k0, M, KD, tid);
+      stage_a(P1s, p1, p_plane, map, m0, k0, M, KD, tid);
+      stage_b(Ss, s, s_plane, map, n0, k0, N, KD, tid);
     }
     __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 ar4 = *reinterpret_cast<const float4*>(&As[0][kk][ty * TM]);
-      const float4 ai4 = *reinterpret_cast<const float4*>(&As[1][kk][ty * TM]);
-      const float4 br4 = *reinterpret_cast<const float4*>(&Bs[0][kk][tx * TN]);
-      const float4 bi4 = *reinterpret_cast<const float4*>(&Bs[1][kk][tx * TN]);
-      const float ar[TM] = {ar4.x, ar4.y, ar4.z, ar4.w};
-      const float ai[TM] = {ai4.x, ai4.y, ai4.z, ai4.w};
-      const float br[TN] = {br4.x, br4.y, br4.z, br4.w};
-      const float bi[TN] = {bi4.x, bi4.y, bi4.z, bi4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
-          accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
-          acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
-          acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
-        }
+    if (SHARED_A) {
+      mac_stage(Ss, P0s, ty, tx, r0, i0);
+      mac_stage(Ss, P1s, ty, tx, r1, i1);
+    } else {
+      mac_stage(P0s, Ss, ty, tx, r0, i0);
+      mac_stage(P1s, Ss, ty, tx, r1, i1);
     }
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      const int64_t off = map.c_off(m, n);
-      store_f32(c, off, accr[i][j]);
-      store_f32(c, off + c_plane, acci[i][j]);
-    }
-  }
+  store_tile(c0, c_plane, map, m0, n0, M, N, ty, tx, r0, i0);
+  store_tile(c1, c_plane, map, m0, n0, M, N, ty, tx, r1, i1);
 }
 
 // out[e] = sum_z parts[z * count + e] for e < count, z = 0, 1, ... in order.
@@ -202,6 +293,54 @@ inline WindowCols window_cols(int64_t K, int64_t B) {
   return WindowCols{K, B, log_b};
 }
 
+// Window layout, gp = W^dagger g: rows j, depth i, columns c of the view.
+struct WindowPullbackMap : WindowCols {
+  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = true, CONJ_B = false, INNER_M = true;
+  __device__ __forceinline__ int64_t a_off(int64_t j, int64_t i) const { return i * K + j; }
+  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t c) const { return col(c) + i * B; }
+  __device__ __forceinline__ int64_t c_off(int64_t j, int64_t c) const { return col(c) + j * B; }
+};
+
+// Window layout, gw = g conj(x)^T summed over the columns: rows i, depth c, columns j.
+struct WindowGramMap : WindowCols {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true;
+  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = true;
+  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t c) const { return col(c) + i * B; }
+  __device__ __forceinline__ int64_t b_off(int64_t c, int64_t j) const { return col(c) + j * B; }
+  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
+};
+
+// Top-window layout (row-major (A, K)), gp = g conj(W): rows t, depth i, columns j.
+struct TopPullbackMap {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = false;
+  int64_t K;
+  __device__ __forceinline__ int64_t a_off(int64_t t, int64_t i) const { return t * K + i; }
+  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t j) const { return i * K + j; }
+  __device__ __forceinline__ int64_t c_off(int64_t t, int64_t j) const { return t * K + j; }
+};
+
+// Top-window layout, gw = g^T conj(x) summed over the rows: rows i, depth t, columns j.
+struct TopGramMap {
+  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = true;
+  int64_t K;
+  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t t) const { return t * K + i; }
+  __device__ __forceinline__ int64_t b_off(int64_t t, int64_t j) const { return t * K + j; }
+  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
+};
+
+// A plain row-major K x K product C = A B (the adjoint steps' gw = G0 W).
+struct SquareMap {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = false;
+  int64_t K;
+  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t l) const { return i * K + l; }
+  __device__ __forceinline__ int64_t b_off(int64_t l, int64_t j) const { return l * K + j; }
+  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
+};
+
 // Launch geometry of one (possibly split) product; returns 0 or a CUDA error.
 template <class Map, class TA, class TB, class TC>
 inline int launch_cgemm(const TA* a, int64_t a_plane, const TB* b, int64_t b_plane,
@@ -221,6 +360,20 @@ inline int launch_cgemm(const TA* a, int64_t a_plane, const TB* b, int64_t b_pla
   return (int)cudaGetLastError();
 }
 
+// Launch of cgemm_pair_kernel; returns 0 or a CUDA error.
+template <class Map, bool SHARED_A, class TP1, class TC1>
+inline int launch_cgemm_pair(const float* s, int64_t s_plane, const float* p0, const TP1* p1,
+                             int64_t p_plane, float* c0, TC1* c1, int64_t c_plane, int64_t M,
+                             int64_t N, int64_t KD, const Map& map, cudaStream_t stream) {
+  const int64_t tiles_m = ceil_div(M, BM);
+  const int64_t tiles_n = ceil_div(N, BN);
+  const int64_t blocks = tiles_m * tiles_n;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cgemm_pair_kernel<Map, SHARED_A, TP1, TC1><<<(unsigned)blocks, NT, 0, stream>>>(
+      s, s_plane, p0, p1, p_plane, c0, c1, c_plane, M, N, KD, tiles_m, tiles_n, map);
+  return (int)cudaGetLastError();
+}
+
 // Sum `splits` partials of `count` floats each into out, in order.
 inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t splits,
                          cudaStream_t stream) {
@@ -228,6 +381,15 @@ inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t 
   reduce_splits<<<(unsigned)ceil_div(count, threads), threads, 0, stream>>>(
       parts, out, count, splits);
   return (int)cudaGetLastError();
+}
+
+// The adjoint steps' matrix cotangent from their split gram partials in ws:
+// G0 = sum of the partials (into g0, 2*K*K floats), then gw = G0 W.
+inline int launch_gram_times_w(const float* ws, int64_t splits, float* g0, const float* w,
+                               float* gw, int64_t K, cudaStream_t stream) {
+  int code = launch_reduce(ws, g0, 2 * K * K, splits, stream);
+  if (code != 0) return code;
+  return launch_cgemm(g0, K * K, w, K * K, gw, K * K, 0, K, K, K, 1, SquareMap{K}, stream);
 }
 
 }  // namespace qml

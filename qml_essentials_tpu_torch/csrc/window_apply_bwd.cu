@@ -35,24 +35,6 @@
 
 namespace {
 
-// gp = W^dagger g: rows j, depth i, columns c.
-struct PullbackMap : qml::WindowCols {
-  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = false;
-  static constexpr bool CONJ_A = true, CONJ_B = false, INNER_M = true;
-  __device__ __forceinline__ int64_t a_off(int64_t j, int64_t i) const { return i * K + j; }
-  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t c) const { return col(c) + i * B; }
-  __device__ __forceinline__ int64_t c_off(int64_t j, int64_t c) const { return col(c) + j * B; }
-};
-
-// gw = g conj(x)^T: rows i, depth c, columns j.
-struct GramMap : qml::WindowCols {
-  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true;
-  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = true;
-  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t c) const { return col(c) + i * B; }
-  __device__ __forceinline__ int64_t b_off(int64_t c, int64_t j) const { return col(c) + j * B; }
-  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
-};
-
 template <class TG, class TP>
 int run(const float* w, const TG* g, const float* x, TP* gp, float* gw, float* ws,
         int64_t A, int64_t K, int64_t B, int64_t splits, cudaStream_t stream) {
@@ -60,10 +42,10 @@ int run(const float* w, const TG* g, const float* x, TP* gp, float* gw, float* w
   const int64_t plane = A * K * B;
   const int64_t C = A * B;
   int code = qml::launch_cgemm(w, K * K, g, plane, gp, plane, 0, K, C, K, 1,
-                               PullbackMap{cols}, stream);
+                               qml::WindowPullbackMap{cols}, stream);
   if (code != 0) return code;
   code = qml::launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, C, splits,
-                           GramMap{cols}, stream);
+                           qml::WindowGramMap{cols}, stream);
   if (code != 0) return code;
   return qml::launch_reduce(ws, gw, 2 * K * K, splits, stream);
 }

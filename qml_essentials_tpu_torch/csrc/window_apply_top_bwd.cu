@@ -24,35 +24,15 @@
 
 namespace {
 
-// gp = g conj(W): rows t, depth i, columns j.
-struct TopPullbackMap {
-  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
-  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = false;
-  int64_t K;
-  __device__ __forceinline__ int64_t a_off(int64_t t, int64_t i) const { return t * K + i; }
-  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t j) const { return i * K + j; }
-  __device__ __forceinline__ int64_t c_off(int64_t t, int64_t j) const { return t * K + j; }
-};
-
-// gw = g^T conj(x): rows i, depth t, columns j.
-struct TopGramMap {
-  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = false;
-  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = true;
-  int64_t K;
-  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t t) const { return t * K + i; }
-  __device__ __forceinline__ int64_t b_off(int64_t t, int64_t j) const { return t * K + j; }
-  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
-};
-
 template <class TG, class TP>
 int run(const float* w, const TG* g, const float* x, TP* gp, float* gw, float* ws,
         int64_t A, int64_t K, int64_t splits, cudaStream_t stream) {
   const int64_t plane = A * K;
   int code = qml::launch_cgemm(g, plane, w, K * K, gp, plane, 0, A, K, K, 1,
-                               TopPullbackMap{K}, stream);
+                               qml::TopPullbackMap{K}, stream);
   if (code != 0) return code;
   code = qml::launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, A, splits,
-                           TopGramMap{K}, stream);
+                           qml::TopGramMap{K}, stream);
   if (code != 0) return code;
   return qml::launch_reduce(ws, gw, 2 * K * K, splits, stream);
 }

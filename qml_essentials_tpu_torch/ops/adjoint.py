@@ -1,4 +1,16 @@
-"""Plan normalisation for the plan-level gradient executors.
+"""Adjoint-state differentiation of the pure-state contraction plan.
+
+Reverse-mode autodiff through a depth-``D`` statevector simulation keeps
+every intermediate state for the backward: O(D·2**n) device memory (the
+saved-residual executor, :mod:`qml_essentials_tpu_torch.ops.saved`).
+Quantum circuits are unitary, so the residuals are not needed: the backward
+walk rebuilds each step's input by applying the inverse step to its output:
+
+    ψ_{j-1} = U_j† ψ_j            (undo: unitarity)
+    gw_j    = λ_j ψ_{j-1}†        (window-matrix cotangent)
+    λ_{j-1} = U_j† λ_j            (cotangent pullback)
+
+The forward keeps the *final* state only (and the payloads).
 
 :func:`normalize_plan` turns a contraction plan into a static step list
 (hashable metadata) plus a tuple of real-split payload tensors — window
@@ -6,27 +18,62 @@ matrices as ``(2, K, K)`` (Re, Im) pairs and diagonals as ``(2, 2**k)``
 pairs, both pre-permuted to sorted wire order.  Keeping payloads real
 sidesteps complex-cotangent conventions: autograd through
 ``torch.stack([m.real, m.imag])`` carries the payload gradients back to the
-gate parameters through the window composition.
+gate parameters through the window composition.  Both plan-level executors
+run on it.
 
-The saved-residual executor (:mod:`qml_essentials_tpu_torch.ops.saved`)
-runs on it.  The adjoint-state executor itself (the residual-free backward
-that reconstructs each step's input by inverting the unitary step, with its
-kernels) comes with the adjoint slice; until then a gradient that the
-``"auto"`` rule or ``BACKWARD_MODE = "adjoint"`` sends there raises
-``NotImplementedError`` (:mod:`qml_essentials_tpu_torch.ops.simulation`).
+:func:`execute_plan_ri` is one ``torch.autograd.Function`` whose backward
+walks the plan in reverse on the hand-written kernels of
+:mod:`~qml_essentials_tpu_torch.ops.cuda_kernels`:
 
-Counterpart of ``qml_essentials_tpu/ops/adjoint.py:69-144`` (the port has
-no chain steps and no noise channels on the statevector path yet).
+* a rotation step rotates both ψ and λ back by ``(n - r) mod n`` in one
+  ``rotate_pair`` launch;
+* a window on a contiguous support is one ``adjoint_step`` (or
+  ``adjoint_step_top`` when it ends at the top of the register), for any
+  ``K >= 2``;
+* a ring-wrap support rotates both arrays to make it contiguous
+  (``rotate_pair``), runs ``adjoint_step`` with the permuted payload, and
+  rotates back;
+* a scattered window and a diagonal step take λ to the working dtype and
+  undo and reduce with the plain forward gate application and torch
+  products (the reference's einsum branches);
+* fused ``rotmat`` / ``matrot`` steps run their plain two-pass form on the
+  CPU and raise ``NotImplementedError`` on the card: their kernels come with
+  the fused-rotation slice (``FUSE_LAYOUT_ROT`` is off).
+
+λ travels in bfloat16 between payload steps when ``saved.LAMBDA_MODE ==
+"bf16"`` and ``n >= simulation.LARGE_STATE_MIN_N`` (the kernels read and
+write it at half width); the incoming cotangent is never rounded, the
+earliest payload step writes λ in the working dtype, and ψ is always in the
+working dtype.  On the CPU the same executor runs the kernels' plain
+versions.
+
+Counterpart of ``qml_essentials_tpu/ops/adjoint.py`` (the port has no chain
+steps and no noise channels on the statevector path yet).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-from qml_essentials_tpu_torch.ops import kernels
+from qml_essentials_tpu_torch.ops import cuda_kernels, kernels, saved
 from qml_essentials_tpu_torch.ops.operations import DiagonalQubitUnitary, Operation
+
+# Session flag (the reference's switch).  ``BACKWARD_MODE`` alone picks the
+# executor; with the flag off, a gradient that a forced mode or the residual
+# rule sends to the adjoint raises instead of running (it never falls back
+# to the saved executor, whose residuals the rule found too large).
+ENABLED: bool = True
+
+
+def set_adjoint(enabled: bool) -> None:
+    """Allow (default) or forbid adjoint-state differentiation of
+    pure-state plans."""
+    global ENABLED
+    ENABLED = bool(enabled)
 
 
 def _pair(x: torch.Tensor) -> torch.Tensor:
@@ -93,3 +140,183 @@ def normalize_plan(
             static.append(("mat", tuple(srt)))
             payloads.append(_pair(mat))
     return tuple(static), tuple(payloads)
+
+
+def _window_view(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both arrays as ``(2, A, 2**k, B)`` views of the support: a scattered
+    support's wires are pulled to the front first (``A = 1``)."""
+    srt = [int(w) for w in srt]
+    k = len(srt)
+    if not kernels._contiguous(srt):
+        pulls, _ = kernels._gather_plan(tuple(srt))
+        for p in pulls:
+            lam2 = kernels._move_axis_front_ri(lam2, p)
+            x2 = kernels._move_axis_front_ri(x2, p)
+        srt = list(range(k))
+    A, K = 2 ** srt[0], 2**k
+    return lam2.reshape(2, A, K, -1), x2.reshape(2, A, K, -1)
+
+
+def _window_cotangent(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]) -> torch.Tensor:
+    """Matrix cotangent ``gw = λ conj(x)^T`` restricted to the window, from
+    the step-output cotangent ``lam2`` and the rebuilt step input ``x2``;
+    the ``(2, K, K)`` (Re, Im) pair."""
+    lv, xv = _window_view(lam2, x2, srt)
+    K = lv.shape[2]
+    lc = lv.transpose(1, 2).reshape(2, K, -1)
+    xc = xv.transpose(1, 2).reshape(2, K, -1)
+    return torch.stack([lc[0] @ xc[0].T + lc[1] @ xc[1].T, lc[1] @ xc[0].T - lc[0] @ xc[1].T])
+
+
+def _diag_cotangent(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]) -> torch.Tensor:
+    """Diagonal cotangent ``gd[j] = sum_{a,b} λ[a,j,b] conj(x)[a,j,b]``."""
+    lv, xv = _window_view(lam2, x2, srt)
+    gr = (lv[0] * xv[0] + lv[1] * xv[1]).sum(dim=(0, 2))
+    gi = (lv[1] * xv[0] - lv[0] * xv[1]).sum(dim=(0, 2))
+    return torch.stack([gr, gi])
+
+
+# ---------------------------------------------------------------------------
+# Forward and the reverse walk
+# ---------------------------------------------------------------------------
+
+
+def _adjoint_step_contiguous(
+    psi2: torch.Tensor, lam2: torch.Tensor, w2: torch.Tensor, srt: Sequence[int], n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One adjoint step on a contiguous support: the top-window kernel when
+    it ends at the register top, the window kernel otherwise (any K >= 2)."""
+    a, k = srt[0], len(srt)
+    if a + k == n:
+        return cuda_kernels.adjoint_step_top(w2, psi2, lam2, k, n, lam_dtype)
+    return cuda_kernels.adjoint_step(w2, psi2, lam2, a, k, n, lam_dtype)
+
+
+def _forward(psi2: torch.Tensor, payloads: Sequence[torch.Tensor], static: tuple, n: int
+             ) -> torch.Tensor:
+    """Run the plan on the forward kernels, keeping nothing."""
+    i = 0
+    for step in static:
+        if step[0] == "rot":
+            psi2 = kernels._rotate_qubits_ri(psi2, step[1], n)
+            continue
+        psi2 = saved._one_step(psi2, payloads[i], step, n)
+        i += 1
+    return psi2
+
+
+def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Tensor],
+         g: torch.Tensor):
+    """Reverse walk from the final state: returns (boundary cotangent,
+    payload grads)."""
+    from qml_essentials_tpu_torch.ops import simulation
+
+    use16 = saved.LAMBDA_MODE == "bf16" and n >= simulation.LARGE_STATE_MIN_N
+    work = psi2.dtype
+    slots: List[Optional[int]] = []
+    i = 0
+    for step in static:
+        if step[0] == "rot":
+            slots.append(None)
+        else:
+            slots.append(i)
+            i += 1
+
+    def lam_dt(slot: int) -> torch.dtype:
+        """λ out of a kernel step: bfloat16 mid-plan, the working dtype out
+        of the earliest payload step (the boundary cotangent)."""
+        return torch.bfloat16 if (use16 and slot > 0) else work
+
+    # The incoming cotangent keeps its dtype: rounding the seed would feed
+    # its error into every step's gram.
+    lam2 = g
+    grads: List[Optional[torch.Tensor]] = [None] * len(payloads)
+    for step, slot in zip(reversed(static), reversed(slots)):
+        kind = step[0]
+        if kind == "rot":
+            psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - step[1], n)
+            continue
+        w2 = payloads[slot]
+        if kind in ("rotmat", "matrot"):
+            if psi2.device.type != "cpu":
+                raise NotImplementedError(
+                    f"plan step {kind!r}: its fused adjoint kernel is not ported yet "
+                    "(run with FUSE_LAYOUT_ROT = False)"
+                )
+            r, srt = step[1], list(step[2])
+            if kind == "matrot":
+                psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
+            psi2, lam2, grads[slot] = _adjoint_step_contiguous(
+                psi2, lam2, w2, srt, n, lam_dt(slot))
+            if kind == "rotmat":
+                psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
+            continue
+        srt = list(step[1])
+        k = len(srt)
+        if kind == "mat" and kernels._contiguous(srt):
+            psi2, lam2, grads[slot] = _adjoint_step_contiguous(
+                psi2, lam2, w2, srt, n, lam_dt(slot))
+            continue
+        r = kernels._cyclic_run(srt, n) if kind == "mat" else None
+        if r is not None:
+            # Ring-wrap support: one rotation of both arrays makes it
+            # contiguous (cheaper than the scattered gather's axis moves).
+            psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, r, n)
+            mapped = [(w + r) % n for w in srt]
+            msrt = sorted(mapped)
+            rank = {w: j for j, w in enumerate(msrt)}
+            perm = [rank[m] for m in mapped]
+            w2r = torch.stack([kernels.permute_gate_qubits(w2[0], perm, k),
+                               kernels.permute_gate_qubits(w2[1], perm, k)]).contiguous()
+            psi2, lam2, gw_r = _adjoint_step_contiguous(
+                psi2, lam2, w2r, msrt, n, lam_dt(slot))
+            inv = [int(j) for j in np.argsort(perm)]
+            grads[slot] = torch.stack([kernels.permute_gate_qubits(gw_r[0], inv, k),
+                                       kernels.permute_gate_qubits(gw_r[1], inv, k)])
+            psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
+            continue
+        # A scattered window or a diagonal: λ in the working dtype, undone
+        # by the conjugate gate and reduced with plain products (the
+        # reference's einsum branches).
+        lam2 = lam2.to(work)
+        if kind == "mat":
+            wh = kernels.conj_pair_mat(w2)
+            psi2 = kernels.apply_matrix_pair_ri(psi2, wh, srt, n)
+            grads[slot] = _window_cotangent(lam2, psi2, srt)
+            lam2 = kernels.apply_matrix_pair_ri(lam2, wh, srt, n)
+        else:
+            dh = torch.stack([w2[0], -w2[1]])
+            psi2 = kernels.apply_diagonal_pair_ri(psi2, dh, srt, n)
+            grads[slot] = _diag_cotangent(lam2, psi2, srt)
+            lam2 = kernels.apply_diagonal_pair_ri(lam2, dh, srt, n)
+    return lam2.to(g.dtype), grads
+
+
+class _AdjointPlan(torch.autograd.Function):
+    """``(psi2, *payloads) -> final state`` with the adjoint-state backward."""
+
+    @staticmethod
+    def forward(ctx, psi2, static, n, *payloads):
+        out = _forward(psi2, payloads, static, n)
+        ctx.static, ctx.n = static, n
+        ctx.save_for_backward(out, *payloads)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        out, *payloads = ctx.saved_tensors
+        lam, grads = _bwd(ctx.static, ctx.n, out, payloads, g.contiguous())
+        return (lam, None, None, *grads)
+
+
+def execute_plan_ri(
+    psi2: torch.Tensor, payloads: Sequence[torch.Tensor], static: tuple, n: int
+) -> torch.Tensor:
+    """Run a normalised plan with the adjoint-state backward (residual
+    footprint: the final state).  Payloads are moved to the state's device
+    and dtype first (fixed gates keep their matrices as CPU constants)."""
+    payloads = [p.to(device=psi2.device, dtype=psi2.dtype).contiguous() for p in payloads]
+    return _AdjointPlan.apply(psi2, static, n, *payloads)

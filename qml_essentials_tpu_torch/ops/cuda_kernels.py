@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the statevector hot path, and their wrappers.
 
-Five kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
+Eight kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
 ``nvcc`` (one process per source, all started together, then one link) into
 one shared library with a C interface, loaded with ``ctypes``:
 
@@ -12,6 +12,9 @@ window_apply_bwd       csrc/window_apply_bwd.cu      pallas_kernels._apply_bwd
 window_apply_top       csrc/window_apply_top.cu      pallas_kernels.window_apply_top_ri
 window_apply_top_bwd   csrc/window_apply_top_bwd.cu  pallas_kernels._apply_top_bwd
 rotate                 csrc/rotate.cu                pallas_kernels.rotate_ri
+adjoint_step           csrc/adjoint_step.cu          pallas_kernels.adjoint_step_ri
+adjoint_step_top       csrc/adjoint_step_top.cu      pallas_kernels.adjoint_step_top_ri
+rotate_pair            csrc/rotate_pair.cu           pallas_kernels.rotate_pair_ri
 =====================  ============================  ======================================
 
 The library is built at first use into ``build/kernels/`` at the repository
@@ -30,7 +33,10 @@ Gradients: on the card the forward wrappers run through
 ``torch.autograd.Function``s whose backwards are kernels too, mirroring the
 JAX package's per-kernel VJPs — the window's backward is
 ``window_apply_bwd``, the top window's ``window_apply_top_bwd``, and the
-rotation's is the rotation by ``(n - r) % n``.
+rotation's is the rotation by ``(n - r) % n``.  The adjoint-state backward
+(:mod:`qml_essentials_tpu_torch.ops.adjoint`) calls ``adjoint_step``,
+``adjoint_step_top`` and ``rotate_pair`` inside its own backward; they need
+no autograd Functions.
 """
 
 from __future__ import annotations
@@ -53,9 +59,10 @@ from qml_essentials_tpu_torch.ops import kernels
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "window_apply.cu", "window_apply_bwd.cu", "window_apply_top.cu",
-    "window_apply_top_bwd.cu", "rotate.cu",
+    "window_apply_top_bwd.cu", "rotate.cu", "adjoint_step.cu", "adjoint_step_top.cu",
+    "rotate_pair.cu",
 )
-HEADERS = ("cgemm_tile.cuh",)
+HEADERS = ("cgemm_tile.cuh", "transpose_tile.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,7 +72,8 @@ NVCC_FLAGS = (
 # Launches per wrapper since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {
     "window_apply": 0, "window_apply_bwd": 0, "window_apply_top": 0,
-    "window_apply_top_bwd": 0, "rotate": 0,
+    "window_apply_top_bwd": 0, "rotate": 0, "adjoint_step": 0, "adjoint_step_top": 0,
+    "rotate_pair": 0,
 }
 
 # Compiler output (ptxas register and shared-memory use) of the last build.
@@ -161,9 +169,15 @@ def _load() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
             lib.qml_rotate.argtypes = [ptr, ptr, i64, i64, ptr]
             lib.qml_rotate_b16.argtypes = [ptr, ptr, i64, i64, ptr]
+            lib.qml_adjoint_step.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, i32, ptr]
+            lib.qml_adjoint_step_top.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
+            lib.qml_rotate_pair.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
             for fn in (lib.qml_window_apply, lib.qml_window_apply_bwd,
                        lib.qml_window_apply_top, lib.qml_window_apply_top_bwd,
-                       lib.qml_rotate, lib.qml_rotate_b16):
+                       lib.qml_rotate, lib.qml_rotate_b16, lib.qml_adjoint_step,
+                       lib.qml_adjoint_step_top, lib.qml_rotate_pair):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -427,3 +441,96 @@ def window_apply_top_bwd(
     _raise_on("window_apply_top_bwd", code)
     LAUNCHES["window_apply_top_bwd"] += 1
     return gp, gw
+
+
+# ---------------------------------------------------------------------------
+# The adjoint-state backward's kernels (no autograd: called inside a backward)
+# ---------------------------------------------------------------------------
+
+
+def _check_adjoint(name, w2, psi2, lam2, K, n, lam_dtype):
+    _check(name, "window", w2, (2, K, K))
+    _check(name, "state", psi2, (2, 2**n))
+    _check(name, "cotangent", lam2, (2, 2**n), _COTANGENT_DTYPES)
+    _check_out_dtype(name, lam_dtype)
+
+
+def _launch_adjoint(name, w2, psi2, lam2, K, splits, lam_dtype, geometry):
+    """Allocate (psi_prev, lam_prev, gw) and the gram workspace (the split
+    partials, then G0), launch, count; returns the three outputs."""
+    lib = _load()
+    psi_prev = torch.empty_like(psi2)
+    lam_prev = torch.empty(psi2.shape, dtype=lam_dtype, device=psi2.device)
+    gw = torch.empty_like(w2)
+    ws = torch.empty((splits + 1, 2, K, K), dtype=torch.float32, device=psi2.device)
+    with torch.cuda.device(psi2.device):
+        code = getattr(lib, f"qml_{name}")(
+            w2.data_ptr(), psi2.data_ptr(), lam2.data_ptr(), psi_prev.data_ptr(),
+            lam_prev.data_ptr(), gw.data_ptr(), ws.data_ptr(), *geometry, splits,
+            int(lam2.dtype == torch.bfloat16), int(lam_dtype == torch.bfloat16), _stream(psi2),
+        )
+    _raise_on(name, code)
+    LAUNCHES[name] += 1
+    return psi_prev, lam_prev, gw
+
+
+def adjoint_step(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, a: int, k: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One adjoint-state backward step on the window ``[a, a+k)``, ``a + k <
+    n``: from the step's output state ``psi2`` and its cotangent ``lam2``
+    (float32 or bfloat16) returns ``psi_prev = W^† psi``, ``lam_prev = W^†
+    lam`` in *lam_dtype* and ``gw = sum lam psi_prev^†`` in float32."""
+    if _on_cpu(w2, psi2, lam2):
+        return kernels.adjoint_step_plain(w2, psi2, lam2, a, k, n, lam_dtype)
+    if not (0 <= a and 1 <= k and a + k < n):
+        raise ValueError(f"adjoint_step: support [{a}, {a + k}) needs B > 1 in n={n}")
+    K = 2**k
+    _check_adjoint("adjoint_step", w2, psi2, lam2, K, n, lam_dtype)
+    splits = gram_splits(K, 2**n // K)
+    return _launch_adjoint("adjoint_step", w2, psi2, lam2, K, splits, lam_dtype,
+                           (2**a, K, 2 ** (n - a - k)))
+
+
+def adjoint_step_top(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, k: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One adjoint-state backward step on the top window ``[n-k, n)``:
+    ``psi_prev = psi conj(W)``, ``lam_prev = lam conj(W)`` in *lam_dtype*,
+    ``gw[i, j] = sum_t lam[t, i] conj(psi_prev[t, j])`` in float32."""
+    if _on_cpu(w2, psi2, lam2):
+        return kernels.adjoint_step_top_plain(w2, psi2, lam2, k, n, lam_dtype)
+    if not 1 <= k <= n:
+        raise ValueError(f"adjoint_step_top: k={k} out of range for n={n}")
+    K = 2**k
+    _check_adjoint("adjoint_step_top", w2, psi2, lam2, K, n, lam_dtype)
+    A = 2 ** (n - k)
+    splits = gram_splits(K, A)
+    return _launch_adjoint("adjoint_step_top", w2, psi2, lam2, K, splits, lam_dtype,
+                           (A, K))
+
+
+def rotate_pair(
+    psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate a state (float32) and its cotangent (float32 or bfloat16) by
+    ``q -> (q + r) mod n``, ``1 <= r < n``, in one launch; each keeps its
+    dtype and every bit."""
+    if _on_cpu(psi2, lam2):
+        return kernels.rotate_pair_plain(psi2, lam2, r, n)
+    if not 1 <= r < n:
+        raise ValueError(f"rotate_pair: r={r} out of range for n={n}")
+    _check("rotate_pair", "state", psi2, (2, 2**n))
+    _check("rotate_pair", "cotangent", lam2, (2, 2**n), _COTANGENT_DTYPES)
+    lib = _load()
+    psi_out, lam_out = torch.empty_like(psi2), torch.empty_like(lam2)
+    with torch.cuda.device(psi2.device):
+        code = lib.qml_rotate_pair(
+            psi2.data_ptr(), psi_out.data_ptr(), lam2.data_ptr(), lam_out.data_ptr(),
+            2 ** (n - r), 2**r, int(lam2.dtype == torch.bfloat16), _stream(psi2),
+        )
+    _raise_on("rotate_pair", code)
+    LAUNCHES["rotate_pair"] += 1
+    return psi_out, lam_out

@@ -14,10 +14,11 @@ the real-split pair ``psi2`` of shape ``(2, 2**n)`` (``psi2[0] = Re``,
   ``[0, k)``, and move back;
 * diagonal gates broadcast-multiply against the same view.
 
-``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain`` and
-the backward versions ``window_apply_bwd_plain`` /
-``window_apply_top_bwd_plain`` are the plain PyTorch versions of the
-hand-written CUDA kernels in
+``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain``, the
+backward versions ``window_apply_bwd_plain`` / ``window_apply_top_bwd_plain``
+and the adjoint-state steps ``adjoint_step_plain`` /
+``adjoint_step_top_plain`` / ``rotate_pair_plain`` are the plain PyTorch
+versions of the hand-written CUDA kernels in
 :mod:`qml_essentials_tpu_torch.ops.cuda_kernels`.  The kernel wrappers run
 them for tensors on the CPU; on a CUDA tensor the wrappers launch the kernel
 or raise.  Unlike the JAX package, no window is padded to a lane tile and
@@ -317,6 +318,46 @@ def rotate_plain(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
     transpose ``(2, X, R) -> (2, R, X)`` with ``R = 2**r``, in any dtype."""
     R = 2 ** (r % n)
     return psi2.reshape(2, -1, R).transpose(1, 2).reshape(psi2.shape)
+
+
+def conj_pair_mat(w2: torch.Tensor) -> torch.Tensor:
+    """Real-split conjugate transpose: (Re, Im) -> (Re^T, -Im^T)."""
+    return torch.stack([w2[0].T, -w2[1].T])
+
+
+def adjoint_step_plain(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, a: int, k: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the adjoint step kernel on ``[a, a+k)``, ``a + k <
+    n``: from the step's output ``psi2`` and cotangent ``lam2`` returns
+    ``psi_prev = W^† psi``, ``lam_prev = W^† lam`` (cast to *lam_dtype*) and
+    ``gw = sum lam psi_prev^†`` in the working dtype of ``psi2``.  A
+    bfloat16 ``lam2`` is upcast first: it is the window backward on the
+    rebuilt input."""
+    psi_prev = window_apply_plain(psi2, conj_pair_mat(w2), a, k, n)
+    lam_prev, gw = window_apply_bwd_plain(w2, lam2, psi_prev, a, k, n, lam_dtype)
+    return psi_prev, lam_prev, gw
+
+
+def adjoint_step_top_plain(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, k: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the top-window adjoint step on ``[n-k, n)``:
+    ``psi_prev = psi conj(W)``, ``lam_prev = lam conj(W)`` (cast to
+    *lam_dtype*), ``gw[i, j] = sum_t lam[t, i] conj(psi_prev[t, j])``."""
+    psi_prev = window_apply_top_plain(psi2, conj_pair_mat(w2), k, n)
+    lam_prev, gw = window_apply_top_bwd_plain(w2, lam2, psi_prev, k, n, lam_dtype)
+    return psi_prev, lam_prev, gw
+
+
+def rotate_pair_plain(
+    psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the paired rotation kernel: both arrays rotated by
+    ``q -> (q + r) mod n``, each in its own dtype."""
+    return rotate_plain(psi2, r, n), rotate_plain(lam2, r, n)
 
 
 def _recenter_rotation(a: int, k: int, n: int) -> Optional[int]:

@@ -23,13 +23,15 @@ the same plan for the same tape.
 vector (:func:`_expval_from_probs`); no dense observable is built.
 
 *Gradients.*  :func:`simulate_pure_ri` chooses the backward: the
-saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`) in the
-large-state regime, the kernels' own autograd backwards below it, and the
-adjoint-state backward (not ported yet: it raises) when the residuals would
-not fit in memory or ``BACKWARD_MODE = "adjoint"``.
+adjoint-state backward (:mod:`~qml_essentials_tpu_torch.ops.adjoint`, the
+final state as its only residual) when the residuals would not fit in memory
+or ``BACKWARD_MODE = "adjoint"``, at any width; else the saved-residual
+executor (:mod:`~qml_essentials_tpu_torch.ops.saved`) in the large-state
+regime, and the kernels' own autograd backwards below it.  A batch takes one
+decision for all its elements (:class:`BackwardChoice`).
 
 Counterpart of ``qml_essentials_tpu/ops/simulation.py`` (the statevector
-part; density simulation, shots and the adjoint executor come later).
+part; density simulation and shots come later).
 """
 
 from __future__ import annotations
@@ -558,8 +560,8 @@ def scheduled_plan(
 # Backward-pass strategy: "auto" keeps per-step residuals (the saved
 # executor, 3 state passes per backward step) while they fit in device
 # memory and sends gradients to the residual-free adjoint-state backward
-# beyond that.  "adjoint" / "autodiff" force one side.  The adjoint backward
-# is not ported yet: a gradient sent there raises NotImplementedError.
+# (4 state passes per step, the final state as its only residual) beyond
+# that.  "adjoint" / "autodiff" force one side.
 BACKWARD_MODE: str = "auto"
 
 # Fraction of currently-available device memory the residual stack may
@@ -589,6 +591,24 @@ def _adjoint_pays_off(plan: list, n_qubits: int, batch: int = 1, device=None) ->
     return residual_bytes > _RESIDUAL_MEM_FRACTION * memory.available_memory_bytes(device)
 
 
+class BackwardChoice:
+    """One backward decision for the elements of a batch.
+
+    The first element that needs a gradient decides with
+    :func:`_adjoint_pays_off` (its plan, the whole batch's residuals, the
+    memory free before any of them is held); every later element takes the
+    same executor without reading free memory again (the JAX package decides
+    once per vmapped trace)."""
+
+    def __init__(self) -> None:
+        self.adjoint: Optional[bool] = None
+
+    def use_adjoint(self, plan: list, n_qubits: int, batch: int, device) -> bool:
+        if self.adjoint is None:
+            self.adjoint = _adjoint_pays_off(plan, n_qubits, batch, device)
+        return self.adjoint
+
+
 def _payload_tensors(kind: str, payload) -> list:
     if kind in ("mat", "diag"):
         return [payload]
@@ -610,28 +630,40 @@ def _needs_grad(plan: list, psi2: torch.Tensor) -> bool:
 
 def simulate_pure_ri(
     tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
-    batch: int = 1,
+    batch: int = 1, choice: Optional[BackwardChoice] = None,
 ) -> torch.Tensor:
     """Real-split statevector simulation; returns the ``(2, 2**n)`` pair in
     real *dtype* on *device*.
 
     When autograd needs a gradient, the backward strategy is chosen here:
-    the adjoint backward when ``_adjoint_pays_off`` (not ported: raises),
-    else in the large-state regime the saved-residual executor
-    (:mod:`~qml_essentials_tpu_torch.ops.saved`), else the per-step loop,
-    whose kernels carry their own autograd backwards.  *batch* is the number
-    of simulations whose residuals stay alive together (the executor's batch
-    loop), for the memory estimate."""
+    the adjoint-state executor (:mod:`~qml_essentials_tpu_torch.ops.adjoint`)
+    when ``_adjoint_pays_off``, else in the large-state regime the
+    saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`),
+    else the per-step loop, whose kernels carry their own autograd
+    backwards.  *batch* is the number of simulations whose residuals stay
+    alive together (the executor's batch loop), for the memory estimate;
+    *choice* carries one decision across the elements of that batch (a new
+    one is made for a single simulation)."""
     plan, psi2 = scheduled_plan(tape, n_qubits, dtype, device)
     if psi2 is None:
         psi2 = kernels.zero_state_ri(n_qubits, dtype, device)
     if _needs_grad(plan, psi2):
-        if _adjoint_pays_off(plan, n_qubits, batch, psi2.device):
-            raise NotImplementedError("the adjoint backward comes with its slice")
-        if saved.ENABLED and saved.usable(n_qubits):
+        choice = BackwardChoice() if choice is None else choice
+        executor = None
+        if choice.use_adjoint(plan, n_qubits, batch, psi2.device):
+            if not adjoint.ENABLED:
+                raise RuntimeError(
+                    "this gradient goes to the adjoint backward, which is disabled "
+                    "(adjoint.set_adjoint(False)); set_backward_mode('autodiff') keeps "
+                    "residuals instead"
+                )
+            executor = adjoint.execute_plan_ri
+        elif saved.ENABLED and saved.usable(n_qubits):
+            executor = saved.execute_plan_saved_ri
+        if executor is not None:
             static, payloads = adjoint.normalize_plan(plan, n_qubits)
             if payloads:
-                return saved.execute_plan_saved_ri(psi2, payloads, static, n_qubits)
+                return executor(psi2, payloads, static, n_qubits)
     for kind, payload, wires in plan:
         psi2 = _apply_step_ri(psi2, kind, payload, wires, n_qubits)
     return psi2
@@ -673,13 +705,14 @@ def simulate_and_measure(
     dtype: torch.dtype = torch.float32,
     device=None,
     batch: int = 1,
+    choice: Optional[BackwardChoice] = None,
 ) -> torch.Tensor:
     """Simulate the tape and measure ``expval`` / ``probs`` / ``state``
-    (density simulation and shot sampling are not ported yet).  *batch*: see
-    :func:`simulate_pure_ri`."""
+    (density simulation and shot sampling are not ported yet).  *batch* and
+    *choice*: see :func:`simulate_pure_ri`."""
     if use_density:
         raise NotImplementedError("density simulation comes with the density slice")
-    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch)
+    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice)
     return measure_state_ri(psi2, n_qubits, type, obs)
 
 

@@ -2,7 +2,8 @@
 Pallas kernels (interpret mode, as tests/test_pallas.py runs them), the
 wrappers' routing, and — on a machine with a GPU — each CUDA kernel against
 its plain version (the backward kernels' plain versions are held to the JAX
-package in tests/test_torch_saved.py).
+package in tests/test_torch_saved.py, the adjoint steps' in
+tests/test_torch_adjoint.py).
 
 Tolerances: the Pallas kernels multiply in the TPU's split3 bf16 scheme
 (~9e-6 relative per window, measured against an f64 oracle), so window
@@ -13,7 +14,9 @@ cotangent of the backward kernels sums up to 2**16 columns in fp32 (split
 into chunks, the partials added in a fixed order): 1e-4 relative.  A
 bfloat16 state cotangent is held to one bf16 ulp of the float64 value plus
 the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
-one).
+one).  The adjoint steps are held to the same three bounds: the rebuilt state
+and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
+cotangent 1e-4; the paired rotation is a permutation and must be exact.
 
 The machine with the card has no JAX, so only the Pallas tests import it;
 there the card's tests run with ``-m cuda --noconftest``.
@@ -107,11 +110,17 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
          kernels.window_apply_bwd_plain(w2, g, psi2, 2, 3, n, torch.bfloat16)),
         (cuda_kernels.window_apply_top_bwd(w2, g, psi2, 3, n, torch.float32),
          kernels.window_apply_top_bwd_plain(w2, g, psi2, 3, n, torch.float32)),
+        (cuda_kernels.adjoint_step(w2, psi2, g, 2, 3, n, torch.bfloat16),
+         kernels.adjoint_step_plain(w2, psi2, g, 2, 3, n, torch.bfloat16)),
+        (cuda_kernels.adjoint_step_top(w2, psi2, g, 3, n, torch.float32),
+         kernels.adjoint_step_top_plain(w2, psi2, g, 3, n, torch.float32)),
+        (cuda_kernels.rotate_pair(psi2, g, 4, n), kernels.rotate_pair_plain(psi2, g, 4, n)),
     ):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert set(cuda_kernels.launch_counts().values()) == {0}
     assert set(cuda_kernels.launch_counts()) == {
-        "window_apply", "window_apply_bwd", "window_apply_top", "window_apply_top_bwd", "rotate"
+        "window_apply", "window_apply_bwd", "window_apply_top", "window_apply_top_bwd", "rotate",
+        "adjoint_step", "adjoint_step_top", "rotate_pair",
     }
 
 
@@ -326,3 +335,79 @@ def test_cuda_autograd_functions_match_plain_autograd(cuda, which):
     assert _rel(got[0].double().cpu(), ref[0].cpu()) <= CUDA_TOL
     if which != "rotate":
         assert _rel(got[1].double().cpu(), ref[1].cpu()) <= CUDA_GRAM_TOL
+
+
+def _assert_adjoint_close(got, ref, lam_dtype):
+    (pp, lp, gw), (rp, rl, rw) = got, ref
+    assert pp.dtype == torch.float32
+    assert _rel(pp.double().cpu(), rp.cpu()) <= CUDA_TOL
+    _assert_bwd_close((lp, gw), (rl, rw), lam_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,a,k", [(14, 3, 1), (14, 0, 2), (14, 12, 1), (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10)]
+)
+def test_cuda_adjoint_step_matches_plain(cuda, n, a, k, lam_dtype, out_dtype):
+    """K = 2 and 4, B = 2, a = 0, the K = 1024 window; lambda bf16 in and out."""
+    out_dtype = getattr(torch, out_dtype)
+    w, lam, psi = _bwd_inputs(cuda, n, k, 7 * n + a + k, getattr(torch, lam_dtype))
+    before = cuda_kernels.launch_counts()["adjoint_step"]
+    got = cuda_kernels.adjoint_step(w, psi, lam, a, k, n, out_dtype)
+    ref = kernels.adjoint_step_plain(w.double(), psi.double(), lam.double(), a, k, n,
+                                     torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["adjoint_step"] == before + 1
+    _assert_adjoint_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k", [(12, 1), (12, 2), (6, 6), (16, 6), (16, 8), (22, 6)])
+def test_cuda_adjoint_step_top_matches_plain(cuda, n, k, lam_dtype, out_dtype):
+    """Top windows: K = 2, a full-width window (one row), the 22q K = 64 one."""
+    out_dtype = getattr(torch, out_dtype)
+    w, lam, psi = _bwd_inputs(cuda, n, k, 5 * n + k, getattr(torch, lam_dtype))
+    before = cuda_kernels.launch_counts()["adjoint_step_top"]
+    got = cuda_kernels.adjoint_step_top(w, psi, lam, k, n, out_dtype)
+    ref = kernels.adjoint_step_top_plain(w.double(), psi.double(), lam.double(), k, n,
+                                         torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["adjoint_step_top"] == before + 1
+    _assert_adjoint_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,r", [(5, 2), (13, 1), (13, 12), (20, 7), (24, 8)])
+def test_cuda_rotate_pair_is_exact(cuda, n, r, lam_dtype):
+    psi = torch.from_numpy(_state(n, r)).to(cuda)
+    lam = torch.from_numpy(_state(n, r + 1)).to(cuda).to(getattr(torch, lam_dtype))
+    before = cuda_kernels.launch_counts()["rotate_pair"]
+    got_psi, got_lam = cuda_kernels.rotate_pair(psi, lam, r, n)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["rotate_pair"] == before + 1
+    assert got_psi.dtype == torch.float32 and got_lam.dtype == lam.dtype
+    assert torch.equal(got_psi, kernels.rotate_plain(psi, r, n))
+    assert torch.equal(got_lam, kernels.rotate_plain(lam, r, n))
+
+
+@pytest.mark.cuda
+def test_cuda_adjoint_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.from_numpy(_state(8, 0)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(2, 0)).to(cuda)
+    with pytest.raises(TypeError):
+        cuda_kernels.adjoint_step(w, x.to(torch.bfloat16), x, 1, 2, 8, torch.float32)
+    with pytest.raises(TypeError):
+        cuda_kernels.adjoint_step(w, x, x.half(), 1, 2, 8, torch.float32)
+    with pytest.raises(TypeError):
+        cuda_kernels.adjoint_step_top(w, x, x, 2, 8, torch.float16)
+    with pytest.raises(ValueError):
+        cuda_kernels.adjoint_step(w, x, x, 6, 2, 8, torch.float32)  # B = 1: the top kernel's
+    with pytest.raises(ValueError):
+        cuda_kernels.rotate_pair(x, x[:, ::2].contiguous(), 3, 8)
+    with pytest.raises(ValueError):
+        cuda_kernels.rotate_pair(x, x.cpu(), 3, 8)

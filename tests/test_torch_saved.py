@@ -294,14 +294,21 @@ def test_gradient_reaches_the_peeled_start_windows(results, monkeypatch):
 
 @pytest.mark.unittest
 def test_adjoint_mode_raises_with_a_gradient_only(results, monkeypatch):
+    """Forced adjoint mode sends only requests that need a gradient to the
+    adjoint executor (inference runs the plain loop); an unknown mode
+    raises."""
     monkeypatch.setattr(tsim, "LARGE_STATE_MIN_N", N)
     m = _port_model(results["params"])
+    calls = []
+    orig = adjoint.execute_plan_ri
+    monkeypatch.setattr(adjoint, "execute_plan_ri", lambda *a: calls.append(1) or orig(*a))
     tsim.set_backward_mode("adjoint")
     try:
         with torch.no_grad():
             assert torch.isfinite(m(inputs=X0)).all()
-        with pytest.raises(NotImplementedError, match="adjoint"):
-            m(inputs=X0)
+        assert calls == []
+        assert torch.isfinite(m(inputs=X0)).all()
+        assert calls == [1]
     finally:
         tsim.set_backward_mode("auto")
     with pytest.raises(ValueError):
@@ -313,7 +320,7 @@ def test_auto_takes_the_saved_executor_while_residuals_fit(results, monkeypatch)
     """The estimate is len(plan) * 8 * 2**n bytes per batch element against
     0.35 of free memory: with room for two elements' residuals a single
     request runs the saved executor and a batch of three is sent to the
-    adjoint backward (which raises until it is ported)."""
+    adjoint backward, every element of it."""
     monkeypatch.setattr(tsim, "LARGE_STATE_MIN_N", N)
     m = _port_model(results["params"])
     with recording() as tape:
@@ -329,10 +336,14 @@ def test_auto_takes_the_saved_executor_while_residuals_fit(results, monkeypatch)
     orig = saved.execute_plan_saved_ri
     monkeypatch.setattr(saved, "execute_plan_saved_ri",
                         lambda *a: calls.append(1) or orig(*a))
+    adjoint_calls = []
+    orig_adjoint = adjoint.execute_plan_ri
+    monkeypatch.setattr(adjoint, "execute_plan_ri",
+                        lambda *a: adjoint_calls.append(1) or orig_adjoint(*a))
     m(inputs=X0).mean().backward()
-    assert calls == [1]
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        m(inputs=list(BATCH)).mean().backward()
+    assert calls == [1] and adjoint_calls == []
+    m(inputs=list(BATCH)).mean().backward()
+    assert calls == [1] and adjoint_calls == [1] * len(BATCH)
 
 
 @pytest.mark.unittest
