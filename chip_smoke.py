@@ -7,61 +7,73 @@ Drives the port's main path — ``Model(n_qubits, n_layers=2,
 circuit_type="Circuit_19", device="cuda")`` answering forward requests and
 computing the gradient of the mean <Z> with respect to ``params`` at 22 and
 24 qubits through the saved-residual executor, and through the adjoint-state
-executor at 22, 24 and 26 qubits — and checks it phase by phase:
+executor at 22, 24 and 26 qubits, all on the reference's default plan
+(``FUSE_LAYOUT_ROT`` on: fused rotation steps) — and checks it phase by
+phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: the CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
+2. build: the sixteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
-   shared-memory use;
+   shared-memory use; the 22q/24q/26q plans are printed (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
-   (window kernels: max|err| / max|ref| <= 1e-5; the backward kernels' state
-   cotangent 1e-5 in float32 and one bf16 ulp in bfloat16, their matrix
-   cotangent 1e-4 (an fp32 sum over up to 2^16 columns); the adjoint steps
-   the same, with the rebuilt state at 1e-5, at the 24q and 26q window
-   shapes and the 22q top window; rotation and paired rotation, float32 and
-   bfloat16: bit-exact);
+   (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
+   kernels' state cotangent 1e-5 in float32 and one bf16 ulp in bfloat16,
+   their matrix cotangent 1e-4 (an fp32 sum over up to 2^16 columns); the
+   adjoint steps the same, with the rebuilt state at 1e-5; rotation and
+   paired rotation, float32 and bfloat16: bit-exact).  The fused kernels run
+   at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes;
 4. the forward slice: 3 single requests and one batch of 3 per width, with
    launch counts reset just before and read just after; every forward
-   kernel must have launched.  One request per width is held against the
-   port's plain CPU path in float64 (max |delta <Z>| <= 1e-4), and single
-   and batched answers must agree;
+   kernel launches exactly once per plan step of its kind.  One request per
+   width is held against the port's plain CPU path in float64
+   (max |delta <Z>| <= 1e-4), and single and batched answers must agree;
 5. the gradient slice: ``loss = model(inputs=...).mean(); loss.backward()``
    for one input and for the batch of 3, with the bfloat16 and the float32
    cotangent (lambda) of the saved executor, launch counts reset before and
-   read after (the backward kernels must have launched: 24q runs one
-   window_apply_bwd per window of the plan, 22q reaches
-   window_apply_top_bwd).  22q: the card's gradient against the port's CPU
-   float64 path (f32 lambda <= 1e-4 absolute, bf16 <= 5e-4).  24q: the
-   f32-lambda saved executor against the per-kernel autograd loop (<= 1e-6),
-   bf16 against f32 lambda (<= 5e-4), a central finite difference of the
-   card's forward along g/|g| (eps 1e-2, within 2 % of |g| + 2e-4), the
-   forward value under autograd against inference mode (<= 1e-6), a batch
-   against its single requests, and three plain SGD steps;
+   read after: one backward kernel per payload step (window_apply_bwd,
+   window_apply_top_bwd, rotmat/matrot/rotwin_apply_bwd), no adjoint
+   kernel.  22q: the card's gradient against the port's CPU float64 path
+   (f32 lambda <= 1e-4 absolute, bf16 <= 5e-4).  24q: the f32-lambda saved
+   executor against the per-kernel autograd loop (<= 1e-6), bf16 against
+   f32 lambda (<= 5e-4), a central finite difference of the card's forward
+   along g/|g| (eps 1e-2, within 2 % of |g| + 2e-4), the forward value under
+   autograd against inference mode (<= 1e-6), a batch against its single
+   requests, and three plain SGD steps;
 5b. the adjoint slice: gradients through the adjoint-state executor, forced
    (``BACKWARD_MODE = "adjoint"``) or chosen by the residual rule, with
    launch counts reset before the phase and read after each run (one
-   adjoint_step per window, one adjoint_step_top per top window, rotate_pair
-   at least once per rotation, no window backward kernel).  22q forced:
-   against the CPU float64 gradient (f32 lambda <= 1e-4, bf16 <= 5e-4).  24q
-   forced: against the saved executor (f32 lambda, <= 1e-4 max|g| + 1e-6:
-   the adjoint rebuilds the state through 13 fp32 windows) and bf16 against
-   f32 lambda (<= 5e-4).  24q, a batch of 16 inputs under ``"auto"``: the
-   rule picks the adjoint for every element (208 adjoint_step launches),
-   the gradient matches the saved executor on the same batch, and three SGD
-   steps give finite losses.  24q, a batch of 10 just under the rule's line
-   under ``"auto"``: free memory is read once and every element takes the
-   saved executor (130 window_apply_bwd launches, no adjoint kernel), where
-   a rule re-reading free memory per element would flip part-way (checked
-   from the memory free after the forward).  26q: the executor ``"auto"`` picks, forced
+   adjoint_step per window and per rotwin step, one adjoint_step_top per
+   top window, one adjoint_rotmat / adjoint_matrot per such step,
+   rotate_pair at least once per rotation and rotwin step, no backward
+   kernel).  22q forced: against the CPU float64 gradient (f32 lambda
+   <= 1e-4, bf16 <= 5e-4).  24q forced: against the saved executor (f32
+   lambda, <= 1e-4 max|g| + 1e-6) and bf16 against f32 lambda (<= 5e-4).
+   Two 24q batches bracket the rule's 0.35 line, sized from the rule's
+   estimate per input and the line this run reads (both printed): the
+   smallest batch >= 10 % over it under ``"auto"`` takes the adjoint for
+   every element, matches the saved executor on the same batch, and takes
+   three SGD steps; the largest batch under it reads free memory once and
+   takes the saved executor for every element, where a rule re-reading
+   free memory per element would flip part-way (checked from the memory
+   free after the forward).  26q: the executor ``"auto"`` picks, forced
    adjoint against forced saved, bf16 against f32 lambda, and a central
    finite difference;
+5c. the fused plan against the unfused one (``FUSE_LAYOUT_ROT`` off) on the
+   same 24q model and input: <Z> within 1e-6, the saved and the adjoint
+   gradients (f32 lambda) within 1e-4 max|g| + 1e-6, no fused kernel with
+   the flag off; each plan's residual estimate and saved fwd+grad peak;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
-   24q forced adjoint, 26q adjoint and saved, the 24q batch of 16 under
-   ``"auto"``, and each kernel's time on one request's shapes beside its
-   plain version's (CUDA events, best of 3 after warm-up).
+   24q forced adjoint, 26q adjoint and saved, the 24q batch over the line
+   under ``"auto"``; the 24q forward, saved fwd+grad and adjoint fwd+grad
+   with the flag off and on in turns (off, on, on, off; medians of 10) and
+   the forward plan's device time; and each kernel's time on one request's
+   shapes beside its plain version's, its library yardstick's (the cuBLAS
+   complex64 products of the same shapes through ``torch.matmul``, or a
+   transpose copy) and its bound (max of flops / 67 TFLOP/s and bytes /
+   3.35 TB/s), CUDA events, best of 3 after warm-up.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -71,6 +83,7 @@ with one entry per kernel; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -97,8 +110,10 @@ FD_EPS = 1e-2
 FD_REL, FD_ABS = 0.02, 2e-4  # |fd - g.v| <= 2 % of |g| + 2e-4 (fp32 forward, O(eps^2))
 SGD_LR = 1.0
 TOL_ADJ_REL, TOL_ADJ_ABS = 1e-4, 1e-6  # adjoint vs saved: <= 1e-4 max|g| + 1e-6
-BATCH16 = [float(x) for x in np.linspace(-1, 1, 16)]  # bench.py's input range
-BATCH_UNDER = 10  # 24q: 10 x 2.55 GB of residuals, just under 0.35 of an 80 GB card
+BATCH_MARGIN = 0.10  # the batch over the 0.35 line is >= 10 % over it
+TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass order)
+PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
     "window_apply": dict(
@@ -121,6 +136,30 @@ KERNELS = {
         source="qml_essentials_tpu_torch/csrc/rotate.cu",
         replaces="qml_essentials_tpu/ops/pallas_kernels.py:763",
     ),
+    "rotmat_apply": dict(
+        source="qml_essentials_tpu_torch/csrc/rotmat_apply.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:846",
+    ),
+    "rotmat_apply_bwd": dict(
+        source="qml_essentials_tpu_torch/csrc/rotmat_apply_bwd.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:881",
+    ),
+    "matrot_apply": dict(
+        source="qml_essentials_tpu_torch/csrc/matrot_apply.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1051",
+    ),
+    "matrot_apply_bwd": dict(
+        source="qml_essentials_tpu_torch/csrc/matrot_apply_bwd.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1087",
+    ),
+    "rotwin_apply": dict(
+        source="qml_essentials_tpu_torch/csrc/rotwin_apply.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1329",
+    ),
+    "rotwin_apply_bwd": dict(
+        source="qml_essentials_tpu_torch/csrc/rotwin_apply_bwd.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1367",
+    ),
     "adjoint_step": dict(
         source="qml_essentials_tpu_torch/csrc/adjoint_step.cu",
         replaces="qml_essentials_tpu/ops/pallas_kernels.py:403",
@@ -129,12 +168,25 @@ KERNELS = {
         source="qml_essentials_tpu_torch/csrc/adjoint_step_top.cu",
         replaces="qml_essentials_tpu/ops/pallas_kernels.py:635",
     ),
+    "adjoint_rotmat": dict(
+        source="qml_essentials_tpu_torch/csrc/adjoint_rotmat.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:962",
+    ),
+    "adjoint_matrot": dict(
+        source="qml_essentials_tpu_torch/csrc/adjoint_matrot.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1168",
+    ),
     "rotate_pair": dict(
         source="qml_essentials_tpu_torch/csrc/rotate_pair.cu",
         replaces="qml_essentials_tpu/ops/pallas_kernels.py:724",
     ),
 }
-ADJOINT_KERNELS = ("adjoint_step", "adjoint_step_top", "rotate_pair")
+FWD_KERNELS = ("window_apply", "window_apply_top", "rotate", "rotmat_apply", "matrot_apply",
+               "rotwin_apply")
+BWD_KERNELS = ("window_apply_bwd", "window_apply_top_bwd", "rotmat_apply_bwd",
+               "matrot_apply_bwd", "rotwin_apply_bwd")
+ADJOINT_KERNELS = ("adjoint_step", "adjoint_step_top", "adjoint_rotmat", "adjoint_matrot",
+                   "rotate_pair")
 
 
 def log(msg: str) -> None:
@@ -146,23 +198,57 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def plan_shapes(n: int) -> dict:
+class fusion:
+    """``with fusion(on):`` plans with ``simulation.FUSE_LAYOUT_ROT = on``."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+
+    def __enter__(self):
+        from qml_essentials_tpu_torch.ops import simulation
+
+        self.before, simulation.FUSE_LAYOUT_ROT = simulation.FUSE_LAYOUT_ROT, self.on
+
+    def __exit__(self, *exc):
+        from qml_essentials_tpu_torch.ops import simulation
+
+        simulation.FUSE_LAYOUT_ROT = self.before
+
+
+def plan_shapes(n: int, fused: bool = True) -> dict:
     """Kernel calls of one forward of the n-qubit Circuit_19 model, read off
-    the port's scheduled plan: window (a, k), top-window k, rotation r, and
-    the steps in plan order (the backward walks them in reverse)."""
+    the port's scheduled plan: window (a, k), top-window k, rotation r, the
+    fused steps (rotmat r, matrot r, rotwin (r, k)), and the steps in plan
+    order (the backward walks them in reverse)."""
     from qml_essentials_tpu_torch.models.model import Model
     from qml_essentials_tpu_torch.ops import simulation
     from qml_essentials_tpu_torch.ops.tape import recording
 
-    model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED)
+    model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED,
+                  device="cpu")
     with recording() as tape, torch.no_grad():
         model._variational(model.params[0], torch.tensor([REQUESTS[0]]))
-    plan, _ = simulation.scheduled_plan(tape, n)
-    shapes = {"window_apply": [], "window_apply_top": [], "rotate": [], "steps": []}
+    with fusion(fused):
+        plan, _ = simulation.scheduled_plan(tape, n)
+    shapes = {name: [] for name in FWD_KERNELS}
+    shapes["steps"] = []
     for kind, payload, wires in plan:
         if kind == "rot":
             shapes["rotate"].append(int(payload))
             shapes["steps"].append(("rot", int(payload)))
+        elif kind in ("rotmat", "matrot"):
+            r, k = int(payload[0]), len(wires)
+            if list(wires) != list(range(k)) or (kind == "matrot" and k != n - r):
+                raise AssertionError(f"{kind} step r={r} on wires {wires} at {n} qubits")
+            if kind == "matrot":
+                shapes["matrot_apply"].append(r)
+                shapes["steps"].append(("matrot", r))
+            elif k == r:
+                shapes["rotmat_apply"].append(r)
+                shapes["steps"].append(("rotmat", r))
+            else:
+                shapes["rotwin_apply"].append((r, k))
+                shapes["steps"].append(("rotwin", (r, k)))
         elif kind == "mat":
             a, k = min(wires), len(wires)
             if sorted(wires) != list(range(a, a + k)):
@@ -193,6 +279,43 @@ def backward_calls(steps: list) -> list:
         calls.append((kind, shape, lam, out))
         lam = out
     return calls
+
+
+def describe(shape: dict) -> str:
+    return (f"{len(shape['steps'])} steps: windows {shape['window_apply']}  top "
+            f"{shape['window_apply_top']}  rotations {shape['rotate']}  rotmat "
+            f"{shape['rotmat_apply']}  matrot {shape['matrot_apply']}  rotwin "
+            f"{shape['rotwin_apply']}")
+
+
+def residual_bytes(shape: dict, n: int) -> int:
+    """The residual rule's estimate for one input: one float32 pair a step."""
+    return len(shape["steps"]) * 8 * 2**n
+
+
+def saved_counts(shape: dict, requests: int = 1) -> dict:
+    """Backward and adjoint launches of saved-executor gradients: one
+    backward kernel per payload step, no adjoint kernel."""
+    want = dict.fromkeys((*BWD_KERNELS, *ADJOINT_KERNELS), 0)
+    want["window_apply_bwd"] = requests * len(shape["window_apply"])
+    want["window_apply_top_bwd"] = requests * len(shape["window_apply_top"])
+    for kind in ("rotmat", "matrot", "rotwin"):
+        want[f"{kind}_apply_bwd"] = requests * len(shape[f"{kind}_apply"])
+    return want
+
+
+def adjoint_counts(shape: dict, requests: int = 1) -> dict:
+    """Backward and adjoint launches of adjoint-executor gradients: one
+    adjoint step per window (rotwin's window too: the JAX package has no
+    fused rotwin adjoint), one rotate_pair per rotation and per rotwin step,
+    the fused adjoint steps, no backward kernel."""
+    want = dict.fromkeys((*BWD_KERNELS, *ADJOINT_KERNELS), 0)
+    want["adjoint_step"] = requests * (len(shape["window_apply"]) + len(shape["rotwin_apply"]))
+    want["adjoint_step_top"] = requests * len(shape["window_apply_top"])
+    want["adjoint_rotmat"] = requests * len(shape["rotmat_apply"])
+    want["adjoint_matrot"] = requests * len(shape["matrot_apply"])
+    want["rotate_pair"] = requests * (len(shape["rotate"]) + len(shape["rotwin_apply"]))
+    return want
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +366,56 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(t), e - 8)
 
 
+def _cmp_state(label, got, ref, out_dt) -> tuple:
+    """A state-sized output against float64: float32 within 1e-5 of the
+    largest magnitude, bfloat16 within one bf16 ulp plus that floor.
+    Returns (ok, rel, abs err counted for float32)."""
+    if got.dtype != out_dt:
+        raise AssertionError(f"{label}: output dtype {got.dtype}, want {out_dt}")
+    err = (got.double() - ref).abs()
+    floor = TOL_WINDOW * ref.abs().max()
+    if out_dt == torch.bfloat16:
+        ok = bool((err <= _bf16_ulp(ref) + floor).all())
+    else:
+        ok = bool(err.max() <= floor)
+    top = err.max().item()
+    return ok, top / ref.abs().max().item(), top if out_dt == torch.float32 else 0.0
+
+
+def _cmp_bwd(label, got, ref, out_dt) -> float:
+    """(gp, gw) of a backward kernel against float64; returns the max abs err."""
+    (gp, gw), (rp, rw) = got, ref
+    ok_p, rel_p, e_p = _cmp_state(label, gp, rp, out_dt)
+    if gw.dtype != torch.float32:
+        raise AssertionError(f"{label}: gw dtype {gw.dtype}")
+    e_w = (gw.double() - rw).abs().max().item()
+    rel_w = e_w / rw.abs().max().item()
+    log(f"  {label} gp rel={rel_p:.3e} gw rel={rel_w:.3e}")
+    if not (ok_p and rel_w <= TOL_GRAM):
+        raise AssertionError(f"{label}: gp rel {rel_p:.3e}, gw rel {rel_w:.3e}")
+    return max(e_w, e_p)
+
+
+def _cmp_adjoint(label, got, ref, out_dt) -> float:
+    """(psi_prev, lam_prev, gw) of an adjoint step against float64."""
+    (pp, lp, gw), (rp, rl, rw) = got, ref
+    ok_s, rel_s, e_s = _cmp_state(label, pp, rp, torch.float32)
+    ok_l, rel_l, _ = _cmp_state(label, lp, rl, out_dt)
+    if gw.dtype != torch.float32:
+        raise AssertionError(f"{label}: gw dtype {gw.dtype}")
+    e_w = (gw.double() - rw).abs().max().item()
+    rel_w = e_w / rw.abs().max().item()
+    log(f"  {label} psi rel={rel_s:.3e} lam rel={rel_l:.3e} gw rel={rel_w:.3e}")
+    if not (ok_s and ok_l and rel_w <= TOL_GRAM):
+        raise AssertionError(f"{label}: psi rel {rel_s:.3e}, lam rel {rel_l:.3e}, "
+                             f"gw rel {rel_w:.3e}")
+    return max(e_s, e_w)
+
+
+def _dt(t: torch.dtype) -> str:
+    return str(t)[6:]
+
+
 def check_bwd(ck, kn, cases, top: bool, gen, rng) -> float:
     """Backward kernel vs its plain version in float64, for float32 and
     bfloat16 cotangents in and out; returns the max abs error."""
@@ -253,32 +426,16 @@ def check_bwd(ck, kn, cases, top: bool, gen, rng) -> float:
         for g_dt, out_dt in _BWD_DTYPES:
             g = g32.to(g_dt)
             if top:
-                gp, gw = ck.window_apply_top_bwd(w, g, x, k, n, out_dt)
-                rp, rw = kn.window_apply_top_bwd_plain(
+                got = ck.window_apply_top_bwd(w, g, x, k, n, out_dt)
+                ref = kn.window_apply_top_bwd_plain(
                     w.double(), g.double(), x.double(), k, n, torch.float64)
             else:
-                gp, gw = ck.window_apply_bwd(w, g, x, a, k, n, out_dt)
-                rp, rw = kn.window_apply_bwd_plain(
+                got = ck.window_apply_bwd(w, g, x, a, k, n, out_dt)
+                ref = kn.window_apply_bwd_plain(
                     w.double(), g.double(), x.double(), a, k, n, torch.float64)
             torch.cuda.synchronize()
-            if gp.dtype != out_dt or gw.dtype != torch.float32:
-                raise AssertionError(f"{name}: output dtypes {gp.dtype}, {gw.dtype}")
-            e_p = (gp.double() - rp).abs()
-            floor = TOL_WINDOW * rp.abs().max()
-            if out_dt == torch.bfloat16:
-                ok_p = bool((e_p <= _bf16_ulp(rp) + floor).all())
-            else:
-                ok_p = bool(e_p.max() <= floor)
-            e_w = (gw.double() - rw).abs().max().item()
-            rel_p = e_p.max().item() / rp.abs().max().item()
-            rel_w = e_w / rw.abs().max().item()
-            log(f"  {name:20s} n={n:2d} a={a:2d} k={k:2d} g={str(g_dt)[6:]:8s} "
-                f"out={str(out_dt)[6:]:8s} gp rel={rel_p:.3e} gw rel={rel_w:.3e}")
-            if not (ok_p and rel_w <= TOL_GRAM):
-                raise AssertionError(
-                    f"{name} n={n} a={a} k={k} g={g_dt} out={out_dt}: gp rel {rel_p:.3e}, "
-                    f"gw rel {rel_w:.3e}")
-            worst = max(worst, e_w, e_p.max().item() if out_dt == torch.float32 else 0.0)
+            label = f"{name:20s} n={n:2d} a={a:2d} k={k:2d} g={_dt(g_dt):8s} out={_dt(out_dt):8s}"
+            worst = max(worst, _cmp_bwd(label, got, ref, out_dt))
     return worst
 
 
@@ -292,37 +449,67 @@ def check_adjoint(ck, kn, cases, top: bool, gen, rng) -> float:
         for l_dt, out_dt in _BWD_DTYPES:
             lam = lam32.to(l_dt)
             if top:
-                pp, lp, gw = ck.adjoint_step_top(w, psi, lam, k, n, out_dt)
-                rp, rl, rw = kn.adjoint_step_top_plain(
+                got = ck.adjoint_step_top(w, psi, lam, k, n, out_dt)
+                ref = kn.adjoint_step_top_plain(
                     w.double(), psi.double(), lam.double(), k, n, torch.float64)
             else:
-                pp, lp, gw = ck.adjoint_step(w, psi, lam, a, k, n, out_dt)
-                rp, rl, rw = kn.adjoint_step_plain(
+                got = ck.adjoint_step(w, psi, lam, a, k, n, out_dt)
+                ref = kn.adjoint_step_plain(
                     w.double(), psi.double(), lam.double(), a, k, n, torch.float64)
             torch.cuda.synchronize()
-            if pp.dtype != torch.float32 or lp.dtype != out_dt or gw.dtype != torch.float32:
-                raise AssertionError(f"{name}: output dtypes {pp.dtype}, {lp.dtype}, {gw.dtype}")
-            e_s = (pp.double() - rp).abs().max().item()
-            rel_s = e_s / rp.abs().max().item()
-            e_l = (lp.double() - rl).abs()
-            floor = TOL_WINDOW * rl.abs().max()
-            if out_dt == torch.bfloat16:
-                ok_l = bool((e_l <= _bf16_ulp(rl) + floor).all())
-            else:
-                ok_l = bool(e_l.max() <= floor)
-            rel_l = e_l.max().item() / rl.abs().max().item()
-            e_w = (gw.double() - rw).abs().max().item()
-            rel_w = e_w / rw.abs().max().item()
-            del pp, lp, rp, rl, e_l
-            log(f"  {name:20s} n={n:2d} a={a:2d} k={k:2d} lam={str(l_dt)[6:]:8s} "
-                f"out={str(out_dt)[6:]:8s} psi rel={rel_s:.3e} lam rel={rel_l:.3e} "
-                f"gw rel={rel_w:.3e}")
-            if not (rel_s <= TOL_WINDOW and ok_l and rel_w <= TOL_GRAM):
-                raise AssertionError(
-                    f"{name} n={n} a={a} k={k} lam={l_dt} out={out_dt}: psi rel {rel_s:.3e}, "
-                    f"lam rel {rel_l:.3e}, gw rel {rel_w:.3e}")
-            worst = max(worst, e_s, e_w)
+            label = f"{name:20s} n={n:2d} a={a:2d} k={k:2d} lam={_dt(l_dt):8s} out={_dt(out_dt):8s}"
+            worst = max(worst, _cmp_adjoint(label, got, ref, out_dt))
+            del got, ref
     return worst
+
+
+def _fused_geom(kind: str, r: int, k: int) -> tuple:
+    return (r, k) if kind == "rotwin" else (r,)
+
+
+def check_fused(ck, kn, cases, gen, rng) -> dict:
+    """The fused (rotation, window) kernels against their plain versions in
+    float64: (kind, n, r, k) with k == r for rotmat, k == n - r for matrot and
+    r < k for rotwin.  Each case runs the forward kernel, the backward kernel
+    with float32 and bfloat16 cotangents in and out, and, for rotmat and
+    matrot, the adjoint step the same way.  Returns the max abs error per
+    kernel."""
+    errs = {}
+    for kind, n, r, k in cases:
+        geom = _fused_geom(kind, r, k)
+        x, w, g32 = _state(n, gen), _unitary(k, rng), _state(n, gen)
+        name = f"{kind}_apply"
+        y = getattr(ck, name)(x, w, *geom, n)
+        ref = getattr(kn, f"{name}_plain")(x.double(), w.double(), *geom, n)
+        torch.cuda.synchronize()
+        err = (y.double() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        log(f"  {name:20s} n={n:2d} r={r:2d} k={k:2d}  max|err|={err:.3e}  rel={rel:.3e}")
+        if not rel <= TOL_WINDOW:
+            raise AssertionError(f"{name} n={n} r={r} k={k}: rel err {rel:.3e} > {TOL_WINDOW}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        del y, ref
+        for g_dt, out_dt in _BWD_DTYPES:
+            g = g32.to(g_dt)
+            bwd = f"{kind}_apply_bwd"
+            got = getattr(ck, bwd)(w, g, x, *geom, n, out_dt)
+            ref = getattr(kn, f"{bwd}_plain")(w.double(), g.double(), x.double(), *geom, n,
+                                              torch.float64)
+            torch.cuda.synchronize()
+            label = f"{bwd:20s} n={n:2d} r={r:2d} k={k:2d} g={_dt(g_dt):8s} out={_dt(out_dt):8s}"
+            errs[bwd] = max(errs.get(bwd, 0.0), _cmp_bwd(label, got, ref, out_dt))
+            del got, ref
+            if kind == "rotwin":
+                continue
+            adj = f"adjoint_{kind}"
+            got = getattr(ck, adj)(w, x, g, r, n, out_dt)
+            ref = getattr(kn, f"{adj}_plain")(w.double(), x.double(), g.double(), r, n,
+                                              torch.float64)
+            torch.cuda.synchronize()
+            label = f"{adj:20s} n={n:2d} r={r:2d} k={k:2d} lam={_dt(g_dt):8s} out={_dt(out_dt):8s}"
+            errs[adj] = max(errs.get(adj, 0.0), _cmp_adjoint(label, got, ref, out_dt))
+            del got, ref
+    return errs
 
 
 def check_rotate_pair(ck, kn, cases, gen) -> float:
@@ -395,6 +582,18 @@ def phase_parity(shapes: dict) -> dict:
     check_adjoint(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4)], False, gen, rng)
     check_adjoint(ck, kn, [(12, 11, 1), (16, 10, 6), (6, 0, 6), (11, 6, 5)], True, gen, rng)
     check_rotate_pair(ck, kn, [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2)], gen)
+
+    log("  fused rotation kernels (the main path's 22q, 24q and 26q shapes, edges):")
+    main_fused = sorted(
+        {("rotmat", w, r, r) for w in (m, n, WIDE) for r in shapes[w]["rotmat_apply"]}
+        | {("matrot", w, r, w - r) for w in (m, n, WIDE) for r in shapes[w]["matrot_apply"]}
+        | {("rotwin", w, r, k) for w in (m, n, WIDE) for r, k in shapes[w]["rotwin_apply"]})
+    errs.update(check_fused(ck, kn, main_fused, gen, rng))
+    check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
+                         ("matrot", 9, 1, 8), ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5),
+                         ("rotwin", 12, 7, 9)], gen, rng)
+    missing = set(KERNELS) - set(errs)
+    _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
 
 
@@ -407,7 +606,7 @@ def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_slice() -> tuple:
+def phase_slice(shapes: dict) -> tuple:
     from qml_essentials_tpu_torch.models.model import Model
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
@@ -450,11 +649,14 @@ def phase_slice() -> tuple:
         if not d_ref <= TOL_EXPVAL:
             raise AssertionError(f"{n}q: card vs CPU reference differ by {d_ref:.3e}")
 
-    if per_width[WIDTHS[0]]["window_apply_top"] == 0:
-        raise AssertionError(f"{WIDTHS[0]}q forward did not reach window_apply_top")
-    for name in ("window_apply", "window_apply_top", "rotate"):
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was never launched on the forward path")
+    # Six requests per width (three single, one batch of three): each runs
+    # every step of its plan once.
+    for n in WIDTHS:
+        want = {name: 6 * len(shapes[n][name]) for name in FWD_KERNELS}
+        got = {name: per_width[n][name] for name in FWD_KERNELS}
+        _check(got == want, f"{n}q forward launches {got}, the plan wants {want}")
+    for name in FWD_KERNELS:
+        _check(launches[name] > 0, f"kernel {name} was never launched on the forward path")
     log(f"  launches over the forward run: {launches}")
     return models, launches
 
@@ -463,7 +665,7 @@ def _cpu_f64_model(model, n: int):
     from qml_essentials_tpu_torch.models.model import Model
 
     ref_model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19",
-                      dtype=torch.float64)
+                      dtype=torch.float64, device="cpu")
     ref_model.load_numpy(model.params.detach().cpu().numpy())
     return ref_model
 
@@ -521,15 +723,12 @@ def phase_grad(models: dict, shapes: dict) -> tuple:
             f"batch loss {bloss.item():.6f}; one request launched {per_single[(n, mode)]}")
     for n in WIDTHS:
         log(f"  {n}q launches over its gradient run: {per_width[n]}")
-    for mode in ("bf16", "f32"):
-        n, m = WIDTHS[-1], WIDTHS[0]
-        want = len(shapes[n]["window_apply"])
-        got = per_single[(n, mode)]["window_apply_bwd"]
-        _check(got == want and want > 0,
-               f"{n}q {mode}: window_apply_bwd launched {got} times, the plan has {want} windows")
-        _check(per_single[(m, mode)]["window_apply_top_bwd"]
-               == len(shapes[m]["window_apply_top"]) > 0,
-               f"{m}q {mode}: window_apply_top_bwd did not launch once per top window")
+    # One backward kernel per payload step of the plan, and none of the
+    # adjoint's.
+    for (n, mode), counts in per_single.items():
+        want = saved_counts(shapes[n])
+        got = {name: counts[name] for name in (*BWD_KERNELS, *ADJOINT_KERNELS)}
+        _check(got == want, f"{n}q {mode}: backward launches {got}, the plan wants {want}")
 
     # Batch against its single requests (f32 lambda): loss is the mean of
     # the three requests' means.
@@ -568,8 +767,10 @@ def phase_grad(models: dict, shapes: dict) -> tuple:
     d = _maxdiff(g, g_loop)
     log(f"  {n}q saved (f32 lambda) vs per-kernel loop: max|delta g|={d:.3e} "
         f"(loop launched {loop_counts})")
-    _check(d <= TOL_GRAD_LOOP and loop_counts["window_apply_bwd"] > 0,
-           f"{n}q: saved vs per-kernel loop differ by {d:.3e}")
+    loop_want = {name: v for name, v in saved_counts(shapes[n]).items() if name in BWD_KERNELS}
+    _check(d <= TOL_GRAD_LOOP and all(loop_counts[k] == v for k, v in loop_want.items()),
+           f"{n}q: saved vs per-kernel loop differ by {d:.3e} (loop launches {loop_counts}, "
+           f"want {loop_want})")
     d = _maxdiff(g16, g)
     log(f"  {n}q bf16 vs f32 lambda: max|delta g|={d:.3e}")
     _check(d <= TOL_GRAD_BF16, f"{n}q: bf16 vs f32 lambda differ by {d:.3e}")
@@ -615,16 +816,12 @@ def _adjoint_grad(model, inputs, mode: str, lam: str) -> tuple:
 
 
 def _check_adjoint_counts(counts: dict, shape: dict, what: str, requests: int = 1) -> None:
-    """One adjoint_step per window, one adjoint_step_top per top window,
-    rotate_pair at least once per rotation, and no window backward kernel."""
-    want = {"adjoint_step": requests * len(shape["window_apply"]),
-            "adjoint_step_top": requests * len(shape["window_apply_top"])}
-    ok = (all(counts[k] == v for k, v in want.items())
-          and counts["rotate_pair"] >= requests * len(shape["rotate"])
-          and counts["window_apply_bwd"] == 0 and counts["window_apply_top_bwd"] == 0)
+    """The launches of adjoint_counts(), with rotate_pair at least that many."""
+    want = adjoint_counts(shape, requests)
+    ok = all(counts[k] == v for k, v in want.items() if k != "rotate_pair")
+    ok = ok and counts["rotate_pair"] >= want["rotate_pair"]
     log(f"  {what} launched {counts}")
-    _check(ok, f"{what}: launches {counts}, want {want}, rotate_pair >= "
-               f"{requests * len(shape['rotate'])} and no window backward kernel")
+    _check(ok, f"{what}: launches {counts}, want {want} (rotate_pair at least)")
 
 
 def _within(g, ref, what: str, rel: float = TOL_ADJ_REL, abs_: float = TOL_ADJ_ABS) -> None:
@@ -654,7 +851,7 @@ def _finite_difference(model, g, inputs, what: str) -> None:
     _check(abs(fd - gnorm) <= tol, f"{what}: finite difference {fd} vs |g| {gnorm}")
 
 
-def _batch_under_the_line(model, shape: dict, n: int) -> None:
+def _batch_under_the_line(model, shape: dict, n: int, size: int) -> None:
     """A batch whose residuals fit under the 0.35 line before it starts, but
     not in what is free once most of them are held: one decision sends every
     element to the saved executor, and free memory is read once.  (A rule
@@ -663,9 +860,9 @@ def _batch_under_the_line(model, shape: dict, n: int) -> None:
     from qml_essentials_tpu_torch.core import memory
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, saved, simulation
 
-    batch = [float(x) for x in np.linspace(-1, 1, BATCH_UNDER)]
+    batch = [float(x) for x in np.linspace(-1, 1, size)]
     frac = simulation._RESIDUAL_MEM_FRACTION
-    need = BATCH_UNDER * len(shape["steps"]) * 8 * 2**n
+    need = size * residual_bytes(shape, n)
     real = memory.available_memory_bytes
     reads = []
 
@@ -686,30 +883,46 @@ def _batch_under_the_line(model, shape: dict, n: int) -> None:
     finally:
         memory.available_memory_bytes = real
     c = _diff(ck.launch_counts(), before)
-    _check(len(reads) == 1, f"{n}q batch of {BATCH_UNDER}: free memory read {len(reads)} times")
+    _check(len(reads) == 1, f"{n}q batch of {size}: free memory read {len(reads)} times")
     # What the last element would have read: all but one element's residuals held.
-    last = reads[0] - (BATCH_UNDER - 1) / BATCH_UNDER * (reads[0] - held)
-    log(f"  {n}q batch of {BATCH_UNDER}: residuals {need / 1e9:.2f} GB against 0.35 x free "
+    last = reads[0] - (size - 1) / size * (reads[0] - held)
+    log(f"  {n}q batch of {size}: residuals {need / 1e9:.2f} GB against 0.35 x free "
         f"{frac * reads[0] / 1e9:.2f} GB before the batch; a per-element re-read would see "
         f"{frac * last / 1e9:.2f} GB at the last element")
-    _check(need <= frac * reads[0], f"{n}q batch of {BATCH_UNDER} is not under the line")
-    _check(need > frac * last, f"{n}q batch of {BATCH_UNDER}: a per-element rule would not "
+    _check(need <= frac * reads[0], f"{n}q batch of {size} is not under the line")
+    _check(need > frac * last, f"{n}q batch of {size}: a per-element rule would not "
                                "flip, so the check cannot tell one decision from many")
-    want = BATCH_UNDER * len(shape["window_apply"])
-    log(f"  {n}q batch of {BATCH_UNDER} under auto launched {c}")
-    _check(c["window_apply_bwd"] == want and c["adjoint_step"] == 0 and c["rotate_pair"] == 0,
-           f"{n}q batch of {BATCH_UNDER}: launches {c}, want {want} window_apply_bwd and "
-           "no adjoint kernel")
+    want = saved_counts(shape, size)
+    log(f"  {n}q batch of {size} under auto launched {c}")
+    _check(all(c[k] == v for k, v in want.items()),
+           f"{n}q batch of {size}: launches {c}, want {want}")
     _check(bool(torch.isfinite(model.params.grad).all()) and bool(torch.isfinite(loss)),
-           f"{n}q batch of {BATCH_UNDER}: non-finite loss or gradient")
+           f"{n}q batch of {size}: non-finite loss or gradient")
+
+
+def batch_sizes(shape: dict, n: int) -> tuple:
+    """The 24q batches either side of the residual rule's line, from its
+    estimate per input and the line this run reads: the largest batch under
+    it, and the smallest at least BATCH_MARGIN over it."""
+    from qml_essentials_tpu_torch.core import memory
+    from qml_essentials_tpu_torch.ops import simulation
+
+    per = residual_bytes(shape, n)
+    line = simulation._RESIDUAL_MEM_FRACTION * memory.available_memory_bytes(DEVICE)
+    under = int(line // per)
+    over = math.ceil((1 + BATCH_MARGIN) * line / per)
+    log(f"  {n}q residual estimate {per / 1e9:.3f} GB per input ({len(shape['steps'])} steps); "
+        f"line 0.35 x free = {line / 1e9:.2f} GB: batch of {under} = {under * per / 1e9:.2f} GB "
+        f"({100 * (1 - under * per / line):.1f} % under), batch of {over} = "
+        f"{over * per / 1e9:.2f} GB ({100 * (over * per / line - 1):.1f} % over)")
+    return under, over
 
 
 def phase_adjoint(models: dict, shapes: dict, g64: torch.Tensor) -> tuple:
-    from qml_essentials_tpu_torch.core import memory
     from qml_essentials_tpu_torch.models.model import Model
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, saved, simulation
 
-    log("phase 5b: gradients through the adjoint-state executor (B12, B13, B16)")
+    log("phase 5b: gradients through the adjoint-state executor (B12-B16)")
     ck.reset_launch_counts()
     m, n = WIDTHS
     x0 = REQUESTS[0]
@@ -727,41 +940,38 @@ def phase_adjoint(models: dict, shapes: dict, g64: torch.Tensor) -> tuple:
     _, g_adj, c = _adjoint_grad(model, x0, "adjoint", "f32")
     _check_adjoint_counts(c, shapes[n], f"{n}q adjoint (lambda=f32)")
     _, g_sav, c = _adjoint_grad(model, x0, "autodiff", "f32")
-    _check(c["adjoint_step"] == 0 and c["window_apply_bwd"] > 0,
+    _check(all(c[k] == v for k, v in saved_counts(shapes[n]).items()),
            f"{n}q autodiff did not run the saved executor: {c}")
     _within(g_adj, g_sav, f"{n}q adjoint vs saved (lambda=f32)")
     _, g_adj16, c = _adjoint_grad(model, x0, "adjoint", "bf16")
     _check_adjoint_counts(c, shapes[n], f"{n}q adjoint (lambda=bf16)")
     _within(g_adj16, g_adj, f"{n}q adjoint bf16 vs f32 lambda", 0.0, TOL_GRAD_BF16)
 
-    # 24q, a batch of 16 under "auto": 16 x 2.55 GB of residuals is over the
-    # rule's line, so every element takes the adjoint (one decision).
-    residuals = len(BATCH16) * len(shapes[n]["steps"]) * 8 * 2**n
-    line = simulation._RESIDUAL_MEM_FRACTION * memory.available_memory_bytes(DEVICE)
-    log(f"  {n}q batch of {len(BATCH16)}: residuals {residuals / 1e9:.1f} GB against "
-        f"0.35 x free {line / 1e9:.1f} GB")
-    _, gb_adj, c = _adjoint_grad(model, BATCH16, "auto", "f32")
-    _check_adjoint_counts(c, shapes[n], f"{n}q batch of {len(BATCH16)} under auto",
-                          len(BATCH16))
+    # 24q, a batch over the rule's line under "auto": every element takes
+    # the adjoint (one decision).
+    under, over = batch_sizes(shapes[n], n)
+    batch = [float(x) for x in np.linspace(-1, 1, over)]  # bench.py's input range
+    _, gb_adj, c = _adjoint_grad(model, batch, "auto", "f32")
+    _check_adjoint_counts(c, shapes[n], f"{n}q batch of {over} under auto", over)
     torch.cuda.reset_peak_memory_stats()
-    _, gb_sav, c = _adjoint_grad(model, BATCH16, "autodiff", "f32")
+    _, gb_sav, c = _adjoint_grad(model, batch, "autodiff", "f32")
     log(f"  {n}q batch under forced autodiff: peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     _check(c["adjoint_step"] == 0, f"{n}q batch under autodiff ran the adjoint: {c}")
-    _within(gb_adj, gb_sav, f"{n}q batch of {len(BATCH16)}: auto (adjoint) vs saved")
+    _within(gb_adj, gb_sav, f"{n}q batch of {over}: auto (adjoint) vs saved")
     p0 = model.params.detach().clone()
     losses = []
     for step in range(3):
-        loss, grad, c = _adjoint_grad(model, BATCH16, "auto", "bf16")
-        _check(c["adjoint_step"] == len(BATCH16) * len(shapes[n]["window_apply"]),
+        loss, grad, c = _adjoint_grad(model, batch, "auto", "bf16")
+        _check(c["adjoint_step"] == adjoint_counts(shapes[n], over)["adjoint_step"],
                f"{n}q batch SGD step {step}: launches {c}")
         with torch.no_grad():
             model.params.sub_(SGD_LR * grad)
         losses.append(loss.item())
-        log(f"  {n}q batch of {len(BATCH16)} SGD step {step} (auto, bf16 lambda): "
+        log(f"  {n}q batch of {over} SGD step {step} (auto, bf16 lambda): "
             f"loss {loss.item():.6f}")
     model.params.data = p0
     _check(all(np.isfinite(losses)), f"{n}q batch: non-finite SGD losses {losses}")
-    _batch_under_the_line(model, shapes[n], n)
+    _batch_under_the_line(model, shapes[n], n, under)
 
     # 26q, one input.
     model26 = Model(n_qubits=WIDE, n_layers=N_LAYERS, circuit_type="Circuit_19",
@@ -769,7 +979,7 @@ def phase_adjoint(models: dict, shapes: dict, g64: torch.Tensor) -> tuple:
     _, _, c = _adjoint_grad(model26, x0, "auto", "bf16")
     picked = "adjoint" if c["adjoint_step"] else "saved"
     log(f"  {WIDE}q auto picks the {picked} executor (residuals "
-        f"{len(shapes[WIDE]['steps']) * 8 * 2**WIDE / 1e9:.2f} GB per input)")
+        f"{residual_bytes(shapes[WIDE], WIDE) / 1e9:.2f} GB per input)")
     _, g_adj, c = _adjoint_grad(model26, x0, "adjoint", "f32")
     _check_adjoint_counts(c, shapes[WIDE], f"{WIDE}q adjoint (lambda=f32)")
     _, g_sav, c = _adjoint_grad(model26, x0, "autodiff", "f32")
@@ -785,7 +995,49 @@ def phase_adjoint(models: dict, shapes: dict, g64: torch.Tensor) -> tuple:
     log(f"  launches over the adjoint phase: {launches}")
     for name in ADJOINT_KERNELS:
         _check(launches[name] > 0, f"kernel {name} was never launched on the adjoint path")
-    return model26, launches
+    return model26, launches, batch
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the fused plan against the unfused one
+# ---------------------------------------------------------------------------
+
+
+def phase_fusion_ab(model, shapes: dict, n: int) -> None:
+    """The same 24q model and input with FUSE_LAYOUT_ROT off and on: the
+    forward <Z> within 1e-6, the saved and the adjoint gradient (f32 lambda)
+    within 1e-4 max|g| + 1e-6; with the flag off no fused kernel launches."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    log("phase 5c: the fused plan (FUSE_LAYOUT_ROT on) against the unfused plan (off)")
+    fused = ("rotmat_apply", "matrot_apply", "rotwin_apply", "rotmat_apply_bwd",
+             "matrot_apply_bwd", "rotwin_apply_bwd", "adjoint_rotmat", "adjoint_matrot")
+    x0, res = REQUESTS[0], {}
+    for on in (False, True):
+        with fusion(on):
+            before = ck.launch_counts()
+            with torch.inference_mode():
+                z = model(inputs=x0).detach().clone()
+            _, g_sav, _ = _adjoint_grad(model, x0, "autodiff", "f32")
+            _, g_adj, _ = _adjoint_grad(model, x0, "adjoint", "f32")
+            torch.cuda.reset_peak_memory_stats()
+            _adjoint_grad(model, x0, "autodiff", "bf16")
+            peak = torch.cuda.max_memory_allocated()
+            c = _diff(ck.launch_counts(), before)
+        res[on] = (z, g_sav, g_adj)
+        shape = shapes[n] if on else plan_shapes(n, fused=False)
+        log(f"  {n}q flag {'on ' if on else 'off'}: {describe(shape)}; residual estimate "
+            f"{residual_bytes(shape, n) / 1e9:.3f} GB per input; saved fwd+grad peak "
+            f"{peak / 1e9:.2f} GB; fused launches {[c[k] for k in fused]}")
+        _check(on == any(c[k] for k in fused), f"{n}q flag {on}: fused launches {c}")
+    from qml_essentials_tpu_torch.ops import simulation
+
+    simulation.set_backward_mode("auto")
+    d = _maxdiff(res[True][0], res[False][0])
+    log(f"  {n}q <Z> on vs off: max|delta|={d:.3e} (tol {TOL_FUSE_FWD})")
+    _check(d <= TOL_FUSE_FWD, f"{n}q fused vs unfused <Z> differ by {d:.3e}")
+    _within(res[True][1], res[False][1], f"{n}q saved gradient on vs off (lambda=f32)")
+    _within(res[True][2], res[False][2], f"{n}q adjoint gradient on vs off (lambda=f32)")
 
 
 # ---------------------------------------------------------------------------
@@ -897,7 +1149,7 @@ def _grad_times(model, inputs, what: str, median: bool = False) -> None:
     log(f"  forward + gradient {what}: {best:.3f} ms{extra}")
 
 
-def _adjoint_times(models: dict, model26) -> None:
+def _adjoint_times(models: dict, model26, batch: list) -> None:
     from qml_essentials_tpu_torch.ops import saved, simulation
 
     n = WIDTHS[-1]
@@ -912,12 +1164,209 @@ def _adjoint_times(models: dict, model26) -> None:
         _grad_times(model26, REQUESTS[0],
                     f"{WIDE}q Circuit_19 L={N_LAYERS}, {label} (bf16 lambda), per request")
     simulation.set_backward_mode("auto")
-    _grad_times(models[n], BATCH16,
-                f"{n}q Circuit_19 L={N_LAYERS}, a batch of {len(BATCH16)} under auto (adjoint, "
+    _grad_times(models[n], batch,
+                f"{n}q Circuit_19 L={N_LAYERS}, a batch of {len(batch)} under auto (adjoint, "
                 f"bf16 lambda), per batch")
 
 
-def phase_times(models: dict, model26, shapes: dict) -> dict:
+def _plan_run(model, n: int):
+    """The forward plan of one request as a function that runs its steps on
+    the card (inference mode), and the number of steps."""
+    from qml_essentials_tpu_torch.ops import kernels, simulation
+
+    inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
+    with torch.inference_mode():
+        tape = model.script._record(model.params, inputs, model.enc_params)
+        plan, start = simulation.scheduled_plan(tape, n, device=DEVICE)
+
+    def run():
+        with torch.inference_mode():
+            psi2 = start if start is not None else kernels.zero_state_ri(n, device=DEVICE)
+            for kind, payload, wires in plan:
+                psi2 = simulation._apply_step_ri(psi2, kind, payload, wires, n)
+            return psi2
+
+    return run, len(plan)
+
+
+def _ab_times(model, n: int) -> None:
+    """24q requests with FUSE_LAYOUT_ROT off and on, in turns (off, on, on,
+    off): each turn the median of 10 after a warm-up for a forward, a saved
+    fwd+grad and an adjoint fwd+grad (bf16 lambda), and the device time of
+    one forward plan's steps (CUDA events, best of 3 means of 10)."""
+    from qml_essentials_tpu_torch.ops import saved, simulation
+
+    saved.set_lambda_mode("bf16")
+    rows = {False: [], True: []}
+
+    def fwd():
+        with torch.inference_mode():
+            return model(inputs=REQUESTS[0])
+
+    for on in (False, True, True, False):
+        with fusion(on):
+            run, steps = _plan_run(model, n)
+            plan_ms = _events_ms(run)
+            row = [plan_ms]
+            for mode in (None, "autodiff", "adjoint"):
+                if mode is not None:
+                    simulation.set_backward_mode(mode)
+                fn = fwd if mode is None else (lambda: _grad_request(model, REQUESTS[0]))
+                fn()
+                torch.cuda.synchronize()
+                row.append(_host_ms(fn, reps=10)[1])
+            simulation.set_backward_mode("auto")
+        rows[on].append(row)
+        log(f"  A/B {n}q flag {'on ' if on else 'off'} ({steps} steps): forward plan on the "
+            f"device {row[0]:.3f} ms; median of 10: forward {row[1]:.3f} ms, saved fwd+grad "
+            f"{row[2]:.3f} ms, adjoint fwd+grad {row[3]:.3f} ms")
+    for on in (False, True):
+        mean = np.mean(rows[on], axis=0)
+        log(f"  A/B {n}q flag {'on ' if on else 'off'}, mean of its two turns: forward plan "
+            f"{mean[0]:.3f} ms, forward {mean[1]:.3f} ms, saved fwd+grad {mean[2]:.3f} ms, "
+            f"adjoint fwd+grad {mean[3]:.3f} ms")
+
+
+# The yardstick of each kernel (library_ms): the cuBLAS complex64 product(s)
+# of the same shapes through torch.matmul, on operands made from the
+# kernel's own inputs before the clock starts (TF32 off); for a rotation, one
+# transpose copy.  Each builder returns the timed function.
+
+
+def _c(t: torch.Tensor) -> torch.Tensor:
+    """A real-split pair as one complex64 tensor."""
+    return torch.complex(t[0].float(), t[1].float())
+
+
+def _h(m: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose of the last two axes, materialised."""
+    return m.conj_physical().transpose(-2, -1).contiguous()
+
+
+def lib_window(x, w, a, k, n):
+    W, X = _c(w), _c(x).view(2**a, 2**k, -1)
+    return lambda: W @ X
+
+
+def lib_window_top(x, w, k, n):
+    WT, X = _c(w).T.contiguous(), _c(x).view(-1, 2**k)
+    return lambda: X @ WT
+
+
+def lib_rotate(x, r, n):
+    return lambda: x.view(2, 2 ** (n - r), 2**r).transpose(1, 2).contiguous()
+
+
+def lib_rotate_pair(psi, lam, r, n):
+    f, g = lib_rotate(psi, r, n), lib_rotate(lam, r, n)
+    return lambda: (f(), g())
+
+
+def lib_rotmat(x, w, r, n):
+    W, XT = _c(w), _c(x).view(-1, 2**r).T.contiguous()
+    return lambda: W @ XT
+
+
+def lib_matrot(x, w, r, n):
+    WT, XT = _c(w).T.contiguous(), _c(x).view(2 ** (n - r), -1).T.contiguous()
+    return lambda: XT @ WT
+
+
+def _rotwin_operands(ck, w, x, r, k):
+    """W with permuted columns as (A, K, L) blocks, x_pre as (A, X, L)."""
+    K, L = 2**k, 2**r
+    W3 = _c(ck._rotwin_wperm(w, r, k)).view(K, K // L, L).permute(1, 0, 2).contiguous()
+    return W3, _c(x).view(K // L, -1, L)
+
+
+def lib_rotwin(ck, x, w, r, k, n):
+    W3, X3 = _rotwin_operands(ck, w, x, r, k)
+    X3T = X3.transpose(1, 2).contiguous()
+    return lambda: (W3 @ X3T).sum(0)
+
+
+def lib_window_bwd(w, g, x, a, k, n):
+    WH, G = _h(_c(w)), _c(g).view(2**a, 2**k, -1)
+    XH = _h(_c(x).view(2**a, 2**k, -1))
+    return lambda: (WH @ G, (G @ XH).sum(0))
+
+
+def lib_window_top_bwd(w, g, x, k, n):
+    Wc, G = _c(w).conj_physical(), _c(g).view(-1, 2**k)
+    GT, Xc = G.T.contiguous(), _c(x).view(-1, 2**k).conj_physical()
+    return lambda: (G @ Wc, GT @ Xc)
+
+
+def lib_rotmat_bwd(w, g, x, r, n):
+    Wc, G = _c(w).conj_physical(), _c(g).view(2**r, -1)
+    GT, Xc = G.T.contiguous(), _c(x).view(-1, 2**r).conj_physical()
+    return lambda: (GT @ Wc, G @ Xc)
+
+
+def lib_matrot_bwd(w, g, x, r, n):
+    K = 2 ** (n - r)
+    WH, GT, XH = _h(_c(w)), _c(g).view(-1, K).T.contiguous(), _h(_c(x).view(K, -1))
+    return lambda: (WH @ GT, GT @ XH)
+
+
+def lib_rotwin_bwd(ck, w, g, x, r, k, n):
+    W3, X3 = _rotwin_operands(ck, w, x, r, k)
+    W3H, G, X3c = _h(W3), _c(g).view(2**k, -1), X3.conj_physical()
+    return lambda: (W3H @ G, G @ X3c)
+
+
+def lib_adjoint(w, psi, lam, a, k, n):
+    W, P, L = _c(w), _c(psi).view(2**a, 2**k, -1), _c(lam).view(2**a, 2**k, -1)
+    WH, PH = _h(W), _h(P)
+    return lambda: (WH @ P, WH @ L, (L @ PH).sum(0) @ W)
+
+
+def lib_adjoint_top(w, psi, lam, k, n):
+    W, P, L = _c(w), _c(psi).view(-1, 2**k), _c(lam).view(-1, 2**k)
+    Wc, LT, Pc = W.conj_physical(), L.T.contiguous(), P.conj_physical()
+    return lambda: (P @ Wc, L @ Wc, (LT @ Pc) @ W)
+
+
+def lib_adjoint_rotmat(w, psi, lam, r, n):
+    W, P, L = _c(w), _c(psi).view(2**r, -1), _c(lam).view(2**r, -1)
+    Wc, PT, LT, PH = W.conj_physical(), P.T.contiguous(), L.T.contiguous(), _h(P)
+    return lambda: (PT @ Wc, LT @ Wc, (L @ PH) @ W)
+
+
+def lib_adjoint_matrot(w, psi, lam, r, n):
+    K = 2 ** (n - r)
+    W, P, L = _c(w), _c(psi).view(-1, K), _c(lam).view(-1, K)
+    WH, PT, LT, Pc = _h(W), P.T.contiguous(), L.T.contiguous(), P.conj_physical()
+    return lambda: (WH @ PT, WH @ LT, (LT @ Pc) @ W)
+
+
+# Work of one call, for its bound: flops and bytes (each input read once,
+# each output written once).  e*: bytes per element of a cotangent.
+def work_fwd(K, n):
+    return 8 * K * 2**n, 16 * 2**n + 8 * K * K
+
+
+def work_bwd(K, n, eg, eo):
+    return 16 * K * 2**n, 16 * K * K + 2 * 2**n * (eg + 4 + eo)
+
+
+def work_adjoint(K, n, el, eo):
+    return 24 * K * 2**n + 8 * K**3, 16 * K * K + 2 * 2**n * (8 + el + eo)
+
+
+def work_rotate(n, e):
+    return 0, 4 * 2**n * e
+
+
+def work_rotate_pair(n, el):
+    return 0, 4 * 2**n * (4 + el)
+
+
+def _esize(t: torch.dtype) -> int:
+    return torch.empty((), dtype=t).element_size()
+
+
+def phase_times(models: dict, model26, shapes: dict, batch: list) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     log("phase 6: times (host clock ending in a synchronise: best of 3 after a warm-up, "
@@ -939,93 +1388,157 @@ def phase_times(models: dict, model26, shapes: dict) -> dict:
         log(f"  forward + gradient {n}q Circuit_19 L={N_LAYERS} (bf16 lambda): {best:.3f} ms "
             f"per request (median of 10: {med:.3f} ms)")
         _log_grad_breakdown(model, n)
-    _adjoint_times(models, model26)
+    _adjoint_times(models, model26, batch)
+    _ab_times(models[WIDTHS[-1]], WIDTHS[-1])
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    totals = {name: [0.0, 0.0] for name in KERNELS}
+    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flop_ms=0.0,
+                         byte_ms=0.0) for name in KERNELS}
 
-    def add(name, label, kern, plain, flops=None):
-        t_k, t_p = _events_ms(kern), _events_ms(plain)
-        totals[name][0] += t_k
-        totals[name][1] += t_p
-        rate = f"  {flops / t_k / 1e9:6.1f} TFLOP/s" if flops else ""
-        log(f"  {name:20s} {label:34s} kernel {t_k * 1e3:9.1f} us   plain {t_p * 1e3:9.1f} us"
-            f"{rate}")
-
-    def dt(t):
-        return str(t)[6:]
+    def add(name, label, kern, plain, lib, work):
+        t_k, t_p, t_l = _events_ms(kern), _events_ms(plain), _events_ms(lib)
+        flop_ms, byte_ms = work[0] / PEAK_FP32 * 1e3, work[1] / PEAK_HBM * 1e3
+        tot = totals[name]
+        tot["ms"] += t_k
+        tot["plain_ms"] += t_p
+        tot["library_ms"] += t_l
+        tot["bound_ms"] += max(flop_ms, byte_ms)
+        tot["flop_ms"] += flop_ms
+        tot["byte_ms"] += byte_ms
+        rate = f"  {work[0] / t_k / 1e9:6.1f} TFLOP/s" if work[0] else \
+            f"  {work[1] / t_k / 1e9:6.2f} TB/s"
+        log(f"  {name:20s} {label:36s} kernel {t_k * 1e3:9.1f} us  plain {t_p * 1e3:9.1f} us  "
+            f"library {t_l * 1e3:9.1f} us  bound {max(flop_ms, byte_ms) * 1e3:8.1f} us{rate}")
 
     with torch.inference_mode():
         n, m = WIDTHS[-1], WIDTHS[0]
-        x = _state(n, gen)
-        for a, k in shapes[n]["window_apply"]:
-            w = _unitary(k, rng)
-            add("window_apply", f"n={n} a={a} k={k}",
-                lambda: ck.window_apply(x, w, a, k, n),
-                lambda: kn.window_apply_plain(x, w, a, k, n), 8 * 2**k * 2**n)
-        for r in shapes[n]["rotate"]:
-            add("rotate", f"n={n} r={r} float32",
-                lambda: ck.rotate(x, r, n), lambda: kn.rotate_plain(x, r, n))
-        xm = _state(m, gen)
+        x, g = _state(n, gen), _state(n, gen)
+        # One 24q forward, step by step.
+        for kind, shape in shapes[n]["steps"]:
+            if kind == "top":
+                continue  # top windows are timed at the narrower width
+            if kind == "rot":
+                add("rotate", f"n={n} r={shape} float32", lambda: ck.rotate(x, shape, n),
+                    lambda: kn.rotate_plain(x, shape, n), lib_rotate(x, shape, n),
+                    work_rotate(n, 4))
+            elif kind == "win":
+                a, k = shape
+                w = _unitary(k, rng)
+                add("window_apply", f"n={n} a={a} k={k}", lambda: ck.window_apply(x, w, a, k, n),
+                    lambda: kn.window_apply_plain(x, w, a, k, n), lib_window(x, w, a, k, n),
+                    work_fwd(2**k, n))
+            elif kind == "rotwin":
+                r, k = shape
+                w = _unitary(k, rng)
+                add("rotwin_apply", f"n={n} r={r} k={k}",
+                    lambda: ck.rotwin_apply(x, w, r, k, n),
+                    lambda: kn.rotwin_apply_plain(x, w, r, k, n),
+                    lib_rotwin(ck, x, w, r, k, n), work_fwd(2**k, n))
+            else:
+                k = shape if kind == "rotmat" else n - shape
+                w = _unitary(k, rng)
+                name = f"{kind}_apply"
+                lib = (lib_rotmat if kind == "rotmat" else lib_matrot)(x, w, shape, n)
+                add(name, f"n={n} r={shape} k={k}",
+                    lambda: getattr(ck, name)(x, w, shape, n),
+                    lambda: getattr(kn, f"{name}_plain")(x, w, shape, n), lib, work_fwd(2**k, n))
+        xm, gm = _state(m, gen), _state(m, gen)
         for k in shapes[m]["window_apply_top"]:
             w = _unitary(k, rng)
-            add("window_apply_top", f"n={m} k={k}",
-                lambda: ck.window_apply_top(xm, w, k, m),
-                lambda: kn.window_apply_top_plain(xm, w, k, m), 8 * 2**k * 2**m)
-        g = _state(n, gen)
+            add("window_apply_top", f"n={m} k={k}", lambda: ck.window_apply_top(xm, w, k, m),
+                lambda: kn.window_apply_top_plain(xm, w, k, m), lib_window_top(xm, w, k, m),
+                work_fwd(2**k, m))
+        # One 24q gradient through the saved executor, bf16 lambda.
         for kind, shape, g_dt, out_dt in backward_calls(shapes[n]["steps"]):
-            gg = g.to(g_dt)
-            if kind == "rot":
-                add("rotate", f"n={n} r={(n - shape) % n} {dt(g_dt)} (bwd)",
-                    lambda: ck.rotate(gg, (n - shape) % n, n),
-                    lambda: kn.rotate_plain(gg, (n - shape) % n, n))
+            if kind == "top":
                 continue
-            a, k = shape
-            w = _unitary(k, rng)
-            add("window_apply_bwd", f"n={n} a={a} k={k} g={dt(g_dt)} out={dt(out_dt)}",
-                lambda: ck.window_apply_bwd(w, gg, x, a, k, n, out_dt),
-                lambda: kn.window_apply_bwd_plain(w, gg, x, a, k, n, out_dt),
-                16 * 2**k * 2**n)
-        gm = _state(m, gen)
-        for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
-            if kind != "top":
-                continue
-            a, k = shape
-            w, gg = _unitary(k, rng), gm.to(g_dt)
-            add("window_apply_top_bwd", f"n={m} k={k} g={dt(g_dt)} out={dt(out_dt)}",
-                lambda: ck.window_apply_top_bwd(w, gg, xm, k, m, out_dt),
-                lambda: kn.window_apply_top_bwd_plain(w, gg, xm, k, m, out_dt),
-                16 * 2**k * 2**m)
-        # The adjoint backward of one request: the same lambda dtypes, on
-        # the step's output state.
-        for kind, shape, g_dt, out_dt in backward_calls(shapes[n]["steps"]):
             gg = g.to(g_dt)
+            eg, eo = _esize(g_dt), _esize(out_dt)
+            tag = f"g={_dt(g_dt)} out={_dt(out_dt)}"
             if kind == "rot":
                 r = (n - shape) % n
-                add("rotate_pair", f"n={n} r={r} f32+{dt(g_dt)}",
-                    lambda: ck.rotate_pair(x, gg, r, n), lambda: kn.rotate_pair_plain(x, gg, r, n))
-                continue
-            a, k = shape
-            w = _unitary(k, rng)
-            add("adjoint_step", f"n={n} a={a} k={k} lam={dt(g_dt)} out={dt(out_dt)}",
-                lambda: ck.adjoint_step(w, x, gg, a, k, n, out_dt),
-                lambda: kn.adjoint_step_plain(w, x, gg, a, k, n, out_dt), 24 * 2**k * 2**n)
+                add("rotate", f"n={n} r={r} {_dt(g_dt)} (bwd)", lambda: ck.rotate(gg, r, n),
+                    lambda: kn.rotate_plain(gg, r, n), lib_rotate(gg, r, n), work_rotate(n, eg))
+            elif kind == "win":
+                a, k = shape
+                w = _unitary(k, rng)
+                add("window_apply_bwd", f"n={n} a={a} k={k} {tag}",
+                    lambda: ck.window_apply_bwd(w, gg, x, a, k, n, out_dt),
+                    lambda: kn.window_apply_bwd_plain(w, gg, x, a, k, n, out_dt),
+                    lib_window_bwd(w, gg, x, a, k, n), work_bwd(2**k, n, eg, eo))
+            elif kind == "rotwin":
+                r, k = shape
+                w = _unitary(k, rng)
+                add("rotwin_apply_bwd", f"n={n} r={r} k={k} {tag}",
+                    lambda: ck.rotwin_apply_bwd(w, gg, x, r, k, n, out_dt),
+                    lambda: kn.rotwin_apply_bwd_plain(w, gg, x, r, k, n, out_dt),
+                    lib_rotwin_bwd(ck, w, gg, x, r, k, n), work_bwd(2**k, n, eg, eo))
+            else:
+                k = shape if kind == "rotmat" else n - shape
+                w = _unitary(k, rng)
+                name = f"{kind}_apply_bwd"
+                lib = (lib_rotmat_bwd if kind == "rotmat" else lib_matrot_bwd)(w, gg, x, shape, n)
+                add(name, f"n={n} r={shape} k={k} {tag}",
+                    lambda: getattr(ck, name)(w, gg, x, shape, n, out_dt),
+                    lambda: getattr(kn, f"{name}_plain")(w, gg, x, shape, n, out_dt),
+                    lib, work_bwd(2**k, n, eg, eo))
         for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
             if kind != "top":
                 continue
             a, k = shape
             w, gg = _unitary(k, rng), gm.to(g_dt)
-            add("adjoint_step_top", f"n={m} k={k} lam={dt(g_dt)} out={dt(out_dt)}",
+            add("window_apply_top_bwd", f"n={m} k={k} g={_dt(g_dt)} out={_dt(out_dt)}",
+                lambda: ck.window_apply_top_bwd(w, gg, xm, k, m, out_dt),
+                lambda: kn.window_apply_top_bwd_plain(w, gg, xm, k, m, out_dt),
+                lib_window_top_bwd(w, gg, xm, k, m),
+                work_bwd(2**k, m, _esize(g_dt), _esize(out_dt)))
+        # One 24q gradient through the adjoint executor: the same lambda
+        # dtypes, on the step's output state.
+        for kind, shape, g_dt, out_dt in backward_calls(shapes[n]["steps"]):
+            gg = g.to(g_dt)
+            el, eo = _esize(g_dt), _esize(out_dt)
+            tag = f"lam={_dt(g_dt)} out={_dt(out_dt)}"
+            if kind in ("rot", "rotwin"):
+                r = (n - (shape if kind == "rot" else shape[0])) % n
+                add("rotate_pair", f"n={n} r={r} f32+{_dt(g_dt)}",
+                    lambda: ck.rotate_pair(x, gg, r, n), lambda: kn.rotate_pair_plain(x, gg, r, n),
+                    lib_rotate_pair(x, gg, r, n), work_rotate_pair(n, el))
+            if kind in ("win", "rotwin"):
+                a, k = shape if kind == "win" else (0, shape[1])
+                w = _unitary(k, rng)
+                add("adjoint_step", f"n={n} a={a} k={k} {tag}",
+                    lambda: ck.adjoint_step(w, x, gg, a, k, n, out_dt),
+                    lambda: kn.adjoint_step_plain(w, x, gg, a, k, n, out_dt),
+                    lib_adjoint(w, x, gg, a, k, n), work_adjoint(2**k, n, el, eo))
+            if kind in ("rotmat", "matrot"):
+                k = shape if kind == "rotmat" else n - shape
+                w = _unitary(k, rng)
+                name = f"adjoint_{kind}"
+                lib = (lib_adjoint_rotmat if kind == "rotmat" else lib_adjoint_matrot)(
+                    w, x, gg, shape, n)
+                add(name, f"n={n} r={shape} k={k} {tag}",
+                    lambda: getattr(ck, name)(w, x, gg, shape, n, out_dt),
+                    lambda: getattr(kn, f"{name}_plain")(w, x, gg, shape, n, out_dt),
+                    lib, work_adjoint(2**k, n, el, eo))
+        for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
+            if kind != "top":
+                continue
+            a, k = shape
+            w, gg = _unitary(k, rng), gm.to(g_dt)
+            add("adjoint_step_top", f"n={m} k={k} lam={_dt(g_dt)} out={_dt(out_dt)}",
                 lambda: ck.adjoint_step_top(w, xm, gg, k, m, out_dt),
-                lambda: kn.adjoint_step_top_plain(w, xm, gg, k, m, out_dt), 24 * 2**k * 2**m)
-    log(f"  (per kernel, summed over one request's calls: window_apply per {WIDTHS[-1]}q "
-        f"forward, window_apply_bwd / adjoint_step per {WIDTHS[-1]}q gradient, rotate per "
-        f"{WIDTHS[-1]}q forward + gradient, rotate_pair per {WIDTHS[-1]}q adjoint gradient, "
-        f"window_apply_top / window_apply_top_bwd / adjoint_step_top per {WIDTHS[0]}q "
-        f"forward / gradient)")
-    for name, (t_k, t_p) in totals.items():
-        log(f"  total {name:20s} kernel {t_k:.3f} ms   plain {t_p:.3f} ms")
+                lambda: kn.adjoint_step_top_plain(w, xm, gg, k, m, out_dt),
+                lib_adjoint_top(w, xm, gg, k, m),
+                work_adjoint(2**k, m, _esize(g_dt), _esize(out_dt)))
+    log(f"  (per kernel, summed over one request's calls: the forward kernels per {n}q "
+        f"forward, the *_bwd kernels per {n}q saved gradient, the adjoint kernels and "
+        f"rotate_pair per {n}q adjoint gradient, rotate per {n}q forward + saved gradient, "
+        f"window_apply_top / window_apply_top_bwd / adjoint_step_top per {m}q forward / "
+        f"gradient; bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call)")
+    for name, t in totals.items():
+        log(f"  total {name:20s} kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
+            f"library {t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms")
     return totals
 
 
@@ -1063,25 +1576,32 @@ def main() -> int:
 
     shapes = {n: plan_shapes(n) for n in (*WIDTHS, WIDE)}
     for n in (*WIDTHS, WIDE):
-        log(f"  {n}q plan: windows {shapes[n]['window_apply']}  "
-            f"top {shapes[n]['window_apply_top']}  rotations {shapes[n]['rotate']}")
+        log(f"  {n}q plan (FUSE_LAYOUT_ROT on): {describe(shapes[n])}")
+    n24 = WIDTHS[-1]
+    _check(all(shapes[n24][f"{k}_apply"] for k in ("rotmat", "matrot", "rotwin")),
+           f"{n24}q plan has no step of some fused kind: {describe(shapes[n24])}")
     errs = phase_parity(shapes)
-    models, fwd_launches = phase_slice()
+    # The main path: serving (phase 4), saved-residual training (5) and
+    # adjoint training (5b), each with the counts reset just before it and
+    # read just after; every kernel must launch over the three.
+    models, fwd_launches = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
-    model26, adj_launches = phase_adjoint(models, shapes, g64)
-    launches = {k: fwd_launches[k] + grad_launches[k] for k in KERNELS}
-    for k in ADJOINT_KERNELS:
-        launches[k] = adj_launches[k]
+    model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
+    launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    totals = phase_times(models, model26, shapes)
+    phase_fusion_ab(models[n24], shapes, n24)
+    totals = phase_times(models, model26, shapes, batch)
 
     log(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", launches=launches[name], max_abs_err=errs[name],
-             ms=totals[name][0], plain_ms=totals[name][1], **KERNELS[name])
-        for name in KERNELS
+        dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
+             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+             bound_ms=t["bound_ms"],
+             bound_by="operations" if t["flop_ms"] >= t["byte_ms"] else "bytes",
+             library_ms=t["library_ms"])
+        for name, t in totals.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,10 +4,11 @@
 :class:`~qml_essentials_tpu_torch.ops.operations.Operation` objects; it
 records the tape and hands it to
 :func:`~qml_essentials_tpu_torch.ops.simulation.simulate_and_measure` on an
-explicit device and dtype.  A batch (``in_axes``) runs as a plain loop over
-its elements, stacked at the end: PyTorch runs eagerly, so there is no jit,
-no vmap and no plan cache.  Under autograd every element's saved states stay
-alive until the backward, so the loop passes the batch size down to the
+explicit device (the card unless the caller asks for the CPU) and dtype.  A
+batch (``in_axes``) runs as a plain loop over its elements, stacked at the
+end: PyTorch runs eagerly, so there is no jit, no vmap and no plan cache.
+Under autograd every element's saved states stay alive until the backward,
+so the loop passes the batch size down to the
 simulator's memory estimate (the JAX package reads it off the vmap batch),
 and one :class:`~qml_essentials_tpu_torch.ops.simulation.BackwardChoice`
 for the whole batch: the first element decides between the saved-residual
@@ -24,6 +25,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import simulation
 from qml_essentials_tpu_torch.ops.operations import Operation
 from qml_essentials_tpu_torch.ops.tape import recording
@@ -35,7 +37,7 @@ class Script:
     Example:
         >>> def circuit(theta):
         ...     RX(theta, wires=0)
-        >>> script = Script(circuit, n_qubits=2)
+        >>> script = Script(circuit, n_qubits=2, device="cpu")
         >>> script.execute(type="expval", obs=[PauliZ(0, record=False)], args=(0.3,))
     """
 
@@ -43,12 +45,12 @@ class Script:
         self,
         f: Callable[..., None],
         n_qubits: Optional[int] = None,
-        device=None,
+        device=DEFAULT_DEVICE,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         self.f = f
         self._n_qubits = n_qubits
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
 
     def _record(self, *args, **kwargs) -> List[Operation]:

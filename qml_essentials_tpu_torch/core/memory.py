@@ -11,15 +11,17 @@ import logging
 
 import torch
 
+from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+
 log = logging.getLogger(__name__)
 
 
-def available_memory_bytes(device=None) -> int:
-    """Bytes free for new tensors on *device*: on a CUDA device the free
-    memory CUDA reports plus what PyTorch's caching allocator holds unused; on the
-    CPU the host's available RAM (psutil, then ``/proc/meminfo``, then a
-    4 GiB default)."""
-    device = torch.device(device if device is not None else "cpu")
+def available_memory_bytes(device=DEFAULT_DEVICE) -> int:
+    """Bytes free for new tensors on *device* (the card by default; raises
+    without CUDA): on a CUDA device the free memory CUDA reports plus what
+    PyTorch's caching allocator holds unused; on the CPU the host's
+    available RAM (psutil, then ``/proc/meminfo``, then a 4 GiB default)."""
+    device = resolve_device(device)
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)

@@ -1,0 +1,56 @@
+// adjoint_rotmat: the adjoint-state backward step of a rotmat plan step
+// (a rotation by r and the window on [0, r)).
+//
+// Replaces qml_essentials_tpu/ops/pallas_kernels.py:adjoint_rotmat_ri (the
+// launcher of _adj_rotmat_kernel).  From the step's output state psi and its
+// cotangent lam, both in the post-rotation (K, X) layout (K = 2^r), it undoes
+// the window and the rotation on both and reduces the matrix cotangent:
+//
+//     psi_in[x, j] = sum_i conj(W[i, j]) psi[i, x]     (pre-rotation layout)
+//     lam_in[x, j] = sum_i conj(W[i, j]) lam[i, x]     (float32 or bfloat16)
+//     G0[i, j]     = sum_x lam[i, x] conj(psi[j, x]),   gw = G0 W
+//
+// replacing a paired rotation and an adjoint window step (4 state passes of
+// traffic become 2 for the undo).
+//
+// What bounds it on an H100: arithmetic, 24K flops per amplitude (three
+// products).  The design is adjoint_step.cu's: the two pullbacks in one pass
+// of cgemm_pair_kernel over a shared conj(W) column operand, oriented rows x,
+// columns j (RotPullbackMap, the pullback of rotmat_apply_bwd.cu), so psi and
+// lam are read along x and the undone arrays stored along j (the rotation
+// back is the orientation of the store); the gram on the step's output, split
+// over the X columns (WindowGramMap on the (K, X) view) and summed in a fixed
+// order; gw = G0 W in fp32 FMA.
+#include "cgemm_tile.cuh"
+
+namespace {
+
+template <class TL, class TO>
+int run(const float* w, const float* psi, const TL* lam, float* psi_in, TO* lam_in,
+        float* gw, float* ws, int64_t K, int64_t X, int64_t splits, cudaStream_t stream) {
+  const int64_t plane = K * X;
+  int code = qml::launch_cgemm_pair<qml::RotPullbackMap, false>(
+      w, K * K, psi, lam, plane, psi_in, lam_in, plane, X, K, K,
+      qml::RotPullbackMap{qml::rot_cols(K, X, K)}, stream);
+  if (code != 0) return code;
+  code = qml::launch_cgemm(lam, plane, psi, plane, ws, K * K, 2 * K * K, K, K, X, splits,
+                           qml::WindowGramMap{qml::window_cols(K, X)}, stream);
+  if (code != 0) return code;
+  return qml::launch_gram_times_w(ws, splits, ws + splits * 2 * K * K, w, gw, K, stream);
+}
+
+}  // namespace
+
+// w: (2, K, K) float32; psi, psi_in: (2, K*X) float32; lam: (2, K*X) float32
+// (lam_bf16 = 0) or bfloat16; lam_in: the same, float32 (out_bf16 = 0) or
+// bfloat16; gw: (2, K, K) float32; ws: (splits + 1) * 2*K*K float32 scratch
+// (the partials, then G0).  Launches on `stream`; returns the first CUDA
+// error, or 0.
+extern "C" int qml_adjoint_rotmat(const float* w, const float* psi, const void* lam,
+                                  float* psi_in, void* lam_in, float* gw, float* ws,
+                                  long long K, long long X, long long splits, int lam_bf16,
+                                  int out_bf16, void* stream) {
+  return qml::with_cotangent_types(lam, lam_in, lam_bf16, out_bf16, [&](auto lt, auto ot) {
+    return run(w, psi, lt, psi_in, ot, gw, ws, K, X, splits, (cudaStream_t)stream);
+  });
+}

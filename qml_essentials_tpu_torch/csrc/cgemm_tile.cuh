@@ -1,6 +1,9 @@
 // Shared block tile of the window kernels (window_apply.cu, window_apply_top.cu,
-// their backwards window_apply_bwd.cu, window_apply_top_bwd.cu, and the adjoint
-// steps adjoint_step.cu, adjoint_step_top.cu): a complex matrix product C = op(A) * op(B) on real-split planes (each operand
+// their backwards window_apply_bwd.cu, window_apply_top_bwd.cu, the adjoint
+// steps adjoint_step.cu, adjoint_step_top.cu, and the fused rotation steps
+// rotmat_apply.cu, rotwin_apply.cu, matrot_apply.cu, their backwards and
+// adjoint_rotmat.cu, adjoint_matrot.cu): a complex matrix product
+// C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.
 //
@@ -331,6 +334,72 @@ struct TopGramMap {
   __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
 };
 
+// Pre-rotation columns of a fused (rotation r, window on [0, k)) step, k >= r
+// (rotmat_apply.cu, rotwin_apply.cu and their backwards, adjoint_rotmat.cu).
+// The rotation q -> q + r makes the window's top r wires the pre-rotation
+// state's bottom r bits l (L = 2^r) and its other k - r wires the top bits a
+// (A = 2^(k-r)).  Window column j' = a*L + l (the caller permutes W's columns
+// to this order) of column x (X = 2^(n-k)) lies at pre(j', x) = a*X*L + x*L + l
+// of the pre-rotation state: j' walks it in runs of L.  With k == r
+// (A = 1), pre(j', x) = x*K + j'.
+struct RotCols {
+  int64_t K, X, L;
+  int log_l;
+  __device__ __forceinline__ int64_t pre(int64_t j, int64_t x) const {
+    return (j >> log_l) * X * L + x * L + (j & (L - 1));
+  }
+};
+
+inline RotCols rot_cols(int64_t K, int64_t X, int64_t L) {
+  int log_l = 0;
+  while ((1LL << log_l) < L) ++log_l;
+  return RotCols{K, X, L, log_l};
+}
+
+// Rotation then window, y[i, x] = sum_j' W[i, j'] pre(j', x), written in the
+// post-rotation (K, X) layout: rows i, depth j', columns x.
+struct RotWindowMap : RotCols {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true;
+  static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = true;
+  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t j) const { return i * K + j; }
+  __device__ __forceinline__ int64_t b_off(int64_t j, int64_t x) const { return pre(j, x); }
+  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t x) const { return i * X + x; }
+};
+
+// Its pullback gp = W^dagger g, written back in the pre-rotation layout
+// (the store is the transpose): rows x, depth i, columns j'.
+struct RotPullbackMap : RotCols {
+  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = false;
+  __device__ __forceinline__ int64_t a_off(int64_t x, int64_t i) const { return i * X + x; }
+  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t j) const { return i * K + j; }
+  __device__ __forceinline__ int64_t c_off(int64_t x, int64_t j) const { return pre(j, x); }
+};
+
+// Its matrix cotangent gw[i, j'] = sum_x g[i, x] conj(pre(j', x)): rows i,
+// depth x, columns j'.
+struct RotGramMap : RotCols {
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
+  static constexpr bool CONJ_A = false, CONJ_B = true, INNER_M = true;
+  __device__ __forceinline__ int64_t a_off(int64_t i, int64_t x) const { return i * X + x; }
+  __device__ __forceinline__ int64_t b_off(int64_t x, int64_t j) const { return pre(j, x); }
+  __device__ __forceinline__ int64_t c_off(int64_t i, int64_t j) const { return i * K + j; }
+};
+
+// Window on [0, k) then the rotation by r = n - k (matrot_apply.cu): the
+// post-rotation state is (B, K), B = 2^r, the transpose of the window's
+// (K, B) output.  Pullback gp[j, b] = sum_i conj(W[i, j]) g[b, i] into the
+// pre-rotation (K, B) layout (matrot_apply_bwd.cu, adjoint_matrot.cu): rows
+// j, depth i, columns b; g is read along i (the transposed load).
+struct MatrotPullbackMap {
+  static constexpr bool A_M_CONTIG = true, B_K_CONTIG = true;
+  static constexpr bool CONJ_A = true, CONJ_B = false, INNER_M = true;
+  int64_t K, B;
+  __device__ __forceinline__ int64_t a_off(int64_t j, int64_t i) const { return i * K + j; }
+  __device__ __forceinline__ int64_t b_off(int64_t i, int64_t b) const { return b * K + i; }
+  __device__ __forceinline__ int64_t c_off(int64_t j, int64_t b) const { return j * B + b; }
+};
+
 // A plain row-major K x K product C = A B (the adjoint steps' gw = G0 W).
 struct SquareMap {
   static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
@@ -381,6 +450,28 @@ inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t 
   reduce_splits<<<(unsigned)ceil_div(count, threads), threads, 0, stream>>>(
       parts, out, count, splits);
   return (int)cudaGetLastError();
+}
+
+// The split backward of a fused rotation step (rotmat, rotwin, matrot) whose
+// pullback and gram have the maps P and G: gp = W^dagger g over M x N outputs
+// (W, the conjugated operand, is A when P conjugates A, else B), then the
+// gram over `depth` columns into the split partials in ws, summed in order
+// into gw.  Returns 0 or the first CUDA error.
+template <class P, class G, class TG, class TP>
+inline int launch_fused_bwd(const float* w, const TG* g, const float* x, TP* gp, float* gw,
+                            float* ws, int64_t plane, int64_t K, int64_t M, int64_t N,
+                            int64_t depth, int64_t splits, const P& pull, const G& gram,
+                            cudaStream_t stream) {
+  int code;
+  if constexpr (P::CONJ_A)
+    code = launch_cgemm(w, K * K, g, plane, gp, plane, 0, M, N, K, 1, pull, stream);
+  else
+    code = launch_cgemm(g, plane, w, K * K, gp, plane, 0, M, N, K, 1, pull, stream);
+  if (code != 0) return code;
+  code = launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, depth, splits, gram,
+                      stream);
+  if (code != 0) return code;
+  return launch_reduce(ws, gw, 2 * K * K, splits, stream);
 }
 
 // The adjoint steps' matrix cotangent from their split gram partials in ws:

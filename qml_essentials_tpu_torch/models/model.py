@@ -7,8 +7,9 @@ where state preparation goes.  The model therefore compiles it once into a
 ``("enc", layer, sites)`` / ``("golomb", layer)`` descriptors — and
 ``_variational`` walks that program, emitting gates onto the active tape.
 
-The model lives on one explicit ``device`` in one explicit real ``dtype``
-(float32 by default, float64 on request).  Its variational parameters are an
+The model lives on one explicit ``device`` (the card by default, the CPU
+with ``device="cpu"``) in one explicit real ``dtype`` (float32 by default,
+float64 on request).  Its variational parameters are an
 ``nn.Parameter`` of shape ``[batch, impl_layers, n_params_per_layer]``.  The
 forward pass is differentiable with respect to ``params`` (and ``enc_params``
 with ``trainable_frequencies``) on the CPU and on the card, where the
@@ -31,18 +32,12 @@ import torch
 from torch import nn
 
 from qml_essentials_tpu_torch.core import jaqsi as js
+from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.models.ansaetze import Ansaetze, Circuit, Encoding
 from qml_essentials_tpu_torch.models.gates import Gates
 from qml_essentials_tpu_torch.ops import operations as op
 
 log = logging.getLogger(__name__)
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    return device
 
 
 class Model(nn.Module):
@@ -64,7 +59,7 @@ class Model(nn.Module):
         output_qubit: Union[List[int], int] = -1, shots: Optional[int] = None,
         random_seed: int = 1000, remove_zero_encoding: bool = True,
         repeat_batch_axis: List[bool] = [True, True],
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = DEFAULT_DEVICE,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         """Build the model and compile its segment program.
@@ -87,11 +82,12 @@ class Model(nn.Module):
             remove_zero_encoding: Elide encoding gates for all-zero inputs.
             repeat_batch_axis: Which of the (inputs, params) axes fuse into
                 the flat execution batch.
-            device: Device of the parameters and the simulation.
+            device: Device of the parameters and the simulation: the card
+                by default (raises without CUDA); ``"cpu"`` on request.
             dtype: Real dtype of the simulation (float32 or float64).
         """
         super().__init__()
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError("the CUDA kernels take float32 only so far")
         self.dtype = dtype

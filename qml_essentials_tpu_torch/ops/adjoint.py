@@ -36,9 +36,11 @@ walks the plan in reverse on the hand-written kernels of
 * a scattered window and a diagonal step take λ to the working dtype and
   undo and reduce with the plain forward gate application and torch
   products (the reference's einsum branches);
-* fused ``rotmat`` / ``matrot`` steps run their plain two-pass form on the
-  CPU and raise ``NotImplementedError`` on the card: their kernels come with
-  the fused-rotation slice (``FUSE_LAYOUT_ROT`` is off).
+* a fused ``matrot`` step, and a ``rotmat`` step whose window is the
+  rotated-in wires, is one ``adjoint_matrot`` / ``adjoint_rotmat`` launch
+  (the undo of window and rotation on ψ and λ, and the gram); a ``rotmat``
+  step with a wider window (rotwin) has no fused adjoint kernel, as in the
+  reference: ``adjoint_step`` on ``[0, k)``, then ``rotate_pair`` back.
 
 λ travels in bfloat16 between payload steps when ``saved.LAMBDA_MODE ==
 "bf16"`` and ``n >= simulation.LARGE_STATE_MIN_N`` (the kernels read and
@@ -239,19 +241,21 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
             psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - step[1], n)
             continue
         w2 = payloads[slot]
-        if kind in ("rotmat", "matrot"):
-            if psi2.device.type != "cpu":
-                raise NotImplementedError(
-                    f"plan step {kind!r}: its fused adjoint kernel is not ported yet "
-                    "(run with FUSE_LAYOUT_ROT = False)"
-                )
+        if kind == "matrot":
+            psi2, lam2, grads[slot] = cuda_kernels.adjoint_matrot(
+                w2, psi2, lam2, step[1], n, lam_dt(slot))
+            continue
+        if kind == "rotmat":
             r, srt = step[1], list(step[2])
-            if kind == "matrot":
-                psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
+            if len(srt) == r:
+                psi2, lam2, grads[slot] = cuda_kernels.adjoint_rotmat(
+                    w2, psi2, lam2, r, n, lam_dt(slot))
+                continue
+            # rotwin (k > r): no fused adjoint kernel, as in the reference —
+            # the window's adjoint step on [0, k), then both arrays rotated back.
             psi2, lam2, grads[slot] = _adjoint_step_contiguous(
                 psi2, lam2, w2, srt, n, lam_dt(slot))
-            if kind == "rotmat":
-                psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
+            psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - r, n)
             continue
         srt = list(step[1])
         k = len(srt)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the statevector hot path, and their wrappers.
 
-Eight kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
+Sixteen kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
 ``nvcc`` (one process per source, all started together, then one link) into
 one shared library with a C interface, loaded with ``ctypes``:
 
@@ -12,8 +12,16 @@ window_apply_bwd       csrc/window_apply_bwd.cu      pallas_kernels._apply_bwd
 window_apply_top       csrc/window_apply_top.cu      pallas_kernels.window_apply_top_ri
 window_apply_top_bwd   csrc/window_apply_top_bwd.cu  pallas_kernels._apply_top_bwd
 rotate                 csrc/rotate.cu                pallas_kernels.rotate_ri
+rotmat_apply           csrc/rotmat_apply.cu          pallas_kernels.rotmat_apply_ri
+rotmat_apply_bwd       csrc/rotmat_apply_bwd.cu      pallas_kernels._rotmat_apply_bwd
+matrot_apply           csrc/matrot_apply.cu          pallas_kernels.matrot_apply_ri
+matrot_apply_bwd       csrc/matrot_apply_bwd.cu      pallas_kernels._matrot_apply_bwd
+rotwin_apply           csrc/rotwin_apply.cu          pallas_kernels.rotwin_apply_ri
+rotwin_apply_bwd       csrc/rotwin_apply_bwd.cu      pallas_kernels._rotwin_apply_bwd
 adjoint_step           csrc/adjoint_step.cu          pallas_kernels.adjoint_step_ri
 adjoint_step_top       csrc/adjoint_step_top.cu      pallas_kernels.adjoint_step_top_ri
+adjoint_rotmat         csrc/adjoint_rotmat.cu        pallas_kernels.adjoint_rotmat_ri
+adjoint_matrot         csrc/adjoint_matrot.cu        pallas_kernels.adjoint_matrot_ri
 rotate_pair            csrc/rotate_pair.cu           pallas_kernels.rotate_pair_ri
 =====================  ============================  ======================================
 
@@ -31,12 +39,13 @@ the plain version on the card.
 
 Gradients: on the card the forward wrappers run through
 ``torch.autograd.Function``s whose backwards are kernels too, mirroring the
-JAX package's per-kernel VJPs — the window's backward is
-``window_apply_bwd``, the top window's ``window_apply_top_bwd``, and the
-rotation's is the rotation by ``(n - r) % n``.  The adjoint-state backward
+JAX package's per-kernel VJPs — each window's backward is its ``*_bwd``
+kernel (``window_apply_bwd``, ``window_apply_top_bwd``, ``rotmat_apply_bwd``,
+``matrot_apply_bwd``, ``rotwin_apply_bwd``), and the rotation's is the
+rotation by ``(n - r) % n``.  The adjoint-state backward
 (:mod:`qml_essentials_tpu_torch.ops.adjoint`) calls ``adjoint_step``,
-``adjoint_step_top`` and ``rotate_pair`` inside its own backward; they need
-no autograd Functions.
+``adjoint_step_top``, ``adjoint_rotmat``, ``adjoint_matrot`` and
+``rotate_pair`` inside its own backward; they need no autograd Functions.
 """
 
 from __future__ import annotations
@@ -59,7 +68,9 @@ from qml_essentials_tpu_torch.ops import kernels
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "window_apply.cu", "window_apply_bwd.cu", "window_apply_top.cu",
-    "window_apply_top_bwd.cu", "rotate.cu", "adjoint_step.cu", "adjoint_step_top.cu",
+    "window_apply_top_bwd.cu", "rotate.cu", "rotmat_apply.cu", "rotmat_apply_bwd.cu",
+    "matrot_apply.cu", "matrot_apply_bwd.cu", "rotwin_apply.cu", "rotwin_apply_bwd.cu",
+    "adjoint_step.cu", "adjoint_step_top.cu", "adjoint_rotmat.cu", "adjoint_matrot.cu",
     "rotate_pair.cu",
 )
 HEADERS = ("cgemm_tile.cuh", "transpose_tile.cuh")
@@ -70,11 +81,7 @@ NVCC_FLAGS = (
 )
 
 # Launches per wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {
-    "window_apply": 0, "window_apply_bwd": 0, "window_apply_top": 0,
-    "window_apply_top_bwd": 0, "rotate": 0, "adjoint_step": 0, "adjoint_step_top": 0,
-    "rotate_pair": 0,
-}
+LAUNCHES: Dict[str, int] = {Path(s).stem: 0 for s in SOURCES}
 
 # Compiler output (ptxas register and shared-memory use) of the last build.
 BUILD_LOG: str = ""
@@ -154,30 +161,43 @@ def build() -> Tuple[Path, float]:
     return path, seconds
 
 
+def _argtypes() -> Dict[str, list]:
+    """C signature of each entry point: pointers and the stream as
+    ``c_void_p`` (a plain int would cut them to 32 bits), sizes as 64-bit."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    bwd = [ptr] * 6  # w, g, x, gp, gw, ws
+    adj = [ptr] * 7  # w, psi, lam, psi_prev, lam_prev, gw, ws
+    flags = [i32, i32, ptr]  # bf16 in, bf16 out, stream
+    return {
+        "window_apply": [ptr, ptr, ptr, i64, i64, i64, ptr],
+        "window_apply_bwd": bwd + [i64] * 4 + flags,
+        "window_apply_top": [ptr, ptr, ptr, i64, i64, ptr],
+        "window_apply_top_bwd": bwd + [i64] * 3 + flags,
+        "rotate": [ptr, ptr, i64, i64, ptr],
+        "rotate_b16": [ptr, ptr, i64, i64, ptr],
+        "rotmat_apply": [ptr, ptr, ptr, i64, i64, ptr],
+        "rotmat_apply_bwd": bwd + [i64] * 3 + flags,
+        "matrot_apply": [ptr, ptr, ptr, i64, i64, ptr],
+        "matrot_apply_bwd": bwd + [i64] * 3 + flags,
+        "rotwin_apply": [ptr, ptr, ptr, i64, i64, i64, ptr],
+        "rotwin_apply_bwd": bwd + [i64] * 4 + flags,
+        "adjoint_step": adj + [i64] * 4 + flags,
+        "adjoint_step_top": adj + [i64] * 3 + flags,
+        "adjoint_rotmat": adj + [i64] * 3 + flags,
+        "adjoint_matrot": adj + [i64] * 3 + flags,
+        "rotate_pair": [ptr, ptr, ptr, ptr, i64, i64, i32, ptr],
+    }
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.qml_window_apply.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
-            lib.qml_window_apply_bwd.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, i32, ptr]
-            lib.qml_window_apply_top.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
-            lib.qml_window_apply_top_bwd.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
-            lib.qml_rotate.argtypes = [ptr, ptr, i64, i64, ptr]
-            lib.qml_rotate_b16.argtypes = [ptr, ptr, i64, i64, ptr]
-            lib.qml_adjoint_step.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, i32, ptr]
-            lib.qml_adjoint_step_top.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
-            lib.qml_rotate_pair.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-            for fn in (lib.qml_window_apply, lib.qml_window_apply_bwd,
-                       lib.qml_window_apply_top, lib.qml_window_apply_top_bwd,
-                       lib.qml_rotate, lib.qml_rotate_b16, lib.qml_adjoint_step,
-                       lib.qml_adjoint_step_top, lib.qml_rotate_pair):
+            for name, args in _argtypes().items():
+                fn = getattr(lib, f"qml_{name}")
+                fn.argtypes = args
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -251,44 +271,77 @@ def gram_splits(K: int, C: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _launch_window_apply(psi2, w2, a, k, n):
-    if not (0 <= a and 1 <= k and a + k < n):
-        raise ValueError(f"window_apply: support [{a}, {a + k}) needs B > 1 in n={n}")
-    K = 2**k
-    _check("window_apply", "state", psi2, (2, 2**n))
-    _check("window_apply", "window", w2, (2, K, K))
+def _launch_window(name, psi2, w2, K, n, geometry):
+    """One forward window kernel ``qml_<name>(x, w, y, *geometry, stream)``
+    on a float32 state and ``(2, K, K)`` window; returns the new state."""
+    _check(name, "state", psi2, (2, 2**n))
+    _check(name, "window", w2, (2, K, K))
     lib = _load()
     y = torch.empty_like(psi2)
     with torch.cuda.device(psi2.device):
-        code = lib.qml_window_apply(
-            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(),
-            2**a, K, 2 ** (n - a - k), _stream(psi2),
-        )
-    _raise_on("window_apply", code)
-    LAUNCHES["window_apply"] += 1
+        code = getattr(lib, f"qml_{name}")(
+            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), *geometry, _stream(psi2))
+    _raise_on(name, code)
+    LAUNCHES[name] += 1
     return y
+
+
+def _launch_window_apply(psi2, w2, a, k, n):
+    if not (0 <= a and 1 <= k and a + k < n):
+        raise ValueError(f"window_apply: support [{a}, {a + k}) needs B > 1 in n={n}")
+    return _launch_window("window_apply", psi2, w2, 2**k, n, (2**a, 2**k, 2 ** (n - a - k)))
 
 
 def _launch_window_apply_top(psi2, w2, k, n):
     if not 1 <= k <= n:
         raise ValueError(f"window_apply_top: k={k} out of range for n={n}")
-    K = 2**k
-    _check("window_apply_top", "state", psi2, (2, 2**n))
-    _check("window_apply_top", "window", w2, (2, K, K))
-    lib = _load()
-    y = torch.empty_like(psi2)
-    with torch.cuda.device(psi2.device):
-        code = lib.qml_window_apply_top(
-            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), 2 ** (n - k), K, _stream(psi2),
-        )
-    _raise_on("window_apply_top", code)
-    LAUNCHES["window_apply_top"] += 1
-    return y
+    return _launch_window("window_apply_top", psi2, w2, 2**k, n, (2 ** (n - k), 2**k))
+
+
+def _check_rotation(name, r, n):
+    if not 1 <= r < n:
+        raise ValueError(f"{name}: r={r} out of range for n={n}")
+
+
+def _launch_rotmat_apply(psi2, w2, r, n):
+    _check_rotation("rotmat_apply", r, n)
+    return _launch_window("rotmat_apply", psi2, w2, 2**r, n, (2**r, 2 ** (n - r)))
+
+
+def _launch_matrot_apply(psi2, w2, r, n):
+    _check_rotation("matrot_apply", r, n)
+    K = 2 ** (n - r)
+    return _launch_window("matrot_apply", psi2, w2, K, n, (K, 2**r))
+
+
+def _check_rotwin(name, w2, r, k, n):
+    if not 1 <= r < k < n:
+        raise ValueError(f"{name}: needs 1 <= r < k < n, got r={r} k={k} n={n}")
+    _check(name, "window", w2, (2, 2**k, 2**k))
+
+
+def _rotwin_wperm(w2, r, k):
+    """``(2, K, K)`` -> the same window with column ``l*A + a`` moved to
+    ``a*L + l`` (``L = 2**r``, ``A = 2**(k-r)``): the order in which the
+    rotwin kernels walk the pre-rotation state (reference ``_rotwin_wperm``)."""
+    K, L = 2**k, 2**r
+    return w2.reshape(2, K, L, K // L).transpose(2, 3).reshape(2, K, K).contiguous()
+
+
+def _rotwin_wunperm(wp, r, k):
+    """Inverse of :func:`_rotwin_wperm` (reference ``_rotwin_wunperm``)."""
+    K, L = 2**k, 2**r
+    return wp.reshape(2, K, K // L, L).transpose(2, 3).reshape(2, K, K)
+
+
+def _launch_rotwin_apply(psi2, w2, r, k, n):
+    _check_rotwin("rotwin_apply", w2, r, k, n)
+    return _launch_window("rotwin_apply", psi2, _rotwin_wperm(w2, r, k), 2**k, n,
+                          (2**k, 2 ** (n - k), 2**r))
 
 
 def _launch_rotate(psi2, r, n):
-    if not 1 <= r < n:
-        raise ValueError(f"rotate: r={r} out of range for n={n}")
+    _check_rotation("rotate", r, n)
     _check("rotate", "state", psi2, (2, 2**n), _COTANGENT_DTYPES)
     lib = _load()
     fn = lib.qml_rotate if psi2.dtype == torch.float32 else lib.qml_rotate_b16
@@ -300,11 +353,27 @@ def _launch_rotate(psi2, r, n):
     return y
 
 
-def _check_bwd(name, w2, g, x, K, n, out_dtype):
+def _launch_bwd(name, w2, g, x, K, n, splits, out_dtype, geometry):
+    """One backward window kernel ``qml_<name>(w, g, x, gp, gw, ws,
+    *geometry, splits, g_bf16, gp_bf16, stream)``: allocates ``gp`` (in
+    *out_dtype*), ``gw`` and the split-gram workspace; returns ``(gp, gw)``."""
     _check(name, "window", w2, (2, K, K))
     _check(name, "cotangent", g, (2, 2**n), _COTANGENT_DTYPES)
     _check(name, "saved state", x, (2, 2**n))
     _check_out_dtype(name, out_dtype)
+    lib = _load()
+    gp = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    gw = torch.empty_like(w2)
+    ws = torch.empty((splits, 2, K, K), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = getattr(lib, f"qml_{name}")(
+            w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
+            ws.data_ptr(), *geometry, splits,
+            int(g.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _stream(x),
+        )
+    _raise_on(name, code)
+    LAUNCHES[name] += 1
+    return gp, gw
 
 
 # ---------------------------------------------------------------------------
@@ -312,34 +381,22 @@ def _check_bwd(name, w2, g, x, K, n, out_dtype):
 # ---------------------------------------------------------------------------
 
 
-class _WindowApply(torch.autograd.Function):
+class _WindowFn(torch.autograd.Function):
+    """``y = launch(psi2, w2, *geom)`` whose backward is the backward kernel
+    ``bwd(w2, g, psi2, *geom, float32)``."""
+
     @staticmethod
-    def forward(ctx, psi2, w2, a, k, n):
+    def forward(ctx, psi2, w2, launch, bwd, *geom):
         ctx.save_for_backward(psi2, w2)
-        ctx.geom = (a, k, n)
-        return _launch_window_apply(psi2, w2, a, k, n)
+        ctx.bwd, ctx.geom = bwd, geom
+        return launch(psi2, w2, *geom)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         psi2, w2 = ctx.saved_tensors
-        gp, gw = window_apply_bwd(w2, g.contiguous(), psi2, *ctx.geom, torch.float32)
-        return gp, gw, None, None, None
-
-
-class _WindowApplyTop(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, psi2, w2, k, n):
-        ctx.save_for_backward(psi2, w2)
-        ctx.geom = (k, n)
-        return _launch_window_apply_top(psi2, w2, k, n)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        psi2, w2 = ctx.saved_tensors
-        gp, gw = window_apply_top_bwd(w2, g.contiguous(), psi2, *ctx.geom, torch.float32)
-        return gp, gw, None, None
+        gp, gw = ctx.bwd(w2, g.contiguous(), psi2, *ctx.geom, torch.float32)
+        return (gp, gw, None, None) + (None,) * len(ctx.geom)
 
 
 class _Rotate(torch.autograd.Function):
@@ -365,14 +422,14 @@ def window_apply(psi2: torch.Tensor, w2: torch.Tensor, a: int, k: int, n: int) -
     real-split state, support ``[a, a+k)`` with ``B = 2**(n-a-k) > 1``."""
     if _on_cpu(psi2, w2):
         return kernels.window_apply_plain(psi2, w2, a, k, n)
-    return _WindowApply.apply(psi2, w2, a, k, n)
+    return _WindowFn.apply(psi2, w2, _launch_window_apply, window_apply_bwd, a, k, n)
 
 
 def window_apply_top(psi2: torch.Tensor, w2: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """``y[a,i] = sum_j x[a,j] W[i,j]`` for a window on ``[n-k, n)``."""
     if _on_cpu(psi2, w2):
         return kernels.window_apply_top_plain(psi2, w2, k, n)
-    return _WindowApplyTop.apply(psi2, w2, k, n)
+    return _WindowFn.apply(psi2, w2, _launch_window_apply_top, window_apply_top_bwd, k, n)
 
 
 def rotate(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
@@ -382,6 +439,30 @@ def rotate(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
     if _on_cpu(psi2):
         return kernels.rotate_plain(psi2, r, n)
     return _Rotate.apply(psi2, r, n)
+
+
+def rotmat_apply(psi2: torch.Tensor, w2: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """The rotation by ``r``, then the window on ``[0, r)``, in one pass:
+    ``y (2, K, X) = W x_pre (2, X, K)^T``, ``K = 2**r``."""
+    if _on_cpu(psi2, w2):
+        return kernels.rotmat_apply_plain(psi2, w2, r, n)
+    return _WindowFn.apply(psi2, w2, _launch_rotmat_apply, rotmat_apply_bwd, r, n)
+
+
+def matrot_apply(psi2: torch.Tensor, w2: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """The window on ``[0, n-r)``, then the rotation by ``r``, in one pass:
+    ``y (2, B, K) = (W x (2, K, B))^T``, ``K = 2**(n-r)``, ``B = 2**r``."""
+    if _on_cpu(psi2, w2):
+        return kernels.matrot_apply_plain(psi2, w2, r, n)
+    return _WindowFn.apply(psi2, w2, _launch_matrot_apply, matrot_apply_bwd, r, n)
+
+
+def rotwin_apply(psi2: torch.Tensor, w2: torch.Tensor, r: int, k: int, n: int) -> torch.Tensor:
+    """The rotation by ``r``, then the window on ``[0, k)``, ``k > r``, in one
+    pass."""
+    if _on_cpu(psi2, w2):
+        return kernels.rotwin_apply_plain(psi2, w2, r, k, n)
+    return _WindowFn.apply(psi2, w2, _launch_rotwin_apply, rotwin_apply_bwd, r, k, n)
 
 
 def window_apply_bwd(
@@ -396,22 +477,8 @@ def window_apply_bwd(
     if not (0 <= a and 1 <= k and a + k < n):
         raise ValueError(f"window_apply_bwd: support [{a}, {a + k}) needs B > 1 in n={n}")
     K = 2**k
-    _check_bwd("window_apply_bwd", w2, g, x, K, n, out_dtype)
-    C = 2**n // K
-    splits = gram_splits(K, C)
-    lib = _load()
-    gp = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    gw = torch.empty_like(w2)
-    ws = torch.empty((splits, 2, K, K), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = lib.qml_window_apply_bwd(
-            w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
-            ws.data_ptr(), 2**a, K, 2 ** (n - a - k), splits,
-            int(g.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _stream(x),
-        )
-    _raise_on("window_apply_bwd", code)
-    LAUNCHES["window_apply_bwd"] += 1
-    return gp, gw
+    return _launch_bwd("window_apply_bwd", w2, g, x, K, n, gram_splits(K, 2**n // K),
+                       out_dtype, (2**a, K, 2 ** (n - a - k)))
 
 
 def window_apply_top_bwd(
@@ -424,23 +491,49 @@ def window_apply_top_bwd(
         return kernels.window_apply_top_bwd_plain(w2, g, x, k, n, out_dtype)
     if not 1 <= k <= n:
         raise ValueError(f"window_apply_top_bwd: k={k} out of range for n={n}")
-    K = 2**k
-    _check_bwd("window_apply_top_bwd", w2, g, x, K, n, out_dtype)
     A = 2 ** (n - k)
-    splits = gram_splits(K, A)
-    lib = _load()
-    gp = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    gw = torch.empty_like(w2)
-    ws = torch.empty((splits, 2, K, K), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = lib.qml_window_apply_top_bwd(
-            w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
-            ws.data_ptr(), A, K, splits,
-            int(g.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _stream(x),
-        )
-    _raise_on("window_apply_top_bwd", code)
-    LAUNCHES["window_apply_top_bwd"] += 1
-    return gp, gw
+    return _launch_bwd("window_apply_top_bwd", w2, g, x, 2**k, n, gram_splits(2**k, A),
+                       out_dtype, (A, 2**k))
+
+
+def rotmat_apply_bwd(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`rotmat_apply` from the saved pre-rotation input
+    ``x``: ``gp`` (pre-rotation layout, *out_dtype*) and ``gw`` (float32)."""
+    if _on_cpu(w2, g, x):
+        return kernels.rotmat_apply_bwd_plain(w2, g, x, r, n, out_dtype)
+    _check_rotation("rotmat_apply_bwd", r, n)
+    K, X = 2**r, 2 ** (n - r)
+    return _launch_bwd("rotmat_apply_bwd", w2, g, x, K, n, gram_splits(K, X), out_dtype, (K, X))
+
+
+def matrot_apply_bwd(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`matrot_apply` from the saved input ``x``."""
+    if _on_cpu(w2, g, x):
+        return kernels.matrot_apply_bwd_plain(w2, g, x, r, n, out_dtype)
+    _check_rotation("matrot_apply_bwd", r, n)
+    K, B = 2 ** (n - r), 2**r
+    return _launch_bwd("matrot_apply_bwd", w2, g, x, K, n, gram_splits(K, B), out_dtype, (K, B))
+
+
+def rotwin_apply_bwd(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, k: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`rotwin_apply` from the saved pre-rotation input
+    ``x``; the kernel's matrix cotangent is unpermuted here."""
+    if _on_cpu(w2, g, x):
+        return kernels.rotwin_apply_bwd_plain(w2, g, x, r, k, n, out_dtype)
+    _check_rotwin("rotwin_apply_bwd", w2, r, k, n)
+    K, X = 2**k, 2 ** (n - k)
+    gp, gw = _launch_bwd("rotwin_apply_bwd", _rotwin_wperm(w2, r, k), g, x, K, n,
+                         gram_splits(K, X), out_dtype, (K, X, 2**r))
+    return gp, _rotwin_wunperm(gw, r, k)
 
 
 # ---------------------------------------------------------------------------
@@ -448,16 +541,15 @@ def window_apply_top_bwd(
 # ---------------------------------------------------------------------------
 
 
-def _check_adjoint(name, w2, psi2, lam2, K, n, lam_dtype):
+def _launch_adjoint(name, w2, psi2, lam2, K, n, lam_dtype, splits, geometry):
+    """One adjoint step ``qml_<name>(w, psi, lam, psi_prev, lam_prev, gw,
+    ws, *geometry, splits, lam_bf16, out_bf16, stream)``: checks, allocates
+    (psi_prev, lam_prev, gw) and the gram workspace (the split partials, then
+    G0), launches, counts; returns the three outputs."""
     _check(name, "window", w2, (2, K, K))
     _check(name, "state", psi2, (2, 2**n))
     _check(name, "cotangent", lam2, (2, 2**n), _COTANGENT_DTYPES)
     _check_out_dtype(name, lam_dtype)
-
-
-def _launch_adjoint(name, w2, psi2, lam2, K, splits, lam_dtype, geometry):
-    """Allocate (psi_prev, lam_prev, gw) and the gram workspace (the split
-    partials, then G0), launch, count; returns the three outputs."""
     lib = _load()
     psi_prev = torch.empty_like(psi2)
     lam_prev = torch.empty(psi2.shape, dtype=lam_dtype, device=psi2.device)
@@ -487,10 +579,8 @@ def adjoint_step(
     if not (0 <= a and 1 <= k and a + k < n):
         raise ValueError(f"adjoint_step: support [{a}, {a + k}) needs B > 1 in n={n}")
     K = 2**k
-    _check_adjoint("adjoint_step", w2, psi2, lam2, K, n, lam_dtype)
-    splits = gram_splits(K, 2**n // K)
-    return _launch_adjoint("adjoint_step", w2, psi2, lam2, K, splits, lam_dtype,
-                           (2**a, K, 2 ** (n - a - k)))
+    return _launch_adjoint("adjoint_step", w2, psi2, lam2, K, n, lam_dtype,
+                           gram_splits(K, 2**n // K), (2**a, K, 2 ** (n - a - k)))
 
 
 def adjoint_step_top(
@@ -504,12 +594,40 @@ def adjoint_step_top(
         return kernels.adjoint_step_top_plain(w2, psi2, lam2, k, n, lam_dtype)
     if not 1 <= k <= n:
         raise ValueError(f"adjoint_step_top: k={k} out of range for n={n}")
-    K = 2**k
-    _check_adjoint("adjoint_step_top", w2, psi2, lam2, K, n, lam_dtype)
-    A = 2 ** (n - k)
-    splits = gram_splits(K, A)
-    return _launch_adjoint("adjoint_step_top", w2, psi2, lam2, K, splits, lam_dtype,
-                           (A, K))
+    K, A = 2**k, 2 ** (n - k)
+    return _launch_adjoint("adjoint_step_top", w2, psi2, lam2, K, n, lam_dtype,
+                           gram_splits(K, A), (A, K))
+
+
+def adjoint_rotmat(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint-state step of a rotmat step (rotation by ``r``, window on
+    ``[0, r)``): from its output ``psi2`` and cotangent ``lam2`` (post-rotation
+    layout) returns the step's input ``psi_in``, ``lam_in`` in *lam_dtype*
+    (pre-rotation layout) and ``gw = sum lam psi_mid^†`` in float32."""
+    if _on_cpu(w2, psi2, lam2):
+        return kernels.adjoint_rotmat_plain(w2, psi2, lam2, r, n, lam_dtype)
+    _check_rotation("adjoint_rotmat", r, n)
+    K, X = 2**r, 2 ** (n - r)
+    return _launch_adjoint("adjoint_rotmat", w2, psi2, lam2, K, n, lam_dtype,
+                           gram_splits(K, X), (K, X))
+
+
+def adjoint_matrot(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint-state step of a matrot step (window on ``[0, n-r)``, then
+    the rotation by ``r``): the step's input ``psi_in``, ``lam_in`` in
+    *lam_dtype* and ``gw`` in float32 from its output and cotangent."""
+    if _on_cpu(w2, psi2, lam2):
+        return kernels.adjoint_matrot_plain(w2, psi2, lam2, r, n, lam_dtype)
+    _check_rotation("adjoint_matrot", r, n)
+    K, B = 2 ** (n - r), 2**r
+    return _launch_adjoint("adjoint_matrot", w2, psi2, lam2, K, n, lam_dtype,
+                           gram_splits(K, B), (K, B))
 
 
 def rotate_pair(
@@ -520,8 +638,7 @@ def rotate_pair(
     dtype and every bit."""
     if _on_cpu(psi2, lam2):
         return kernels.rotate_pair_plain(psi2, lam2, r, n)
-    if not 1 <= r < n:
-        raise ValueError(f"rotate_pair: r={r} out of range for n={n}")
+    _check_rotation("rotate_pair", r, n)
     _check("rotate_pair", "state", psi2, (2, 2**n))
     _check("rotate_pair", "cotangent", lam2, (2, 2**n), _COTANGENT_DTYPES)
     lib = _load()

@@ -17,7 +17,9 @@ the real-split pair ``psi2`` of shape ``(2, 2**n)`` (``psi2[0] = Re``,
 ``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain``, the
 backward versions ``window_apply_bwd_plain`` / ``window_apply_top_bwd_plain``
 and the adjoint-state steps ``adjoint_step_plain`` /
-``adjoint_step_top_plain`` / ``rotate_pair_plain`` are the plain PyTorch
+``adjoint_step_top_plain`` / ``rotate_pair_plain``, and the fused
+(rotation, window) steps ``rotmat`` / ``matrot`` / ``rotwin`` with their
+backwards and the ``rotmat`` / ``matrot`` adjoint steps, are the plain PyTorch
 versions of the hand-written CUDA kernels in
 :mod:`qml_essentials_tpu_torch.ops.cuda_kernels`.  The kernel wrappers run
 them for tensors on the CPU; on a CUDA tensor the wrappers launch the kernel
@@ -358,6 +360,93 @@ def rotate_pair_plain(
     """Plain version of the paired rotation kernel: both arrays rotated by
     ``q -> (q + r) mod n``, each in its own dtype."""
     return rotate_plain(psi2, r, n), rotate_plain(lam2, r, n)
+
+
+# Fused (rotation, window) steps of the layout scheduler
+# (``simulation.fuse_layout_rotations``): each plain version is the two-pass
+# composition of the rotation and the window on ``[0, k)``.
+
+
+def rotmat_apply_plain(psi2: torch.Tensor, w2: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """Plain version of the rotmat kernel: the rotation by ``r``, then the
+    window on the rotated-in wires ``[0, r)``."""
+    return window_apply_plain(rotate_plain(psi2, r, n), w2, 0, r, n)
+
+
+def rotwin_apply_plain(
+    psi2: torch.Tensor, w2: torch.Tensor, r: int, k: int, n: int
+) -> torch.Tensor:
+    """Plain version of the rotwin kernel: the rotation by ``r``, then the
+    window on ``[0, k)``, ``k > r``."""
+    return window_apply_plain(rotate_plain(psi2, r, n), w2, 0, k, n)
+
+
+def matrot_apply_plain(psi2: torch.Tensor, w2: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """Plain version of the matrot kernel: the window on ``[0, n-r)``, then
+    the rotation by ``r``."""
+    return rotate_plain(window_apply_plain(psi2, w2, 0, n - r, n), r, n)
+
+
+def rotmat_apply_bwd_plain(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, n: int, out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`rotmat_apply_plain` from the saved pre-rotation
+    input ``x``: ``gp`` (in *out_dtype*, pre-rotation layout) and ``gw``."""
+    return rotwin_apply_bwd_plain(w2, g, x, r, r, n, out_dtype)
+
+
+def rotwin_apply_bwd_plain(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, k: int, n: int,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`rotwin_apply_plain`: the window backward on the
+    rotated input, and ``gp`` rotated back."""
+    gp, gw = window_apply_bwd_plain(w2, g, rotate_plain(x, r, n), 0, k, n, out_dtype)
+    return rotate_plain(gp, n - r, n), gw
+
+
+def matrot_apply_bwd_plain(
+    w2: torch.Tensor, g: torch.Tensor, x: torch.Tensor, r: int, n: int, out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`matrot_apply_plain`: ``g`` rotated back, then the
+    window backward on ``x``."""
+    return window_apply_bwd_plain(w2, rotate_plain(g, n - r, n), x, 0, n - r, n, out_dtype)
+
+
+def adjoint_rotmat_plain(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the rotmat adjoint step: the window's adjoint step on
+    ``[0, r)``, then both arrays rotated back by ``n - r``; returns
+    ``(psi_in, lam_in, gw)``."""
+    psi_mid, lam_mid, gw = adjoint_step_plain(w2, psi2, lam2, 0, r, n, lam_dtype)
+    return (*rotate_pair_plain(psi_mid, lam_mid, n - r, n), gw)
+
+
+def adjoint_matrot_plain(
+    w2: torch.Tensor, psi2: torch.Tensor, lam2: torch.Tensor, r: int, n: int,
+    lam_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the matrot adjoint step: both arrays rotated back by
+    ``n - r``, then the window's adjoint step on ``[0, n-r)``."""
+    psi_mid, lam_mid = rotate_pair_plain(psi2, lam2, n - r, n)
+    return adjoint_step_plain(w2, psi_mid, lam_mid, 0, n - r, n, lam_dtype)
+
+
+def apply_fused_pair_ri(
+    psi2: torch.Tensor, w2: torch.Tensor, kind: str, r: int, k: int, n: int
+) -> torch.Tensor:
+    """One fused plan step with its window as a ``(2, K, K)`` pair:
+    ``"matrot"`` (window on ``[0, k)``, ``k = n - r``, then the rotation),
+    or ``"rotmat"`` (the rotation, then the window on ``[0, k)``; ``k == r``
+    is the rotmat kernel, ``k > r`` the rotwin kernel)."""
+    w2 = w2.to(device=psi2.device, dtype=psi2.dtype).contiguous()
+    if kind == "matrot":
+        return cuda_kernels.matrot_apply(psi2, w2, r, n)
+    if k == r:
+        return cuda_kernels.rotmat_apply(psi2, w2, r, n)
+    return cuda_kernels.rotwin_apply(psi2, w2, r, k, n)
 
 
 def _recenter_rotation(a: int, k: int, n: int) -> Optional[int]:

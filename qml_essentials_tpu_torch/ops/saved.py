@@ -13,9 +13,11 @@ step (read the cotangent λ, read the saved input x, write λ').
   (``window_apply_bwd``, or ``window_apply_top_bwd`` when the window ends at
   the top of the register), which writes ``λ' = W^† λ`` and the matrix
   cotangent ``gw = Σ λ x^†`` in one call, for any ``K >= 2``;
-* any other step (a scattered support, a diagonal, a fused rotation step)
-  differentiates its own forward with ``torch.autograd.grad``, in the
-  working dtype.
+* a fused rotation step runs its backward kernel (``rotmat_apply_bwd``,
+  ``rotwin_apply_bwd`` or ``matrot_apply_bwd``), the same two outputs with
+  the rotation folded into the loads and stores;
+* any other step (a scattered support, a diagonal) differentiates its own
+  forward with ``torch.autograd.grad``, in the working dtype.
 
 The cotangent only ever feeds *parameter* gradients, one further trace
 reduction away, so λ is stored in bfloat16 between steps by default
@@ -75,17 +77,7 @@ def _one_step(psi2: torch.Tensor, w2: torch.Tensor, step: tuple, n: int) -> torc
     """Forward-apply one payload-bearing normalised plan step."""
     kind = step[0]
     if kind in ("rotmat", "matrot"):
-        if psi2.device.type != "cpu":
-            raise NotImplementedError(
-                f"plan step {kind!r}: its fused kernel is not ported yet "
-                "(run with FUSE_LAYOUT_ROT = False)"
-            )
-        r, wires = step[1], list(step[2])
-        if kind == "rotmat":
-            psi2 = kernels._rotate_qubits_ri(psi2, r, n)
-            return kernels.apply_matrix_pair_ri(psi2, w2, wires, n)
-        psi2 = kernels.apply_matrix_pair_ri(psi2, w2, wires, n)
-        return kernels._rotate_qubits_ri(psi2, r, n)
+        return kernels.apply_fused_pair_ri(psi2, w2, kind, step[1], len(step[2]), n)
     if kind == "mat":
         return kernels.apply_matrix_pair_ri(psi2, w2, list(step[1]), n)
     return kernels.apply_diagonal_pair_ri(psi2, w2, list(step[1]), n)
@@ -123,10 +115,18 @@ def _step_bwd(step: tuple, w2: torch.Tensor, lam: torch.Tensor, x: torch.Tensor,
     """One backward step: ``(λ', gw)`` for ``y = step(x, w)`` given the output
     cotangent ``lam`` and the saved input ``x``.
 
-    A contiguous window runs the window backward kernels (``λ'`` written in
-    *out_dt*); anything else differentiates the step's own forward with
-    ``torch.autograd.grad`` (exact, in the working dtype — later steps take
-    a float32 λ as well as a bfloat16 one)."""
+    A contiguous window and a fused rotation step run their backward kernels
+    (``λ'`` written in *out_dt*); anything else differentiates the step's
+    own forward with ``torch.autograd.grad`` (exact, in the working dtype —
+    later steps take a float32 λ as well as a bfloat16 one)."""
+    kind = step[0]
+    if kind == "matrot":
+        return cuda_kernels.matrot_apply_bwd(w2, lam, x, step[1], n, out_dt)
+    if kind == "rotmat":
+        r, k = step[1], len(step[2])
+        if k == r:
+            return cuda_kernels.rotmat_apply_bwd(w2, lam, x, r, n, out_dt)
+        return cuda_kernels.rotwin_apply_bwd(w2, lam, x, r, k, n, out_dt)
     win = _contiguous_window(step)
     if win is not None:
         a, k = win

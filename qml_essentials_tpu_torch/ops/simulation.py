@@ -12,8 +12,9 @@ one ``(2**w, 2**w)`` window on a contiguous range.
 *Large-state regime* (``n >= LARGE_STATE_MIN_N``).  The leading disjoint
 windows collapse into an outer-product start (:func:`_zero_state_prefix`);
 :func:`schedule_layout` places shared cyclic rotations by dynamic
-programming so ring-wrap entanglers become contiguous, and
-:func:`refuse_windows` merges neighbouring windows up to 10 qubits.  Each
+programming so ring-wrap entanglers become contiguous,
+:func:`refuse_windows` merges neighbouring windows up to 10 qubits, and
+:func:`fuse_layout_rotations` folds rotations into adjacent windows.  Each
 resulting step is one pass of a hand-written kernel on the flat real-split
 ``(2, 2**n)`` state.  The planner is the JAX package's, step for step —
 including the DP's prices, which were set on the TPU — so both packages run
@@ -66,10 +67,9 @@ FUSE_MIN_EXCESS: int = 3
 # PALLAS_MIN_N, kept so both packages plan alike; to be re-tuned on the card.
 LARGE_STATE_MIN_N: int = 22
 
-# Fuse (rotation, window) pairs into single-pass "rotmat"/"matrot" steps.
-# Off until the fused rotation kernels (reference rotmat/matrot/rotwin) are
-# ported; with it on, such steps run on the CPU only.
-FUSE_LAYOUT_ROT: bool = False
+# Fuse (rotation, window) pairs into single-pass "rotmat"/"matrot" steps
+# (the rotmat, rotwin and matrot kernels), as the reference does by default.
+FUSE_LAYOUT_ROT: bool = True
 
 
 def infer_n_qubits(ops: List[Operation], obs: List[Operation]) -> int:
@@ -385,7 +385,9 @@ def fuse_layout_rotations(
     ``("rot", r)`` then ``("mat", W, [0..k))`` with k >= r becomes one
     ``"rotmat"`` step (payload ``(r, W)``); ``("mat", W, [0..n-r))`` then
     ``("rot", r)`` becomes one ``"matrot"`` step.  Only used when
-    ``FUSE_LAYOUT_ROT`` is on; the card has no kernel for these steps yet.
+    ``FUSE_LAYOUT_ROT`` is on.  The shape rules (:func:`rot_fusable`,
+    :func:`rot_prefix_fusable`) are the reference's TPU ones, kept for plan
+    parity; the kernels take any shape.
     """
     out: List[Tuple[str, object, List[int]]] = []
     i = 0
@@ -680,18 +682,11 @@ def _apply_step_ri(
     if kind == "diag":
         return kernels.apply_diagonal_flat_ri(psi2, payload, wires, n_qubits)
     if kind in ("rotmat", "matrot"):
-        if psi2.device.type != "cpu":
-            raise NotImplementedError(
-                f"plan step {kind!r}: its fused kernel is not ported yet "
-                "(run with FUSE_LAYOUT_ROT = False)"
-            )
-        # Plain two-pass form on the CPU.
+        # One fused kernel: rotmat (window on the rotated-in wires), rotwin
+        # (a wider window from 0), or matrot (window, then the rotation).
         r, mat = payload
-        if kind == "rotmat":
-            psi2 = kernels._rotate_qubits_ri(psi2, r, n_qubits)
-            return kernels.apply_matrix_flat_ri(psi2, mat, wires, n_qubits)
-        psi2 = kernels.apply_matrix_flat_ri(psi2, mat, wires, n_qubits)
-        return kernels._rotate_qubits_ri(psi2, r, n_qubits)
+        return kernels.apply_fused_pair_ri(
+            psi2, kernels._pair_of(mat, psi2), kind, r, len(wires), n_qubits)
     return payload.apply_to_state_ri(psi2, n_qubits)
 
 

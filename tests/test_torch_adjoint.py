@@ -20,7 +20,10 @@ float32), on random states, unitaries and cotangents from
   multiplies, where the port upcasts first);
 * the paired rotation, in float32 and bfloat16, bit for bit;
 * in float64, each plain adjoint step undoes the forward window to 1e-12 and
-  equals the window backward on the rebuilt input.
+  equals the window backward on the rebuilt input;
+* the fused steps ``adjoint_rotmat_plain`` / ``adjoint_matrot_plain``
+  against ``pallas_kernels.adjoint_rotmat_ri`` / ``adjoint_matrot_ri`` by the
+  same bounds, and in float64 against the fused forward and backward.
 
 Executor level.  A 16-qubit, 2-layer Circuit_19 with ``LARGE_STATE_MIN_N``
 lowered to 16 (so the scheduled plan, with its outer-product start,
@@ -201,6 +204,45 @@ def test_plain_adjoint_step_undoes_the_window(n, a, k):
     assert (got[2] - ref[1]).abs().max() <= EXACT_TOL
 
 
+# Fused (rotation, window) adjoint steps: (kind, n, r, k), k == r for rotmat
+# and k == n - r for matrot.
+FUSED_ADJ_CASES = [("rotmat", 10, 4, 4), ("rotmat", 12, 7, 7), ("matrot", 10, 6, 4),
+                   ("matrot", 12, 5, 7)]
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("lam", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n,r,k", FUSED_ADJ_CASES)
+def test_fused_adjoint_plain_matches_pallas(split3_gram, kind, n, r, k, lam):
+    """adjoint_rotmat / adjoint_matrot (B14 / B15): the undo of the window and
+    the rotation on psi and lambda, and gw = G0 W."""
+    w2, psi, lam2 = _inputs(n, k, seed=7 * n + r)
+    lam_t = getattr(torch, lam)
+    ref = getattr(pallas_kernels, f"adjoint_{kind}_ri")(
+        jnp.asarray(psi), jnp.asarray(lam2), jnp.asarray(w2), r, n, True, getattr(jnp, lam))
+    got = getattr(kernels, f"adjoint_{kind}_plain")(
+        torch.from_numpy(w2), torch.from_numpy(psi), torch.from_numpy(lam2), r, n, lam_t)
+    assert [t.dtype for t in got] == [torch.float32, lam_t, torch.float32]
+    for t, rf, dt in zip(got, ref, (torch.float32, lam_t, torch.float32)):
+        _assert_close(t, rf, dt)
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("kind,n,r", [("rotmat", 7, 3), ("rotmat", 6, 1), ("matrot", 7, 4),
+                                      ("matrot", 6, 5)])
+def test_plain_fused_adjoint_undoes_the_step(kind, n, r):
+    """float64: the fused adjoint step rebuilds the step's input from its
+    output, and its (lambda_in, gw) are the fused backward's on that input."""
+    k = r if kind == "rotmat" else n - r
+    w2, x, lam = (torch.from_numpy(t) for t in _inputs(n, k, seed=n * 10 + r, dtype=np.float64))
+    y = getattr(kernels, f"{kind}_apply_plain")(x, w2, r, n)
+    got = getattr(kernels, f"adjoint_{kind}_plain")(w2, y, lam, r, n, torch.float64)
+    ref = getattr(kernels, f"{kind}_apply_bwd_plain")(w2, lam, got[0], r, n, torch.float64)
+    assert (got[0] - x).abs().max() <= EXACT_TOL
+    assert (got[1] - ref[0]).abs().max() <= EXACT_TOL
+    assert (got[2] - ref[1]).abs().max() <= EXACT_TOL
+
+
 # ---------------------------------------------------------------------------
 # Executor level: 16-qubit Circuit_19 through the adjoint executor
 # ---------------------------------------------------------------------------
@@ -215,7 +257,7 @@ SMALL_TOL = 1e-5
 
 
 def _port_model(params, dtype=torch.float32):
-    m = Model(n_qubits=N, n_layers=2, circuit_type="Circuit_19", dtype=dtype)
+    m = Model(n_qubits=N, n_layers=2, circuit_type="Circuit_19", dtype=dtype, device="cpu")
     m.load_numpy(params)
     return m
 

@@ -3,7 +3,9 @@ Pallas kernels (interpret mode, as tests/test_pallas.py runs them), the
 wrappers' routing, and — on a machine with a GPU — each CUDA kernel against
 its plain version (the backward kernels' plain versions are held to the JAX
 package in tests/test_torch_saved.py, the adjoint steps' in
-tests/test_torch_adjoint.py).
+tests/test_torch_adjoint.py).  The fused (rotation, window) kernels — rotmat,
+matrot, rotwin, their backwards and the rotmat/matrot adjoint steps — are
+held to the same bounds as the window kernels they fuse.
 
 Tolerances: the Pallas kernels multiply in the TPU's split3 bf16 scheme
 (~9e-6 relative per window, measured against an f64 oracle), so window
@@ -92,10 +94,56 @@ def test_rotate_plain_matches_pallas(n, r):
 
 
 @pytest.mark.unittest
+@pytest.mark.parametrize("n", [15, 16])
+def test_rotmat_plain_matches_pallas(n):
+    """A rotation by r = 8 and the K = 256 window on [0, 8)."""
+    import jax.numpy as jnp
+
+    from qml_essentials_tpu.ops import pallas_kernels
+
+    r = 8
+    psi2, w2 = _state(n, n), _unitary_pair(r, n + 1)
+    ref = pallas_kernels.rotmat_apply_ri(jnp.asarray(psi2), jnp.asarray(w2), r, n, True)
+    got = kernels.rotmat_apply_plain(torch.from_numpy(psi2), torch.from_numpy(w2), r, n)
+    assert _rel(got, ref) <= PALLAS_TOL
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("n", [15, 16])
+def test_matrot_plain_matches_pallas(n):
+    """The K = 256 window on [0, 8) and the rotation by r = n - 8."""
+    import jax.numpy as jnp
+
+    from qml_essentials_tpu.ops import pallas_kernels
+
+    r = n - 8
+    psi2, w2 = _state(n, 2 * n), _unitary_pair(8, n + 2)
+    ref = pallas_kernels.matrot_apply_ri(jnp.asarray(psi2), jnp.asarray(w2), r, n, True)
+    got = kernels.matrot_apply_plain(torch.from_numpy(psi2), torch.from_numpy(w2), r, n)
+    assert _rel(got, ref) <= PALLAS_TOL
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("r,k", [(7, 8), (7, 9), (8, 9)])
+def test_rotwin_plain_matches_pallas(r, k):
+    """A rotation by r and a window on [0, k), k > r, at 16 qubits."""
+    import jax.numpy as jnp
+
+    from qml_essentials_tpu.ops import pallas_kernels
+
+    n = 16
+    psi2, w2 = _state(n, r + k), _unitary_pair(k, r)
+    ref = pallas_kernels.rotwin_apply_ri(jnp.asarray(psi2), jnp.asarray(w2), r, k, n, True)
+    got = kernels.rotwin_apply_plain(torch.from_numpy(psi2), torch.from_numpy(w2), r, k, n)
+    assert _rel(got, ref) <= PALLAS_TOL
+
+
+@pytest.mark.unittest
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     n = 10
     psi2 = torch.from_numpy(_state(n, 0))
     w2 = torch.from_numpy(_unitary_pair(3, 0))
+    w4 = torch.from_numpy(_unitary_pair(4, 1))
     cuda_kernels.reset_launch_counts()
     assert torch.equal(
         cuda_kernels.window_apply(psi2, w2, 2, 3, n), kernels.window_apply_plain(psi2, w2, 2, 3, n)
@@ -104,23 +152,42 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
         cuda_kernels.window_apply_top(psi2, w2, 3, n), kernels.window_apply_top_plain(psi2, w2, 3, n)
     )
     assert torch.equal(cuda_kernels.rotate(psi2, 4, n), kernels.rotate_plain(psi2, 4, n))
+    for got, ref in (
+        (cuda_kernels.rotmat_apply(psi2, w2, 3, n), kernels.rotmat_apply_plain(psi2, w2, 3, n)),
+        (cuda_kernels.matrot_apply(psi2, w2, 7, n), kernels.matrot_apply_plain(psi2, w2, 7, n)),
+        (cuda_kernels.rotwin_apply(psi2, w4, 3, 4, n),
+         kernels.rotwin_apply_plain(psi2, w4, 3, 4, n)),
+    ):
+        assert torch.equal(got, ref)
     g = psi2.flip(1).to(torch.bfloat16)
     for got, ref in (
         (cuda_kernels.window_apply_bwd(w2, g, psi2, 2, 3, n, torch.bfloat16),
          kernels.window_apply_bwd_plain(w2, g, psi2, 2, 3, n, torch.bfloat16)),
         (cuda_kernels.window_apply_top_bwd(w2, g, psi2, 3, n, torch.float32),
          kernels.window_apply_top_bwd_plain(w2, g, psi2, 3, n, torch.float32)),
+        (cuda_kernels.rotmat_apply_bwd(w2, g, psi2, 3, n, torch.bfloat16),
+         kernels.rotmat_apply_bwd_plain(w2, g, psi2, 3, n, torch.bfloat16)),
+        (cuda_kernels.matrot_apply_bwd(w2, g, psi2, 7, n, torch.float32),
+         kernels.matrot_apply_bwd_plain(w2, g, psi2, 7, n, torch.float32)),
+        (cuda_kernels.rotwin_apply_bwd(w4, g, psi2, 3, 4, n, torch.bfloat16),
+         kernels.rotwin_apply_bwd_plain(w4, g, psi2, 3, 4, n, torch.bfloat16)),
         (cuda_kernels.adjoint_step(w2, psi2, g, 2, 3, n, torch.bfloat16),
          kernels.adjoint_step_plain(w2, psi2, g, 2, 3, n, torch.bfloat16)),
         (cuda_kernels.adjoint_step_top(w2, psi2, g, 3, n, torch.float32),
          kernels.adjoint_step_top_plain(w2, psi2, g, 3, n, torch.float32)),
+        (cuda_kernels.adjoint_rotmat(w2, psi2, g, 3, n, torch.bfloat16),
+         kernels.adjoint_rotmat_plain(w2, psi2, g, 3, n, torch.bfloat16)),
+        (cuda_kernels.adjoint_matrot(w2, psi2, g, 7, n, torch.float32),
+         kernels.adjoint_matrot_plain(w2, psi2, g, 7, n, torch.float32)),
         (cuda_kernels.rotate_pair(psi2, g, 4, n), kernels.rotate_pair_plain(psi2, g, 4, n)),
     ):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert set(cuda_kernels.launch_counts().values()) == {0}
     assert set(cuda_kernels.launch_counts()) == {
         "window_apply", "window_apply_bwd", "window_apply_top", "window_apply_top_bwd", "rotate",
-        "adjoint_step", "adjoint_step_top", "rotate_pair",
+        "rotmat_apply", "rotmat_apply_bwd", "matrot_apply", "matrot_apply_bwd", "rotwin_apply",
+        "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
+        "adjoint_matrot", "rotate_pair",
     }
 
 
@@ -411,3 +478,110 @@ def test_cuda_adjoint_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         cuda_kernels.rotate_pair(x, x[:, ::2].contiguous(), 3, 8)
     with pytest.raises(ValueError):
         cuda_kernels.rotate_pair(x, x.cpu(), 3, 8)
+
+
+# The fused (rotation, window) kernels: (kind, n, r, k) with k == r for
+# rotmat, k == n - r for matrot and r < k < n for rotwin.  K = 2 windows,
+# two-column states, the main path's 22-24q shapes and 26q planes (64-bit
+# offsets) included.
+FUSED_CASES = [
+    ("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("rotmat", 16, 8, 8), ("rotmat", 26, 9, 9),
+    ("matrot", 6, 5, 1), ("matrot", 9, 1, 8), ("matrot", 24, 16, 8), ("matrot", 26, 17, 9),
+    ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5), ("rotwin", 22, 8, 10), ("rotwin", 26, 9, 10),
+]
+
+
+def _fused_geom(kind, r, k):
+    return (r, k) if kind == "rotwin" else (r,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES)
+def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
+    x = torch.from_numpy(_state(n, n + r)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(k, r)).to(cuda)
+    name = f"{kind}_apply"
+    before = cuda_kernels.launch_counts()[name]
+    got = getattr(cuda_kernels, name)(x, w, *_fused_geom(kind, r, k), n)
+    ref = getattr(kernels, f"{name}_plain")(x.double(), w.double(), *_fused_geom(kind, r, k), n)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()[name] == before + 1
+    assert _rel(got.double().cpu(), ref.cpu()) <= CUDA_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES)
+def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_dtype):
+    out_dtype = getattr(torch, out_dtype)
+    w, g, x = _bwd_inputs(cuda, n, k, 11 * n + r, getattr(torch, g_dtype))
+    name = f"{kind}_apply_bwd"
+    before = cuda_kernels.launch_counts()[name]
+    geom = _fused_geom(kind, r, k)
+    got = getattr(cuda_kernels, name)(w, g, x, *geom, n, out_dtype)
+    ref = getattr(kernels, f"{name}_plain")(w.double(), g.double(), x.double(), *geom, n,
+                                            torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()[name] == before + 1
+    _assert_bwd_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n,r,k", [c for c in FUSED_CASES if c[0] != "rotwin"])
+def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dtype):
+    out_dtype = getattr(torch, out_dtype)
+    w, lam, psi = _bwd_inputs(cuda, n, k, 13 * n + r, getattr(torch, lam_dtype))
+    name = f"adjoint_{kind}"
+    before = cuda_kernels.launch_counts()[name]
+    got = getattr(cuda_kernels, name)(w, psi, lam, r, n, out_dtype)
+    ref = getattr(kernels, f"{name}_plain")(w.double(), psi.double(), lam.double(), r, n,
+                                            torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()[name] == before + 1
+    _assert_adjoint_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rotmat", "matrot", "rotwin"])
+def test_cuda_fused_autograd_matches_plain_autograd(cuda, kind):
+    """The fused kernels' autograd Functions (backward = the *_bwd kernel)
+    against autograd over the plain versions, in float64 on the card."""
+    n, r, k = 12, 4, {"rotmat": 4, "matrot": 8, "rotwin": 6}[kind]
+    x = torch.from_numpy(_state(n, 1)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(k, 2)).to(cuda)
+    g = torch.from_numpy(_state(n, 3)).to(cuda)
+    geom = _fused_geom(kind, r, k)
+
+    def run(fn, dtype):
+        xx = x.detach().to(dtype).clone().requires_grad_()
+        ww = w.detach().to(dtype).clone().requires_grad_()
+        fn(xx, ww, *geom, n).backward(g.to(dtype))
+        return xx.grad, ww.grad
+
+    before = cuda_kernels.launch_counts()[f"{kind}_apply_bwd"]
+    got = run(getattr(cuda_kernels, f"{kind}_apply"), torch.float32)
+    ref = run(getattr(kernels, f"{kind}_apply_plain"), torch.float64)
+    assert cuda_kernels.launch_counts()[f"{kind}_apply_bwd"] == before + 1
+    assert _rel(got[0].double().cpu(), ref[0].cpu()) <= CUDA_TOL
+    assert _rel(got[1].double().cpu(), ref[1].cpu()) <= CUDA_GRAM_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.from_numpy(_state(8, 0)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(2, 0)).to(cuda)
+    with pytest.raises(ValueError):
+        cuda_kernels.rotmat_apply(x, w, 3, 8)  # a K = 4 window is r = 2
+    with pytest.raises(ValueError):
+        cuda_kernels.rotwin_apply(x, w, 2, 2, 8)  # k == r is rotmat's
+    with pytest.raises(ValueError):
+        cuda_kernels.matrot_apply(x, w, 0, 8)
+    with pytest.raises(TypeError):
+        cuda_kernels.matrot_apply_bwd(w, x, x, 6, 8, torch.float16)
+    with pytest.raises(TypeError):
+        cuda_kernels.adjoint_rotmat(w, x, x.half(), 2, 8, torch.float32)
+    with pytest.raises(ValueError):
+        cuda_kernels.adjoint_matrot(w, x, x[:, ::2].contiguous(), 6, 8, torch.float32)

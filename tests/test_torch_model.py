@@ -5,6 +5,9 @@ package, with the JAX model's parameters carried across by
 Tolerance: 5e-5 relative to the largest output magnitude (float32 on both
 sides; at 16 qubits the JAX side runs its Pallas kernels in interpret mode,
 whose split3 bf16 products add ~1e-5 per window).
+
+The port's entry points run on the card unless the caller asks for the CPU:
+without CUDA their default raises, and ``device="cpu"`` runs.
 """
 
 import numpy as np
@@ -16,7 +19,10 @@ from qml_essentials_tpu.models.ansaetze import Ansaetze as JaxAnsaetze
 from qml_essentials_tpu.models.model import Model as JaxModel
 from qml_essentials_tpu.ops import pallas_kernels
 from qml_essentials_tpu.ops import simulation as jsim
+from qml_essentials_tpu_torch.core import memory
+from qml_essentials_tpu_torch.core.executor import Script
 from qml_essentials_tpu_torch.models.model import Model
+from qml_essentials_tpu_torch.ops import operations as op
 from qml_essentials_tpu_torch.ops import simulation as tsim
 
 torch.set_num_threads(2)
@@ -27,7 +33,7 @@ INPUTS = np.array([0.31, -1.2, 2.05], dtype=np.float32)
 
 def _pair(n, layers=2, circuit="Circuit_19", **kw):
     jm = JaxModel(n_qubits=n, n_layers=layers, circuit_type=circuit, random_seed=11, **kw)
-    tm = Model(n_qubits=n, n_layers=layers, circuit_type=circuit, **kw)
+    tm = Model(n_qubits=n, n_layers=layers, circuit_type=circuit, device="cpu", **kw)
     tm.load_numpy(np.asarray(jm.params), np.asarray(jm.enc_params))
     return jm, tm
 
@@ -106,7 +112,8 @@ def test_port_forward_is_differentiable_on_cpu():
 @pytest.mark.unittest
 def test_float64_mode_is_explicit(pair6):
     jm, tm32 = pair6
-    tm64 = Model(n_qubits=6, n_layers=2, circuit_type="Circuit_19", dtype=torch.float64)
+    tm64 = Model(n_qubits=6, n_layers=2, circuit_type="Circuit_19", dtype=torch.float64,
+                 device="cpu")
     tm64.load_numpy(np.asarray(jm.params))
     out = tm64(inputs=0.9)
     assert out.dtype == torch.float64
@@ -116,12 +123,12 @@ def test_float64_mode_is_explicit(pair6):
 @pytest.mark.unittest
 @pytest.mark.parametrize("what", ["noise", "shots", "density", "pulse"])
 def test_later_slices_raise(what):
-    tm = Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19")
+    tm = Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", device="cpu")
     with pytest.raises(NotImplementedError):
         if what == "noise":
             tm(inputs=0.1, noise_params={"BitFlip": 0.1})
         elif what == "shots":
-            Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", shots=100)
+            Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", shots=100, device="cpu")
         elif what == "density":
             tm(inputs=0.1, execution_type="density")
         else:
@@ -142,3 +149,35 @@ def test_every_ansatz_matches_jax(monkeypatch, circuit):
     monkeypatch.setattr(jax_executor, "JIT_SINGLE", False)  # eager: no per-ansatz compile
     jm, tm = _pair(5, layers=1, circuit=circuit)
     _assert_close(tm(inputs=float(INPUTS[0])), jm(jm.params, inputs=float(INPUTS[0])))
+
+
+def _one_qubit_circuit(theta):
+    op.RX(theta, wires=0)
+
+
+# Each entry point built with its default device, then with device="cpu".
+ENTRY_POINTS = {
+    "Model": lambda **kw: Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", **kw),
+    "Script": lambda **kw: Script(_one_qubit_circuit, n_qubits=1, **kw),
+    "available_memory_bytes": lambda **kw: memory.available_memory_bytes(**kw),
+}
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_the_card_is_the_default_device(monkeypatch, entry):
+    """Without CUDA the default device raises (it never falls back to the
+    CPU quietly); ``device="cpu"`` runs there."""
+    make = ENTRY_POINTS[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    on_cpu = make(device="cpu")
+    if entry == "Model":
+        assert on_cpu.params.device.type == "cpu"
+        assert torch.isfinite(on_cpu(inputs=0.2)).all()
+    elif entry == "Script":
+        out = on_cpu.execute(type="expval", obs=[op.PauliZ(0, record=False)], args=(0.3,))
+        assert abs(float(out[0]) - np.cos(0.3)) <= 1e-6
+    else:
+        assert on_cpu > 0

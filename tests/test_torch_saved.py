@@ -21,6 +21,11 @@ states, unitaries and cotangents from ``numpy.random.default_rng``:
 * each plain backward equals ``torch.autograd`` over the matching plain
   forward in float64 to 1e-12 (same products, other order of sums).
 
+The fused (rotation, window) backwards ``rotmat_apply_bwd_plain`` /
+``matrot_apply_bwd_plain`` / ``rotwin_apply_bwd_plain`` are held to the JAX
+package's ``_rotmat_apply_bwd`` / ``_matrot_apply_bwd`` / ``_rotwin_apply_bwd``
+and to autograd in float64 by the same bounds.
+
 Executor level.  A 16-qubit, 2-layer Circuit_19 with the port's
 ``LARGE_STATE_MIN_N`` lowered to 16, so the saved executor runs the
 scheduled plan (outer-product start, rotations, windows, a top window):
@@ -157,6 +162,60 @@ def test_bf16_cotangent_matches_pallas(split3_gram, top):
     assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
+# Fused (rotation, window) steps: (kind, n, r, k) with k == r for rotmat,
+# k == n - r for matrot and r < k for rotwin.
+FUSED_BWD_CASES = [
+    ("rotmat", 10, 4, 4), ("rotmat", 12, 7, 7), ("matrot", 10, 6, 4), ("matrot", 12, 5, 7),
+    ("rotwin", 10, 3, 5), ("rotwin", 12, 7, 8), ("rotwin", 12, 7, 9),
+]
+
+
+def _fused_bwd(lib, kind, w2, g, x, r, k, n, out):
+    """The fused backward of *kind* from the JAX package (``lib`` is
+    ``pallas_kernels``, interpret mode) or from the port's plain versions."""
+    if lib is pallas_kernels:
+        if kind == "rotwin":
+            return lib._rotwin_apply_bwd(w2, g, x, r, k, n, True, out)
+        return getattr(lib, f"_{kind}_apply_bwd")(w2, g, x, r, n, True, out)
+    geom = (r, k) if kind == "rotwin" else (r,)
+    return getattr(kernels, f"{kind}_apply_bwd_plain")(w2, g, x, *geom, n, out)
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n,r,k", FUSED_BWD_CASES)
+def test_fused_bwd_plain_matches_pallas(split3_gram, kind, n, r, k, out):
+    """rotmat / matrot / rotwin backwards (B7 / B9 / B11): the rotation
+    folded into the window's pullback and gram, rotwin's permuted columns
+    unpermuted in gw."""
+    w2, g, x = _inputs(n, k, seed=n + r + k)
+    out_t = getattr(torch, out)
+    gp_ref, gw_ref = _fused_bwd(pallas_kernels, kind, *map(jnp.asarray, (w2, g, x)), r, k, n,
+                                getattr(jnp, out))
+    gp, gw = _fused_bwd(kernels, kind, *map(torch.from_numpy, (w2, g, x)), r, k, n, out_t)
+    assert gp.dtype == out_t and gw.dtype == torch.float32
+    _assert_out_close(gp, gp_ref, out_t)
+    _assert_out_close(gw, gw_ref, torch.float32)
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("kind,n,r,k", [("rotmat", 7, 3, 3), ("matrot", 7, 4, 3),
+                                        ("rotwin", 7, 2, 4), ("rotwin", 6, 1, 3)])
+def test_fused_plain_bwd_is_autograd_of_plain_fwd(kind, n, r, k):
+    """float64: each fused plain backward equals torch.autograd over its
+    plain forward."""
+    rng = np.random.default_rng(n * 10 + r + k)
+    w2 = torch.from_numpy(_unitary_pair(rng, k)).requires_grad_()
+    x = torch.from_numpy(rng.normal(size=(2, 2**n))).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(2, 2**n)))
+    geom = (r, k) if kind == "rotwin" else (r,)
+    y = getattr(kernels, f"{kind}_apply_plain")(x, w2, *geom, n)
+    gp, gw = getattr(kernels, f"{kind}_apply_bwd_plain")(w2, g, x, *geom, n, torch.float64)
+    ref_x, ref_w = torch.autograd.grad(y, (x, w2), g)
+    assert (gp - ref_x).abs().max() <= AUTOGRAD_TOL
+    assert (gw - ref_w).abs().max() <= AUTOGRAD_TOL
+
+
 @pytest.mark.unittest
 @pytest.mark.parametrize(
     "n,a,k", [(8, 1, 3), (8, 0, 2), (8, 6, 1), (7, 0, 1), (8, 5, 3), (6, 3, 3)],
@@ -194,7 +253,7 @@ BF16_BUDGET = 5e-4
 
 
 def _port_model(params, dtype=torch.float32):
-    m = Model(n_qubits=N, n_layers=2, circuit_type="Circuit_19", dtype=dtype)
+    m = Model(n_qubits=N, n_layers=2, circuit_type="Circuit_19", dtype=dtype, device="cpu")
     m.load_numpy(params)
     return m
 
@@ -365,7 +424,8 @@ def test_training_after_serving_under_inference_mode(monkeypatch):
     from qml_essentials_tpu_torch.ops import operations
 
     monkeypatch.setattr(operations, "_CONST_CACHE", {})
-    m = Model(n_qubits=4, n_layers=1, circuit_type="Circuit_19", dtype=torch.float64)
+    m = Model(n_qubits=4, n_layers=1, circuit_type="Circuit_19", dtype=torch.float64,
+              device="cpu")
     with torch.inference_mode():
         served = m(inputs=0.3)
     out = m(inputs=0.3)
@@ -398,4 +458,4 @@ def test_lambda_mode_and_executor_switches():
     assert not saved.ENABLED
     saved.set_saved_executor(True)
     assert saved.usable(tsim.LARGE_STATE_MIN_N) and not saved.usable(12)
-    assert memory.available_memory_bytes() > 0
+    assert memory.available_memory_bytes("cpu") > 0
