@@ -8,11 +8,12 @@ circuit_type="Circuit_19", device="cuda")`` answering forward requests and
 computing the gradient of the mean <Z> with respect to ``params`` at 22 and
 24 qubits through the saved-residual executor, and through the adjoint-state
 executor at 22, 24 and 26 qubits, all on the reference's default plan
-(``FUSE_LAYOUT_ROT`` on: fused rotation steps) — and checks it phase by
+(``FUSE_LAYOUT_ROT`` on: fused rotation steps), and the same 22 and 24 qubit
+models through the chain route (``USE_CHAINS`` on) — and checks it phase by
 phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: the sixteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
+2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
    shared-memory use; the 22q/24q/26q plans are printed (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
@@ -63,17 +64,35 @@ phase:
    same 24q model and input: <Z> within 1e-6, the saved and the adjoint
    gradients (f32 lambda) within 1e-4 max|g| + 1e-6, no fused kernel with
    the flag off; each plan's residual estimate and saved fwd+grad peak;
+5d. the chain route (``simulation.USE_CHAINS = True``, B17 chain_apply and
+   B18 adjoint_chain): the 22q and 24q chain plans are printed (24q: the 9
+   steps of ``CHAIN_PLAN_24``), 26q has none and keeps its scheduled plan;
+   both kernels against their plain versions in float64 at every step of
+   both plans (states 1e-5, each descriptor's cotangent 1e-4, relative);
+   then, with launch counts reset before and read after each request, a
+   forward request launches exactly one chain_apply per chain step and no
+   other kernel (<Z> within 1e-5 of the scheduled plan's, within 1e-4 of the
+   CPU float64 path), a forced-adjoint gradient one chain_apply and one
+   adjoint_chain per step and no other kernel (within 1e-4 max|g| + 1e-6 of
+   the scheduled plan's saved gradient, f32 lambda; 22q within 1e-4 of the
+   CPU float64 gradient), an ``"auto"`` gradient under the residual line
+   the per-step loop over the steps' expansion (one forward and one backward
+   window kernel per window, no chain kernel; the same tolerance), and three
+   SGD steps on the adjoint route;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
    24q forced adjoint, 26q adjoint and saved, the 24q batch over the line
    under ``"auto"``; the 24q forward, saved fwd+grad and adjoint fwd+grad
    with the flag off and on in turns (off, on, on, off; medians of 10) and
-   the forward plan's device time; and each kernel's time on one request's
-   shapes beside its plain version's, its library yardstick's (the cuBLAS
-   complex64 products of the same shapes through ``torch.matmul``, or a
-   transpose copy) and its bound (max of flops / 67 TFLOP/s and bytes /
-   3.35 TB/s), CUDA events, best of 3 after warm-up.
+   the forward plan's device time; the 24q forward and forced-adjoint
+   fwd+grad with ``USE_CHAINS`` off and on, in turns the same way, and the
+   chain plan's device time; and each kernel's time on one request's shapes
+   beside its plain version's, its library yardstick's (the cuBLAS complex64
+   products of the same shapes through ``torch.matmul``, a transpose copy,
+   or for the chain kernels the products of the step's windows and its
+   diagonals' multiplies, summed) and its bound (max of flops / 67 TFLOP/s
+   and bytes / 3.35 TB/s), CUDA events, best of 3 after warm-up.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -112,6 +131,7 @@ SGD_LR = 1.0
 TOL_ADJ_REL, TOL_ADJ_ABS = 1e-4, 1e-6  # adjoint vs saved: <= 1e-4 max|g| + 1e-6
 BATCH_MARGIN = 0.10  # the batch over the 0.35 line is >= 10 % over it
 TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass order)
+TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
@@ -180,6 +200,14 @@ KERNELS = {
         source="qml_essentials_tpu_torch/csrc/rotate_pair.cu",
         replaces="qml_essentials_tpu/ops/pallas_kernels.py:724",
     ),
+    "chain_apply": dict(
+        source="qml_essentials_tpu_torch/csrc/chain_apply.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1713",
+    ),
+    "adjoint_chain": dict(
+        source="qml_essentials_tpu_torch/csrc/adjoint_chain.cu",
+        replaces="qml_essentials_tpu/ops/pallas_kernels.py:1821",
+    ),
 }
 FWD_KERNELS = ("window_apply", "window_apply_top", "rotate", "rotmat_apply", "matrot_apply",
                "rotwin_apply")
@@ -187,6 +215,21 @@ BWD_KERNELS = ("window_apply_bwd", "window_apply_top_bwd", "rotmat_apply_bwd",
                "matrot_apply_bwd", "rotwin_apply_bwd")
 ADJOINT_KERNELS = ("adjoint_step", "adjoint_step_top", "adjoint_rotmat", "adjoint_matrot",
                    "rotate_pair")
+CHAIN_KERNELS = ("chain_apply", "adjoint_chain")
+
+# The 24q chain plan (geometry, descriptors) of the JAX package's planner on
+# this model's tape: H and L blocks in turns, 23 windows (sum of K 4992) and
+# 3 two-bit ring-wrap diagonals.
+_L4 = (("win", 0, 8), ("win", 7, 15), ("win", 0, 8), ("win", 7, 14), ("win", 9, 17))
+_H3 = (("win", 16, 24), ("diag", (23, 0)), ("win", 17, 24))
+CHAIN_PLAN_24 = [
+    (("H", 8), (("win", 16, 24),)),
+    (("L", 17), (("win", 10, 17), ("win", 0, 8), ("win", 8, 16))),
+    (("H", 8), (("diag", (23, 0)), ("win", 17, 24))),
+    (("L", 17), _L4), (("H", 8), _H3), (("L", 17), _L4), (("H", 8), _H3),
+    (("L", 17), (("win", 0, 8), ("win", 7, 15), ("win", 10, 17))),
+    (("H", 8), (("win", 16, 24),)),
+]
 
 
 def log(msg: str) -> None:
@@ -198,21 +241,56 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-class fusion:
-    """``with fusion(on):`` plans with ``simulation.FUSE_LAYOUT_ROT = on``."""
+class _Flag:
+    """``with _Flag(name, on):`` runs with ``simulation.<name> = on``."""
 
-    def __init__(self, on: bool) -> None:
-        self.on = on
+    def __init__(self, name: str, on: bool) -> None:
+        self.name, self.on = name, on
 
     def __enter__(self):
         from qml_essentials_tpu_torch.ops import simulation
 
-        self.before, simulation.FUSE_LAYOUT_ROT = simulation.FUSE_LAYOUT_ROT, self.on
+        self.before = getattr(simulation, self.name)
+        setattr(simulation, self.name, self.on)
 
     def __exit__(self, *exc):
         from qml_essentials_tpu_torch.ops import simulation
 
-        simulation.FUSE_LAYOUT_ROT = self.before
+        setattr(simulation, self.name, self.before)
+
+
+def fusion(on: bool) -> _Flag:
+    """Plans with fused rotation steps (``FUSE_LAYOUT_ROT``) on or off."""
+    return _Flag("FUSE_LAYOUT_ROT", on)
+
+
+def chain_route(on: bool) -> _Flag:
+    """Plans with the chain route (``USE_CHAINS``) on or off."""
+    return _Flag("USE_CHAINS", on)
+
+
+def model_tape(n: int) -> list:
+    """The tape of one forward of the n-qubit Circuit_19 model (on the CPU)."""
+    from qml_essentials_tpu_torch.models.model import Model
+    from qml_essentials_tpu_torch.ops.tape import recording
+
+    model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED,
+                  device="cpu")
+    with recording() as tape, torch.no_grad():
+        model._variational(model.params[0], torch.tensor([REQUESTS[0]]))
+    return tape
+
+
+def chain_plan(n: int):
+    """The n-qubit model's chain plan as (geometry, descriptors, payload
+    pairs on the card) per step, or None where the planner has none."""
+    from qml_essentials_tpu_torch.ops import chains
+
+    plan = chains.plan_chains(model_tape(n), n)
+    if plan is None:
+        return None
+    return [(geom, descs, [torch.stack([p.real, p.imag]).to(DEVICE).contiguous() for p in pays])
+            for _, (geom, descs, pays), _ in plan]
 
 
 def plan_shapes(n: int, fused: bool = True) -> dict:
@@ -220,16 +298,10 @@ def plan_shapes(n: int, fused: bool = True) -> dict:
     the port's scheduled plan: window (a, k), top-window k, rotation r, the
     fused steps (rotmat r, matrot r, rotwin (r, k)), and the steps in plan
     order (the backward walks them in reverse)."""
-    from qml_essentials_tpu_torch.models.model import Model
     from qml_essentials_tpu_torch.ops import simulation
-    from qml_essentials_tpu_torch.ops.tape import recording
 
-    model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED,
-                  device="cpu")
-    with recording() as tape, torch.no_grad():
-        model._variational(model.params[0], torch.tensor([REQUESTS[0]]))
     with fusion(fused):
-        plan, _ = simulation.scheduled_plan(tape, n)
+        plan, _ = simulation.scheduled_plan(model_tape(n), n)
     shapes = {name: [] for name in FWD_KERNELS}
     shapes["steps"] = []
     for kind, payload, wires in plan:
@@ -542,6 +614,39 @@ def check_rotations(ck, kn, cases, gen, dtype=torch.float32) -> float:
     return 0.0
 
 
+def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
+    """B17 and B18 against their plain versions in float64 at every step of
+    a chain plan, on a random state and cotangent: the states within
+    TOL_WINDOW and each descriptor's cotangent within TOL_GRAM of the largest
+    magnitude.  Returns the max abs error per kernel."""
+    errs = dict.fromkeys(CHAIN_KERNELS, 0.0)
+    for geom, descs, pairs in steps:
+        x, lam = _state(n, gen), _state(n, gen)
+        y = ck.chain_apply(x, pairs, geom, descs, n)
+        pp, lp, gs = ck.adjoint_chain(x, lam, pairs, geom, descs, n)
+        p64 = [p.double() for p in pairs]
+        ry = kn.chain_apply_plain(x.double(), p64, geom, descs, n)
+        rp, rl, rg = kn.adjoint_chain_plain(x.double(), lam.double(), p64, geom, descs, n)
+        torch.cuda.synchronize()
+        _check(lp.dtype == torch.float32 and len(gs) == len(descs)
+               and all(g.dtype == torch.float32 and g.shape == p.shape
+                       for g, p in zip(gs, pairs)),
+               f"chain step {geom} {descs}: adjoint_chain outputs {lp.dtype}, "
+               f"{[(g.dtype, tuple(g.shape)) for g in gs]}")
+        abs_err = [(a.double() - b).abs().max().item() for a, b in
+                   ((y, ry), (pp, rp), (lp, rl), *zip(gs, rg))]
+        rel = [e / b.abs().max().item() for e, b in zip(abs_err, (ry, rp, rl, *rg))]
+        log(f"  chain n={n:2d} {geom[0]} {len(descs)} descriptors: chain_apply rel={rel[0]:.3e}  "
+            f"adjoint_chain psi rel={rel[1]:.3e} lam rel={rel[2]:.3e} "
+            f"cotangents rel<={max(rel[3:]):.3e}")
+        _check(max(rel[:3]) <= TOL_WINDOW and max(rel[3:]) <= TOL_GRAM,
+               f"chain step n={n} {geom} {descs}: rel errors {rel}")
+        errs["chain_apply"] = max(errs["chain_apply"], abs_err[0])
+        errs["adjoint_chain"] = max(errs["adjoint_chain"], *abs_err[1:])
+        del y, pp, lp, gs, ry, rp, rl, rg
+    return errs
+
+
 def phase_parity(shapes: dict) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
@@ -592,7 +697,7 @@ def phase_parity(shapes: dict) -> dict:
     check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
                          ("matrot", 9, 1, 8), ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5),
                          ("rotwin", 12, 7, 9)], gen, rng)
-    missing = set(KERNELS) - set(errs)
+    missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
 
@@ -607,6 +712,8 @@ def _diff(after: dict, before: dict) -> dict:
 
 
 def phase_slice(shapes: dict) -> tuple:
+    """Returns the models, the launches and, per width, the card's <Z> for
+    the first request and the CPU float64 path's."""
     from qml_essentials_tpu_torch.models.model import Model
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
@@ -616,8 +723,7 @@ def phase_slice(shapes: dict) -> tuple:
                  random_seed=SEED, device=DEVICE)
         for n in WIDTHS
     }
-    answers = {}
-    per_width = {}
+    answers, per_width, refs = {}, {}, {}
     ck.reset_launch_counts()
     with torch.inference_mode():
         for n, model in models.items():
@@ -648,6 +754,7 @@ def phase_slice(shapes: dict) -> tuple:
             f"(CPU reference took {time.perf_counter() - t0:.1f} s)")
         if not d_ref <= TOL_EXPVAL:
             raise AssertionError(f"{n}q: card vs CPU reference differ by {d_ref:.3e}")
+        refs[n] = (singles[0], ref)
 
     # Six requests per width (three single, one batch of three): each runs
     # every step of its plan once.
@@ -658,7 +765,7 @@ def phase_slice(shapes: dict) -> tuple:
     for name in FWD_KERNELS:
         _check(launches[name] > 0, f"kernel {name} was never launched on the forward path")
     log(f"  launches over the forward run: {launches}")
-    return models, launches
+    return models, launches, refs
 
 
 def _cpu_f64_model(model, n: int):
@@ -1041,6 +1148,109 @@ def phase_fusion_ab(model, shapes: dict, n: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: the chain route
+# ---------------------------------------------------------------------------
+
+
+def _only(counts: dict, want: dict, what: str) -> None:
+    """Exactly the launches in *want*, and none of any other kernel."""
+    extra = {k: v for k, v in counts.items() if v and k not in want}
+    log(f"  {what} launched {dict((k, v) for k, v in counts.items() if v)}")
+    _check(all(counts[k] == v for k, v in want.items()) and not extra,
+           f"{what}: launches {counts}, want exactly {want}")
+
+
+def phase_chains(models: dict, shapes: dict, refs: dict, g64: torch.Tensor) -> tuple:
+    """The chain route on the 22q and 24q models; returns the launches of
+    its requests and the parity errors of B17 and B18."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn, saved, simulation
+
+    log("phase 5d: the chain route (USE_CHAINS on): B17 chain_apply, B18 adjoint_chain")
+    plans = {n: chain_plan(n) for n in (*WIDTHS, WIDE)}
+    for n in WIDTHS:
+        log(f"  {n}q chain plan, {len(plans[n])} steps:")
+        for geom, descs, _ in plans[n]:
+            log(f"    {geom[0]} {list(descs)}")
+    n24 = WIDTHS[-1]
+    _check([(g, d) for g, d, _ in plans[n24]] == CHAIN_PLAN_24,
+           f"{n24}q chain plan differs from the JAX package's 9 steps")
+    _check(plans[WIDE] is None, f"{WIDE}q has a chain plan")
+    with chain_route(True):
+        wide = plan_shapes(WIDE)  # raises on a chain step
+    log(f"  {WIDE}q with the flag on: no chain plan, the scheduled plan of "
+        f"{len(wide['steps'])} steps")
+    _check(wide["steps"] == shapes[WIDE]["steps"], f"{WIDE}q plan changed with the flag on")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    errs = dict.fromkeys(CHAIN_KERNELS, 0.0)
+    for n in WIDTHS:
+        for name, e in check_chain(ck, kn, n, plans[n], gen).items():
+            errs[name] = max(errs[name], e)
+
+    # The scheduled plan's saved gradients (f32 lambda), before the counts.
+    x0 = REQUESTS[0]
+    g_ref = {n: _adjoint_grad(model, x0, "autodiff", "f32")[1] for n, model in models.items()}
+
+    ck.reset_launch_counts()
+    with chain_route(True):
+        for n, model in models.items():
+            steps = len(plans[n])
+            windows = [d for _, descs, _ in plans[n] for d in descs if d[0] == "win"]
+            top = sum(d[1] == 0 for d in windows)  # a window from bit 0 ends at wire n - 1
+            before = ck.launch_counts()
+            with torch.inference_mode():
+                z = model(inputs=x0)
+            torch.cuda.synchronize()
+            _only(_diff(ck.launch_counts(), before), {"chain_apply": steps},
+                  f"{n}q chain forward")
+            d_sched = _maxdiff(z, refs[n][0])
+            d_cpu = _maxdiff(z, refs[n][1])
+            log(f"  {n}q chain <Z> vs scheduled plan: max|delta|={d_sched:.3e} (tol "
+                f"{TOL_CHAIN_FWD}); vs CPU fp64: {d_cpu:.3e} (tol {TOL_EXPVAL})")
+            _check(bool(torch.isfinite(z).all()) and d_sched <= TOL_CHAIN_FWD
+                   and d_cpu <= TOL_EXPVAL, f"{n}q chain <Z> off by {d_sched:.3e} / {d_cpu:.3e}")
+
+            loss, g, c = _adjoint_grad(model, x0, "adjoint", "f32")
+            _only(c, {"chain_apply": steps, "adjoint_chain": steps}, f"{n}q chain adjoint")
+            _check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(loss)),
+                   f"{n}q chain adjoint: non-finite loss or gradient")
+            _within(g, g_ref[n], f"{n}q chain adjoint vs scheduled saved (lambda=f32)")
+            if n == WIDTHS[0]:
+                _within(g, g64, f"{n}q chain adjoint vs CPU fp64", 0.0, TOL_GRAD_F32)
+
+            _, g, c = _adjoint_grad(model, x0, "auto", "f32")
+            want = {"window_apply": len(windows) - top, "window_apply_top": top,
+                    "window_apply_bwd": len(windows) - top, "window_apply_top_bwd": top,
+                    "chain_apply": 0, "adjoint_chain": 0}
+            log(f"  {n}q chain auto (under the line: the expansion) launched "
+                f"{dict((k, v) for k, v in c.items() if v)}")
+            _check(all(c[k] == v for k, v in want.items())
+                   and not any(c[k] for k in ADJOINT_KERNELS),
+                   f"{n}q chain auto: launches {c}, want {want}")
+            _within(g, g_ref[n], f"{n}q chain auto (expansion) vs scheduled saved (lambda=f32)")
+
+        model = models[n24]
+        p0 = model.params.detach().clone()
+        losses = []
+        for step in range(3):
+            loss, grad, c = _adjoint_grad(model, x0, "adjoint", "f32")
+            _check(c["adjoint_chain"] == len(plans[n24]), f"{n24}q chain SGD step {step}: {c}")
+            with torch.no_grad():
+                model.params.sub_(SGD_LR * grad)
+            losses.append(loss.item())
+            log(f"  {n24}q chain SGD step {step} (adjoint): loss {loss.item():.6f}")
+        model.params.data = p0
+    simulation.set_backward_mode("auto")
+    saved.set_lambda_mode("bf16")
+    _check(all(np.isfinite(losses)), f"{n24}q chain SGD: non-finite losses {losses}")
+    launches = ck.launch_counts()
+    log(f"  launches over the chain phase: {launches}")
+    for name in CHAIN_KERNELS:
+        _check(launches[name] > 0, f"kernel {name} was never launched on the chain route")
+    return launches, errs, plans
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -1227,6 +1437,41 @@ def _ab_times(model, n: int) -> None:
             f"adjoint fwd+grad {mean[3]:.3f} ms")
 
 
+def _chain_ab_times(model, n: int) -> None:
+    """24q requests with USE_CHAINS off and on, in turns (off, on, on, off):
+    each turn the device time of one forward plan's steps (CUDA events, best
+    of 3 means of 10) and the median of 10 after a warm-up for a forward and
+    a forced-adjoint fwd+grad (bf16 lambda, which a chain step casts to
+    float32)."""
+    from qml_essentials_tpu_torch.ops import saved, simulation
+
+    saved.set_lambda_mode("bf16")
+    rows = {False: [], True: []}
+
+    def fwd():
+        with torch.inference_mode():
+            return model(inputs=REQUESTS[0])
+
+    for on in (False, True, True, False):
+        with chain_route(on):
+            run, steps = _plan_run(model, n)
+            row = [_events_ms(run)]
+            simulation.set_backward_mode("adjoint")
+            for fn in (fwd, lambda: _grad_request(model, REQUESTS[0])):
+                fn()
+                torch.cuda.synchronize()
+                row.append(_host_ms(fn, reps=10)[1])
+            simulation.set_backward_mode("auto")
+        rows[on].append(row)
+        log(f"  chains A/B {n}q flag {'on ' if on else 'off'} ({steps} steps): forward plan on "
+            f"the device {row[0]:.3f} ms; median of 10: forward {row[1]:.3f} ms, adjoint "
+            f"fwd+grad {row[2]:.3f} ms")
+    for on in (False, True):
+        mean = np.mean(rows[on], axis=0)
+        log(f"  chains A/B {n}q flag {'on ' if on else 'off'}, mean of its two turns: forward "
+            f"plan {mean[0]:.3f} ms, forward {mean[1]:.3f} ms, adjoint fwd+grad {mean[2]:.3f} ms")
+
+
 # The yardstick of each kernel (library_ms): the cuBLAS complex64 product(s)
 # of the same shapes through torch.matmul, on operands made from the
 # kernel's own inputs before the clock starts (TF32 off); for a rotation, one
@@ -1340,6 +1585,43 @@ def lib_adjoint_matrot(w, psi, lam, r, n):
     return lambda: (WH @ PT, WH @ LT, (LT @ Pc) @ W)
 
 
+def _diag_operands(x, d, bits):
+    """The state as one complex axis of 2 per pattern bit (MSB first)
+    between the other bits' runs, and the diagonal shaped to broadcast."""
+    shape, prev = [], int(math.log2(x.shape[-1]))
+    for b in bits:
+        shape += [2 ** (prev - b - 1), 2]
+        prev = b
+    return _c(x).view(*shape, 2**prev), _c(d).view(*[s for _ in bits for s in (1, 2)], 1)
+
+
+def _chain_lib(x, lam, pairs, descs, n):
+    """A chain step's yardstick: for each window the cuBLAS products of its
+    forward (``lam`` None) or its adjoint step, for each diagonal the
+    broadcast multiply (and the adjoint's masked sum), all on x."""
+    fns = []
+    for d, w in zip(descs, pairs):
+        if d[0] == "diag":
+            X, D = _diag_operands(x, w, d[1])
+            if lam is None:
+                fns.append(lambda X=X, D=D: X * D)
+            else:
+                L, _ = _diag_operands(lam, w, d[1])
+                Dc, Xc = D.conj_physical(), X.conj_physical()
+                dims = tuple(range(0, 2 * len(d[1]) + 1, 2))  # the other bits' runs
+                fns.append(lambda X=X, L=L, Dc=Dc, Xc=Xc, dims=dims:
+                           (X * Dc, L * Dc, (L * Xc).sum(dims)))
+            continue
+        lo, hi = d[1], d[2]
+        a, k = n - hi, hi - lo
+        if lam is None:
+            fns.append(lib_window_top(x, w, k, n) if lo == 0 else lib_window(x, w, a, k, n))
+        else:
+            fns.append(lib_adjoint_top(w, x, lam, k, n) if lo == 0
+                       else lib_adjoint(w, x, lam, a, k, n))
+    return lambda: [f() for f in fns]
+
+
 # Work of one call, for its bound: flops and bytes (each input read once,
 # each output written once).  e*: bytes per element of a cotangent.
 def work_fwd(K, n):
@@ -1362,11 +1644,28 @@ def work_rotate_pair(n, el):
     return 0, 4 * 2**n * (4 + el)
 
 
+def work_chain(descs, n, adjoint: bool):
+    """A chain step: per window 8K flops an amplitude (24K and the K^3
+    product G0 W for the adjoint), per diagonal 6 (20: the masked sum and
+    two multiplies); one read and one write of the state (two of each, psi
+    and lambda, for the adjoint) and the payloads (and their cotangents)."""
+    flops = bytes_ = 0
+    for d in descs:
+        if d[0] == "win":
+            K = 2 ** (d[2] - d[1])
+            flops += (24 * K * 2**n + 8 * K**3) if adjoint else 8 * K * 2**n
+            bytes_ += 8 * K * K
+        else:
+            flops += (20 if adjoint else 6) * 2**n
+            bytes_ += 8 * 2 ** len(d[1])
+    return flops, (2 if adjoint else 1) * (16 * 2**n + bytes_)
+
+
 def _esize(t: torch.dtype) -> int:
     return torch.empty((), dtype=t).element_size()
 
 
-def phase_times(models: dict, model26, shapes: dict, batch: list) -> dict:
+def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     log("phase 6: times (host clock ending in a synchronise: best of 3 after a warm-up, "
@@ -1390,6 +1689,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list) -> dict:
         _log_grad_breakdown(model, n)
     _adjoint_times(models, model26, batch)
     _ab_times(models[WIDTHS[-1]], WIDTHS[-1])
+    _chain_ab_times(models[WIDTHS[-1]], WIDTHS[-1])
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -1531,11 +1831,21 @@ def phase_times(models: dict, model26, shapes: dict, batch: list) -> dict:
                 lambda: kn.adjoint_step_top_plain(w, xm, gg, k, m, out_dt),
                 lib_adjoint_top(w, xm, gg, k, m),
                 work_adjoint(2**k, m, _esize(g_dt), _esize(out_dt)))
+        # One 24q chain forward (B17) and adjoint gradient (B18), step by step.
+        for geom, descs, pairs in plans[n]:
+            label = f"n={n} {geom[0]} {len(descs)} descriptors"
+            add("chain_apply", label, lambda: ck.chain_apply(x, pairs, geom, descs, n),
+                lambda: kn.chain_apply_plain(x, pairs, geom, descs, n),
+                _chain_lib(x, None, pairs, descs, n), work_chain(descs, n, False))
+            add("adjoint_chain", label, lambda: ck.adjoint_chain(x, g, pairs, geom, descs, n),
+                lambda: kn.adjoint_chain_plain(x, g, pairs, geom, descs, n),
+                _chain_lib(x, g, pairs, descs, n), work_chain(descs, n, True))
     log(f"  (per kernel, summed over one request's calls: the forward kernels per {n}q "
         f"forward, the *_bwd kernels per {n}q saved gradient, the adjoint kernels and "
         f"rotate_pair per {n}q adjoint gradient, rotate per {n}q forward + saved gradient, "
         f"window_apply_top / window_apply_top_bwd / adjoint_step_top per {m}q forward / "
-        f"gradient; bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call)")
+        f"gradient, chain_apply / adjoint_chain per {n}q chain forward / adjoint gradient; "
+        f"bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call)")
     for name, t in totals.items():
         log(f"  total {name:20s} kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
             f"library {t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms")
@@ -1581,18 +1891,22 @@ def main() -> int:
     _check(all(shapes[n24][f"{k}_apply"] for k in ("rotmat", "matrot", "rotwin")),
            f"{n24}q plan has no step of some fused kind: {describe(shapes[n24])}")
     errs = phase_parity(shapes)
-    # The main path: serving (phase 4), saved-residual training (5) and
-    # adjoint training (5b), each with the counts reset just before it and
-    # read just after; every kernel must launch over the three.
-    models, fwd_launches = phase_slice(shapes)
+    # The main path: serving (phase 4), saved-residual training (5),
+    # adjoint training (5b) and the chain route (5d), each with the counts
+    # reset just before it and read just after; every kernel must launch
+    # over the four.
+    models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
-    launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] for k in KERNELS}
+    phase_fusion_ab(models[n24], shapes, n24)
+    chain_launches, chain_errs, plans = phase_chains(models, shapes, refs, g64)
+    errs.update(chain_errs)
+    launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
+                for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    phase_fusion_ab(models[n24], shapes, n24)
-    totals = phase_times(models, model26, shapes, batch)
+    totals = phase_times(models, model26, shapes, batch, plans)
 
     log(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [

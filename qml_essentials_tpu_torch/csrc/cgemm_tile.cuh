@@ -57,6 +57,15 @@ __device__ __forceinline__ float load_f32(const float* p, int64_t off) { return 
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t off) {
   return __bfloat162float(p[off]);
 }
+// A float plane that the kernel reading it wrote earlier in the same launch
+// (the chain kernels' ping-pong buffers): loads go to L2 (ld.global.cg),
+// never through the read-only path or a stale L1 line of another block.
+struct coherent_f32 {
+  float v;
+};
+__device__ __forceinline__ float load_f32(const coherent_f32* p, int64_t off) {
+  return __ldcg(&p[off].v);
+}
 __device__ __forceinline__ void store_f32(float* p, int64_t off, float v) { p[off] = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t off, float v) {
   p[off] = __float2bfloat16(v);

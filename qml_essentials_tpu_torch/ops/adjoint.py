@@ -40,7 +40,11 @@ walks the plan in reverse on the hand-written kernels of
   rotated-in wires, is one ``adjoint_matrot`` / ``adjoint_rotmat`` launch
   (the undo of window and rotation on ψ and λ, and the gram); a ``rotmat``
   step with a wider window (rotwin) has no fused adjoint kernel, as in the
-  reference: ``adjoint_step`` on ``[0, k)``, then ``rotate_pair`` back.
+  reference: ``adjoint_step`` on ``[0, k)``, then ``rotate_pair`` back;
+* a chain step (:mod:`~qml_essentials_tpu_torch.ops.chains`, one payload
+  per descriptor) is one ``adjoint_chain`` launch: its descriptors undone in
+  reverse on ψ and λ, with one cotangent per descriptor.  λ enters it in the
+  working dtype and leaves it so.
 
 λ travels in bfloat16 between payload steps when ``saved.LAMBDA_MODE ==
 "bf16"`` and ``n >= simulation.LARGE_STATE_MIN_N`` (the kernels read and
@@ -49,8 +53,8 @@ earliest payload step writes λ in the working dtype, and ψ is always in the
 working dtype.  On the CPU the same executor runs the kernels' plain
 versions.
 
-Counterpart of ``qml_essentials_tpu/ops/adjoint.py`` (the port has no chain
-steps and no noise channels on the statevector path yet).
+Counterpart of ``qml_essentials_tpu/ops/adjoint.py`` (the port has no noise
+channels on the statevector path yet).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from qml_essentials_tpu_torch.ops import cuda_kernels, kernels, saved
+from qml_essentials_tpu_torch.ops import chains, cuda_kernels, kernels, saved
 from qml_essentials_tpu_torch.ops.operations import DiagonalQubitUnitary, Operation
 
 # Session flag (the reference's switch).  ``BACKWARD_MODE`` alone picks the
@@ -91,19 +95,29 @@ def normalize_plan(
     """Normalise a contraction plan for the plan-level executors.
 
     Accepts both raw :func:`~qml_essentials_tpu_torch.ops.simulation.plan_contractions`
-    output (kinds ``mat``/``op``) and scheduled plans (kinds
+    output (kinds ``mat``/``op``), scheduled plans (kinds
     ``mat``/``diag``/``rot``, and ``rotmat``/``matrot`` with
-    ``FUSE_LAYOUT_ROT`` on).  Returns ``(static, payloads)``: ``static`` is a
-    tuple of steps ``("mat", wires)``, ``("diag", wires)``, ``("rot", r)``,
-    ``(kind, r, wires)`` with wires sorted, and ``payloads`` the matching
-    tuple of real-split tensors.  (The reference returns ``None`` for noise
-    channels; the port's statevector path has none yet.)
+    ``FUSE_LAYOUT_ROT`` on) and chain plans.  Returns ``(static, payloads)``:
+    ``static`` is a tuple of steps ``("mat", wires)``, ``("diag", wires)``,
+    ``("rot", r)``, ``(kind, r, wires)`` with wires sorted, and ``("chain",
+    geom, descs)`` with one payload per descriptor (a chain the kernels do
+    not take is expanded into ``mat``/``diag`` steps), and ``payloads`` the
+    matching tuple of real-split tensors.  (The reference returns ``None``
+    for noise channels; the port's statevector path has none yet.)
     """
     static: list = []
     payloads: list = []
     for kind, payload, wires in plan:
         if kind == "rot":
             static.append(("rot", int(payload)))
+            continue
+        if kind == "chain":
+            geom, descs, pays = payload
+            if chains.chain_usable(geom, descs, n):
+                static.append(("chain", geom, descs))
+            else:
+                static.extend(chains.expand_chain_step(geom, descs, n))
+            payloads.extend(_pair(p) for p in pays)
             continue
         if kind in ("rotmat", "matrot"):
             r, mat = payload
@@ -204,6 +218,11 @@ def _forward(psi2: torch.Tensor, payloads: Sequence[torch.Tensor], static: tuple
         if step[0] == "rot":
             psi2 = kernels._rotate_qubits_ri(psi2, step[1], n)
             continue
+        if step[0] == "chain":
+            geom, descs = step[1], step[2]
+            psi2 = cuda_kernels.chain_apply(psi2, payloads[i:i + len(descs)], geom, descs, n)
+            i += len(descs)
+            continue
         psi2 = saved._one_step(psi2, payloads[i], step, n)
         i += 1
     return psi2
@@ -217,6 +236,8 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
 
     use16 = saved.LAMBDA_MODE == "bf16" and n >= simulation.LARGE_STATE_MIN_N
     work = psi2.dtype
+    # Payload slot of each step; a chain step owns one consecutive slot per
+    # descriptor, and its slot is the first of them.
     slots: List[Optional[int]] = []
     i = 0
     for step in static:
@@ -224,7 +245,7 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
             slots.append(None)
         else:
             slots.append(i)
-            i += 1
+            i += len(step[2]) if step[0] == "chain" else 1
 
     def lam_dt(slot: int) -> torch.dtype:
         """λ out of a kernel step: bfloat16 mid-plan, the working dtype out
@@ -239,6 +260,12 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
         kind = step[0]
         if kind == "rot":
             psi2, lam2 = cuda_kernels.rotate_pair(psi2, lam2, n - step[1], n)
+            continue
+        if kind == "chain":
+            geom, descs = step[1], step[2]
+            psi2, lam2, gws = cuda_kernels.adjoint_chain(
+                psi2, lam2.to(work), payloads[slot:slot + len(descs)], geom, descs, n)
+            grads[slot:slot + len(descs)] = gws
             continue
         w2 = payloads[slot]
         if kind == "matrot":

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the statevector hot path, and their wrappers.
 
-Sixteen kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
+Eighteen kernels, compiled for Hopper (``sm_90a``) from ``csrc/`` with plain
 ``nvcc`` (one process per source, all started together, then one link) into
 one shared library with a C interface, loaded with ``ctypes``:
 
@@ -23,6 +23,8 @@ adjoint_step_top       csrc/adjoint_step_top.cu      pallas_kernels.adjoint_step
 adjoint_rotmat         csrc/adjoint_rotmat.cu        pallas_kernels.adjoint_rotmat_ri
 adjoint_matrot         csrc/adjoint_matrot.cu        pallas_kernels.adjoint_matrot_ri
 rotate_pair            csrc/rotate_pair.cu           pallas_kernels.rotate_pair_ri
+chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_ri
+adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
 The library is built at first use into ``build/kernels/`` at the repository
@@ -44,8 +46,11 @@ kernel (``window_apply_bwd``, ``window_apply_top_bwd``, ``rotmat_apply_bwd``,
 ``matrot_apply_bwd``, ``rotwin_apply_bwd``), and the rotation's is the
 rotation by ``(n - r) % n``.  The adjoint-state backward
 (:mod:`qml_essentials_tpu_torch.ops.adjoint`) calls ``adjoint_step``,
-``adjoint_step_top``, ``adjoint_rotmat``, ``adjoint_matrot`` and
-``rotate_pair`` inside its own backward; they need no autograd Functions.
+``adjoint_step_top``, ``adjoint_rotmat``, ``adjoint_matrot``,
+``rotate_pair`` and ``adjoint_chain`` inside its own backward; they need no
+autograd Functions.  ``chain_apply`` has none either: it runs where no
+gradient flows through it (a gradient through a chain step runs the
+adjoint's ``adjoint_chain`` or the step's expansion), and raises otherwise.
 """
 
 from __future__ import annotations
@@ -71,9 +76,9 @@ SOURCES = (
     "window_apply_top_bwd.cu", "rotate.cu", "rotmat_apply.cu", "rotmat_apply_bwd.cu",
     "matrot_apply.cu", "matrot_apply_bwd.cu", "rotwin_apply.cu", "rotwin_apply_bwd.cu",
     "adjoint_step.cu", "adjoint_step_top.cu", "adjoint_rotmat.cu", "adjoint_matrot.cu",
-    "rotate_pair.cu",
+    "rotate_pair.cu", "chain_apply.cu", "adjoint_chain.cu",
 )
-HEADERS = ("cgemm_tile.cuh", "transpose_tile.cuh")
+HEADERS = ("cgemm_tile.cuh", "transpose_tile.cuh", "chain_block.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -186,6 +191,12 @@ def _argtypes() -> Dict[str, list]:
         "adjoint_rotmat": adj + [i64] * 3 + flags,
         "adjoint_matrot": adj + [i64] * 3 + flags,
         "rotate_pair": [ptr, ptr, ptr, ptr, i64, i64, i32, ptr],
+        # x, y, ws, payloads, descriptors, nd, plane, the blocks (5), ranks, stream
+        "chain_apply": [ptr] * 5 + [i64] * 8 + [ptr],
+        # psi, lam, psi_out, lam_out, ws_psi, ws_lam, payloads, grads,
+        # descriptors (device, host), nd, plane, the blocks (5), ranks,
+        # clusters, slots, red, slot size, stream
+        "adjoint_chain": [ptr] * 10 + [i64] * 9 + [ptr, ptr, i64, ptr],
     }
 
 
@@ -651,3 +662,171 @@ def rotate_pair(
     _raise_on("rotate_pair", code)
     LAUNCHES["rotate_pair"] += 1
     return psi_out, lam_out
+
+
+# ---------------------------------------------------------------------------
+# Chain steps (``ops/chains.py``): one launch per step, B17 and B18
+# ---------------------------------------------------------------------------
+
+# CTAs in the thread-block cluster that takes one block of a chain step.
+_CHAIN_RANKS = 8
+
+# Columns of an H-geometry block (its rows are the 256 values of state bits
+# [n-8, n)): 2^16 amplitudes, as many as 16 tiles of a K = 256 window.
+_CHAIN_COLS = 256
+
+# Descriptor table fields (``csrc/chain_block.cuh``).
+_CHAIN_DESC = 8
+_ROWS, _MINOR, _DIAG = 0, 1, 2
+
+# Descriptor tables already on a device, by (geom, descs, n, device).
+_chain_tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+
+
+def chain_geometry_fits(geom: tuple, n: int) -> bool:
+    """Whether the chain kernels take a step of geometry *geom* at *n*
+    qubits: an L block of 10 or more low bits, short of the whole state, or
+    H rows of 8 bits over at least 128 columns."""
+    kind, span = geom
+    if kind == "L":
+        return 10 <= span < n
+    return kind == "H" and span == 8 and n - span >= 7
+
+
+def _chain_blocks(name: str, geom: tuple, n: int) -> Tuple[int, int, int, int, int]:
+    """The step's blocks as ``(count, size, stride, hi_stride, split)``: a
+    block-local index l lies at flat ``g * stride + (l >> split) * hi_stride
+    + (l & (2**split - 1))``."""
+    if not chain_geometry_fits(geom, n):
+        raise ValueError(f"{name}: geometry {geom} does not apply at n={n}")
+    span = geom[1]
+    if geom[0] == "L":
+        return 2 ** (n - span), 2**span, 2**span, 0, span
+    cols = min(_CHAIN_COLS, 2 ** (n - span))
+    split = cols.bit_length() - 1
+    return 2 ** (n - span) // cols, 2**span * cols, cols, 2 ** (n - span), split
+
+
+def _chain_table(name: str, geom: tuple, descs: tuple, n: int) -> Tuple[list, int]:
+    """The descriptor table rows (``csrc/chain_block.cuh``) and the size of a
+    cluster's gram slot in floats; raises on a descriptor the kernels do not
+    take."""
+    count, size, stride, hi_stride, split = _chain_blocks(name, geom, n)
+    low = 0 if geom[0] == "L" else n - geom[1]  # the state bit at the block's local bit `split`
+    top = geom[1] if geom[0] == "L" else n
+    rows, poff, goff = [], 0, 0
+    for d in descs:
+        if d[0] == "win":
+            lo, hi = int(d[1]), int(d[2])
+            if not low <= lo < hi <= top:
+                raise ValueError(f"{name}: window on bits [{lo}, {hi}) outside geometry {geom}")
+            llo = lo if geom[0] == "L" else lo - low + split
+            K = 2 ** (hi - lo)
+            rows.append([_MINOR if llo == 0 else _ROWS, llo, hi - lo, 0, poff, goff, 0, 0])
+            poff += 2 * K * K
+            goff += 2 * K * K
+        elif d[0] == "diag":
+            bits = [int(b) for b in d[1]]
+            if not (1 <= len(bits) <= 2 and all(0 <= b < n for b in bits)
+                    and bits == sorted(set(bits), reverse=True)):
+                raise ValueError(f"{name}: diagonal on bits {tuple(bits)} (1-2 bits, descending)")
+            V = 2 ** len(bits)
+            rows.append([_DIAG, len(bits), bits[0], bits[-1], poff, goff, 0, 0])
+            poff += 2 * V
+            goff += _CHAIN_RANKS * 2 * V
+        else:
+            raise ValueError(f"{name}: unknown descriptor {d!r}")
+    if not rows:
+        raise ValueError(f"{name}: a chain step needs at least one descriptor")
+    return rows, goff
+
+
+def _chain_operands(name, psi2, payloads, geom, descs, n):
+    """Checks the state and payloads; returns (device table, host table, slot
+    size, packed payloads, blocks)."""
+    _check(name, "state", psi2, (2, 2**n))
+    if len(payloads) != len(descs):
+        raise ValueError(f"{name}: {len(payloads)} payloads for {len(descs)} descriptors")
+    for d, p in zip(descs, payloads):
+        side = 2 ** (d[2] - d[1]) if d[0] == "win" else None
+        shape = (2, side, side) if d[0] == "win" else (2, 2 ** len(d[1]))
+        _check(name, f"payload of {d}", p, shape)
+        if p.device != psi2.device:
+            raise ValueError(f"{name}: payload of {d} on {p.device}, state on {psi2.device}")
+    key = (geom, descs, n, psi2.device)
+    if key not in _chain_tables:
+        rows, slot = _chain_table(name, geom, descs, n)
+        host = torch.tensor(rows, dtype=torch.int64)
+        _chain_tables[key] = (host.to(psi2.device), host, slot)
+    dev, host, slot = _chain_tables[key]
+    packed = torch.cat([p.reshape(-1) for p in payloads])
+    return dev, host, slot, packed, _chain_blocks(name, geom, n)
+
+
+def _refuse_gradient(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no autograd backward: a gradient through a chain step "
+                           "runs adjoint_chain (the adjoint executor) or the step's expansion")
+
+
+def chain_apply(
+    psi2: torch.Tensor, payloads, geom: tuple, descs: tuple, n: int
+) -> torch.Tensor:
+    """One chain step (``ops/chains.py``): the descriptors ``("win", lo,
+    hi)`` (a ``(2, K, K)`` payload on state bits ``[lo, hi)``) and ``("diag",
+    bits)`` (a ``(2, 2**len(bits))`` payload indexed by the bits, MSB first)
+    applied in order, in one launch on the card."""
+    if _on_cpu(psi2, *payloads):
+        return kernels.chain_apply_plain(psi2, payloads, geom, descs, n)
+    _refuse_gradient("chain_apply", psi2, *payloads)
+    dev, _, _, packed, blocks = _chain_operands("chain_apply", psi2, payloads, geom, descs, n)
+    lib = _load()
+    y = torch.empty_like(psi2)
+    ws = torch.empty_like(psi2) if len(descs) > 1 else y
+    with torch.cuda.device(psi2.device):
+        code = lib.qml_chain_apply(
+            psi2.data_ptr(), y.data_ptr(), ws.data_ptr(), packed.data_ptr(), dev.data_ptr(),
+            len(descs), 2**n, *blocks, _CHAIN_RANKS, _stream(psi2))
+    _raise_on("chain_apply", code)
+    LAUNCHES["chain_apply"] += 1
+    return y
+
+
+def chain_clusters(blocks: int, slot_floats: int) -> int:
+    """Clusters of the chain adjoint: one per block, at most as many as keep
+    their gram slots within ``_GRAM_MAX_WS`` bytes."""
+    return max(1, min(blocks, _GRAM_MAX_WS // (4 * slot_floats)))
+
+
+def adjoint_chain(
+    psi2: torch.Tensor, lam2: torch.Tensor, payloads, geom: tuple, descs: tuple, n: int
+) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
+    """The adjoint-state backward of a chain step: from its output ``psi2``
+    and cotangent ``lam2`` (float32 on the card) returns the step's input,
+    its cotangent (float32) and one cotangent per descriptor, ``gw = G0 W``
+    for a window and ``gd = d G0`` for a diagonal (``G0`` the gram on the
+    output side), in one launch and a fixed-order reduction."""
+    if _on_cpu(psi2, lam2, *payloads):
+        return kernels.adjoint_chain_plain(psi2, lam2, payloads, geom, descs, n)
+    _check("adjoint_chain", "cotangent", lam2, (2, 2**n))
+    dev, host, slot, packed, blocks = _chain_operands(
+        "adjoint_chain", psi2, payloads, geom, descs, n)
+    clusters = chain_clusters(blocks[0], slot)
+    lib = _load()
+    psi_out, lam_out = torch.empty_like(psi2), torch.empty_like(psi2)
+    two = len(descs) > 1
+    ws_psi = torch.empty_like(psi2) if two else psi_out
+    ws_lam = torch.empty_like(psi2) if two else lam_out
+    grads = torch.empty_like(packed)
+    slots = torch.empty(clusters * slot, dtype=torch.float32, device=psi2.device)
+    red = torch.empty(slot, dtype=torch.float32, device=psi2.device)
+    with torch.cuda.device(psi2.device):
+        code = lib.qml_adjoint_chain(
+            psi2.data_ptr(), lam2.data_ptr(), psi_out.data_ptr(), lam_out.data_ptr(),
+            ws_psi.data_ptr(), ws_lam.data_ptr(), packed.data_ptr(), grads.data_ptr(),
+            dev.data_ptr(), host.data_ptr(), len(descs), 2**n, *blocks, _CHAIN_RANKS, clusters,
+            slots.data_ptr(), red.data_ptr(), slot, _stream(psi2))
+    _raise_on("adjoint_chain", code)
+    LAUNCHES["adjoint_chain"] += 1
+    parts = torch.split(grads, [p.numel() for p in payloads])
+    return psi_out, lam_out, tuple(g.view(p.shape) for g, p in zip(parts, payloads))

@@ -449,6 +449,93 @@ def apply_fused_pair_ri(
     return cuda_kernels.rotwin_apply(psi2, w2, r, k, n)
 
 
+# Chain steps (``ops/chains.py``): a list of descriptors in bit coordinates
+# applied in order, ``("win", lo, hi)`` the window on wires ``[n-hi, n-lo)``
+# with a ``(2, K, K)`` payload, ``("diag", bits)`` the diagonal on wires
+# ``n-1-b`` with a ``(2, 2**len(bits))`` payload indexed MSB first (payload
+# index v = sum_i bit_i 2**(len-1-i)).
+
+
+def _bit_axes(t: torch.Tensor, bits: Sequence[int], n: int) -> torch.Tensor:
+    """``(2, 2**n)`` -> a view with one size-2 axis per bit (descending, so
+    the bit axes come in payload order) between the other bits' runs."""
+    shape, prev = [], n
+    for b in bits:
+        shape += [2 ** (prev - b - 1), 2]
+        prev = b
+    return t.reshape(2, *shape, 2**prev)
+
+
+def _diag_view(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """A ``(2, 2**k)`` diagonal pair shaped to broadcast against
+    :func:`_bit_axes`."""
+    return d2.reshape(2, *[s for _ in range(k) for s in (1, 2)], 1)
+
+
+def _complex_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]])
+
+
+def chain_apply_plain(
+    psi2: torch.Tensor, payloads: Sequence[torch.Tensor], geom: tuple, descs: tuple, n: int
+) -> torch.Tensor:
+    """Plain version of the chain kernel: the descriptors one after the
+    other on the whole state (the geometry only shapes the kernel's blocks)."""
+    for d, p in zip(descs, payloads):
+        if d[0] == "win":
+            lo, hi = d[1], d[2]
+            psi2 = window_apply_plain(psi2, p, n - hi, hi - lo, n)
+        else:
+            bits = d[1]
+            psi2 = _complex_mul(_diag_view(p, len(bits)), _bit_axes(psi2, bits, n))
+            psi2 = psi2.reshape(2, 2**n)
+    return psi2
+
+
+def adjoint_chain_plain(
+    psi2: torch.Tensor, lam2: torch.Tensor, payloads: Sequence[torch.Tensor], geom: tuple,
+    descs: tuple, n: int,
+) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
+    """Plain version of the chain adjoint kernel: from the step's output
+    ``psi2`` and its cotangent ``lam2`` (taken to ``psi2``'s dtype), walks
+    the descriptors in reverse and returns ``(psi_prev, lam_prev, grads)``
+    with one cotangent per descriptor.  At each descriptor the gram is taken
+    on the current (output-side) pair, then both are undone:
+
+    * a window: ``G0 = sum lam psi^dag`` over the window axis' columns, undo
+      with ``W^dag``, cotangent ``gw = G0 W``;
+    * a diagonal: ``G0[v] = sum_{idx = v} lam conj(psi)``, undo with
+      ``conj(d)``, cotangent ``gd = d G0``."""
+    lam2 = lam2.to(psi2.dtype)
+    grads: list = [None] * len(descs)
+    for j in range(len(descs) - 1, -1, -1):
+        d, p = descs[j], payloads[j]
+        if d[0] == "win":
+            lo, hi = d[1], d[2]
+            a, k = n - hi, hi - lo
+            K = 2**k
+            lc = lam2.reshape(2, 2**a, K, -1).transpose(1, 2).reshape(2, K, -1)
+            pc = psi2.reshape(2, 2**a, K, -1).transpose(1, 2).reshape(2, K, -1)
+            g0 = torch.stack([lc[0] @ pc[0].T + lc[1] @ pc[1].T,
+                              lc[1] @ pc[0].T - lc[0] @ pc[1].T])
+            wh = conj_pair_mat(p)
+            psi2 = window_apply_plain(psi2, wh, a, k, n)
+            lam2 = window_apply_plain(lam2, wh, a, k, n)
+            grads[j] = torch.stack([g0[0] @ p[0] - g0[1] @ p[1], g0[0] @ p[1] + g0[1] @ p[0]])
+        else:
+            bits = d[1]
+            k = len(bits)
+            pv, lv = _bit_axes(psi2, bits, n), _bit_axes(lam2, bits, n)
+            rest = tuple(range(0, 2 * k + 1, 2))  # the other bits' runs
+            g0 = torch.stack([(lv[0] * pv[0] + lv[1] * pv[1]).sum(dim=rest),
+                              (lv[1] * pv[0] - lv[0] * pv[1]).sum(dim=rest)]).reshape(2, -1)
+            dh = _diag_view(torch.stack([p[0], -p[1]]), k)
+            psi2 = _complex_mul(dh, pv).reshape(2, 2**n)
+            lam2 = _complex_mul(dh, lv).reshape(2, 2**n)
+            grads[j] = _complex_mul(p, g0)
+    return psi2, lam2, tuple(grads)
+
+
 def _recenter_rotation(a: int, k: int, n: int) -> Optional[int]:
     """Rotation moving contiguous support ``[a, a+k)`` to a start ``a'`` with
     ``B' = 2**(n-a'-k) >= 128``, or ``None``.

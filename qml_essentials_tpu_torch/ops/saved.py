@@ -65,12 +65,14 @@ def set_saved_executor(enabled: bool) -> None:
     ENABLED = bool(enabled)
 
 
-def usable(n: int) -> bool:
-    """True when the plan-level executor should take the plan of an
-    *n*-qubit simulation: the large-state regime, on any device."""
+def usable(plan: Sequence[tuple], n: int) -> bool:
+    """True when the plan-level executor should take *plan* (raw or
+    normalised) of an *n*-qubit simulation: the large-state regime, on any
+    device, and no chain step (a chain's gradient runs the adjoint's chain
+    kernel, or the per-step loop over its expansion)."""
     from qml_essentials_tpu_torch.ops import simulation
 
-    return n >= simulation.LARGE_STATE_MIN_N
+    return n >= simulation.LARGE_STATE_MIN_N and all(s[0] != "chain" for s in plan)
 
 
 def _one_step(psi2: torch.Tensor, w2: torch.Tensor, step: tuple, n: int) -> torch.Tensor:

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.core import memory
-from qml_essentials_tpu_torch.ops import adjoint, kernels, saved
+from qml_essentials_tpu_torch.ops import adjoint, chains, cuda_kernels, kernels, saved
 from qml_essentials_tpu_torch.ops.dtypes import cdtype
 from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
@@ -70,6 +70,12 @@ LARGE_STATE_MIN_N: int = 22
 # Fuse (rotation, window) pairs into single-pass "rotmat"/"matrot" steps
 # (the rotmat, rotwin and matrot kernels), as the reference does by default.
 FUSE_LAYOUT_ROT: bool = True
+
+# Prefer chain plans (:mod:`~qml_essentials_tpu_torch.ops.chains`: one
+# kernel launch per whole-region gate group) over the scheduled window plan
+# in the large-state regime, when the tape allows one.  Off by default, as in
+# the reference, where it was measured slower than the scheduled plan.
+USE_CHAINS: bool = False
 
 
 def infer_n_qubits(ops: List[Operation], obs: List[Operation]) -> int:
@@ -551,10 +557,18 @@ def scheduled_plan(
     tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None
 ) -> Tuple[list, Optional[torch.Tensor]]:
     """The plan :func:`simulate_pure_ri` runs, and its outer-product start
-    (``None`` when it starts from |0...0>)."""
+    (``None`` when it starts from |0...0>).
+
+    In the large-state regime with ``USE_CHAINS`` on, the chain plan replaces
+    the scheduled one when it has steps and fewer of them than the
+    unscheduled window plan; it starts from |0...0>."""
     plan = plan_contractions(tape, n_qubits=n_qubits, dtype=cdtype(dtype), device=device)
     if n_qubits < LARGE_STATE_MIN_N:
         return plan, None
+    if USE_CHAINS:
+        cplan = chains.plan_chains(tape, n_qubits, cdtype(dtype), device)
+        if cplan is not None and 0 < len(cplan) < len(plan):
+            return cplan, None
     peeled, psi2 = _zero_state_prefix(plan, n_qubits)
     return schedule_layout(_drop_indices(plan, peeled), n_qubits), psi2
 
@@ -614,6 +628,8 @@ class BackwardChoice:
 def _payload_tensors(kind: str, payload) -> list:
     if kind in ("mat", "diag"):
         return [payload]
+    if kind == "chain":
+        return list(payload[2])
     if kind in ("rotmat", "matrot"):
         return [payload[1]]
     if kind == "op" and payload._matrix is not None:
@@ -640,9 +656,9 @@ def simulate_pure_ri(
     When autograd needs a gradient, the backward strategy is chosen here:
     the adjoint-state executor (:mod:`~qml_essentials_tpu_torch.ops.adjoint`)
     when ``_adjoint_pays_off``, else in the large-state regime the
-    saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`),
-    else the per-step loop, whose kernels carry their own autograd
-    backwards.  *batch* is the number of simulations whose residuals stay
+    saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`;
+    it refuses chain plans), else the per-step loop, whose kernels carry
+    their own autograd backwards.  *batch* is the number of simulations whose residuals stay
     alive together (the executor's batch loop), for the memory estimate;
     *choice* carries one decision across the elements of that batch (a new
     one is made for a single simulation)."""
@@ -651,7 +667,6 @@ def simulate_pure_ri(
         psi2 = kernels.zero_state_ri(n_qubits, dtype, device)
     if _needs_grad(plan, psi2):
         choice = BackwardChoice() if choice is None else choice
-        executor = None
         if choice.use_adjoint(plan, n_qubits, batch, psi2.device):
             if not adjoint.ENABLED:
                 raise RuntimeError(
@@ -659,13 +674,13 @@ def simulate_pure_ri(
                     "(adjoint.set_adjoint(False)); set_backward_mode('autodiff') keeps "
                     "residuals instead"
                 )
-            executor = adjoint.execute_plan_ri
-        elif saved.ENABLED and saved.usable(n_qubits):
-            executor = saved.execute_plan_saved_ri
-        if executor is not None:
             static, payloads = adjoint.normalize_plan(plan, n_qubits)
             if payloads:
-                return executor(psi2, payloads, static, n_qubits)
+                return adjoint.execute_plan_ri(psi2, payloads, static, n_qubits)
+        elif saved.ENABLED and saved.usable(plan, n_qubits):
+            static, payloads = adjoint.normalize_plan(plan, n_qubits)
+            if payloads:
+                return saved.execute_plan_saved_ri(psi2, payloads, static, n_qubits)
     for kind, payload, wires in plan:
         psi2 = _apply_step_ri(psi2, kind, payload, wires, n_qubits)
     return psi2
@@ -687,7 +702,26 @@ def _apply_step_ri(
         r, mat = payload
         return kernels.apply_fused_pair_ri(
             psi2, kernels._pair_of(mat, psi2), kind, r, len(wires), n_qubits)
+    if kind == "chain":
+        return _apply_chain_ri(psi2, *payload, n_qubits)
     return payload.apply_to_state_ri(psi2, n_qubits)
+
+
+def _apply_chain_ri(psi2: torch.Tensor, geom: tuple, descs: tuple, pays: tuple,
+                    n_qubits: int) -> torch.Tensor:
+    """A chain step: one ``chain_apply`` launch when no gradient flows
+    through it; else its windows and diagonals one by one through their
+    autograd Functions (the reference's expansion loop)."""
+    if not (torch.is_grad_enabled()
+            and (psi2.requires_grad or any(p.requires_grad for p in pays))):
+        pairs = [kernels._pair_of(p, psi2).contiguous() for p in pays]
+        return cuda_kernels.chain_apply(psi2, pairs, geom, descs, n_qubits)
+    for (kind, wires), p in zip(chains.expand_chain_step(geom, descs, n_qubits), pays):
+        if kind == "mat":
+            psi2 = kernels.apply_matrix_flat_ri(psi2, p, list(wires), n_qubits)
+        else:
+            psi2 = kernels.apply_diagonal_flat_ri(psi2, p, list(wires), n_qubits)
+    return psi2
 
 
 def simulate_and_measure(

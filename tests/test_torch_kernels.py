@@ -182,12 +182,19 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
         (cuda_kernels.rotate_pair(psi2, g, 4, n), kernels.rotate_pair_plain(psi2, g, 4, n)),
     ):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    descs, pays = (("win", 7, 9), ("diag", (8, 1))), [w2[:, :4, :4].contiguous(), w2[:, 0, :4]]
+    assert torch.equal(cuda_kernels.chain_apply(psi2, pays, ("L", 9), descs, n),
+                       kernels.chain_apply_plain(psi2, pays, ("L", 9), descs, n))
+    got = cuda_kernels.adjoint_chain(psi2, g, pays, ("L", 9), descs, n)
+    ref = kernels.adjoint_chain_plain(psi2, g, pays, ("L", 9), descs, n)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
     assert set(cuda_kernels.launch_counts().values()) == {0}
     assert set(cuda_kernels.launch_counts()) == {
         "window_apply", "window_apply_bwd", "window_apply_top", "window_apply_top_bwd", "rotate",
         "rotmat_apply", "rotmat_apply_bwd", "matrot_apply", "matrot_apply_bwd", "rotwin_apply",
         "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
-        "adjoint_matrot", "rotate_pair",
+        "adjoint_matrot", "rotate_pair", "chain_apply", "adjoint_chain",
     }
 
 
@@ -585,3 +592,96 @@ def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         cuda_kernels.adjoint_rotmat(w, x, x.half(), 2, 8, torch.float32)
     with pytest.raises(ValueError):
         cuda_kernels.adjoint_matrot(w, x, x[:, ::2].contiguous(), 6, 8, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The chain kernels (B17 chain_apply, B18 adjoint_chain) on the card
+# ---------------------------------------------------------------------------
+
+
+def _chain_plan(n):
+    """The chain plan of the n-qubit Circuit_19 model (2 layers, seed 5,
+    input 0.37), planned on the CPU."""
+    from qml_essentials_tpu_torch.models.model import Model
+    from qml_essentials_tpu_torch.ops import chains
+    from qml_essentials_tpu_torch.ops.tape import recording
+
+    model = Model(n_qubits=n, n_layers=2, circuit_type="Circuit_19", random_seed=5, device="cpu")
+    with recording() as tape, torch.no_grad():
+        model._variational(model.params[0], torch.tensor([0.37]))
+    return [step[1] for step in chains.plan_chains(tape, n)]
+
+
+def _diag_pair(bits, seed):
+    phases = np.random.default_rng(seed).uniform(-np.pi, np.pi, size=2 ** len(bits))
+    return np.stack([np.cos(phases), np.sin(phases)]).astype(np.float32)
+
+
+def _check_cuda_chain(cuda, n, geom, descs, pays, seed):
+    """B17 and B18 against their plain versions in float64: the states 1e-5
+    relative, each descriptor's cotangent 1e-4 (fp32 sums over a block's
+    columns, then over the blocks in a fixed order)."""
+    x = torch.from_numpy(_state(n, seed)).to(cuda)
+    lam = torch.from_numpy(_state(n, seed + 1)).to(cuda)
+    pays = [p.to(cuda) for p in pays]
+    before = cuda_kernels.launch_counts()
+    y = cuda_kernels.chain_apply(x, pays, geom, descs, n)
+    got = cuda_kernels.adjoint_chain(x, lam, pays, geom, descs, n)
+    p64 = [p.double() for p in pays]
+    ref_y = kernels.chain_apply_plain(x.double(), p64, geom, descs, n)
+    ref = kernels.adjoint_chain_plain(x.double(), lam.double(), p64, geom, descs, n)
+    torch.cuda.synchronize()
+    after = cuda_kernels.launch_counts()
+    assert after["chain_apply"] == before["chain_apply"] + 1
+    assert after["adjoint_chain"] == before["adjoint_chain"] + 1
+    assert _rel(y.double().cpu(), ref_y.cpu()) <= CUDA_TOL
+    assert _rel(got[0].double().cpu(), ref[0].cpu()) <= CUDA_TOL
+    assert got[1].dtype == torch.float32
+    assert _rel(got[1].double().cpu(), ref[1].cpu()) <= CUDA_TOL
+    assert len(got[2]) == len(descs)
+    for g, r, p in zip(got[2], ref[2], pays):
+        assert g.shape == p.shape and g.dtype == torch.float32
+        assert _rel(g.double().cpu(), r.cpu()) <= CUDA_GRAM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [22, 24])
+def test_cuda_chain_kernels_match_plain_on_the_plan(cuda, n):
+    """Every step of the Circuit_19 chain plan at the main path's widths."""
+    for i, (geom, descs, pays) in enumerate(_chain_plan(n)):
+        pairs = [torch.stack([p.real, p.imag]).contiguous() for p in pays]
+        _check_cuda_chain(cuda, n, geom, descs, pairs, 7 * i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom,descs", [
+    (("L", 17), (("diag", (17,)), ("win", 0, 9), ("win", 9, 17), ("diag", (5, 2)))),
+    (("L", 17), (("win", 7, 14),)),
+    (("H", 8), (("win", 10, 18), ("diag", (17, 3)), ("win", 11, 18))),
+    (("H", 8), (("diag", (12,)),)),
+], ids=["L-K512-diags", "L-one-window", "H-wrap-diag", "H-one-diag"])
+def test_cuda_chain_kernels_match_plain_on_edges(cuda, geom, descs):
+    """18 qubits: the K = 512 minor window, one-bit diagonals, a step of one
+    descriptor (no workspace), H windows at the register's top."""
+    pays = [torch.from_numpy(_unitary_pair(d[2] - d[1], i) if d[0] == "win"
+                             else _diag_pair(d[1], i)) for i, d in enumerate(descs)]
+    _check_cuda_chain(cuda, 18, geom, descs, pays, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    n = 18
+    x = torch.from_numpy(_state(n, 0)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(7, 0)).to(cuda)
+    with pytest.raises(ValueError):
+        cuda_kernels.chain_apply(x, [w], ("L", 17), (("win", 11, 18),), n)  # outside L
+    with pytest.raises(ValueError):
+        cuda_kernels.chain_apply(x, [w], ("H", 8), (("win", 9, 16),), n)  # outside H
+    with pytest.raises(ValueError):
+        cuda_kernels.chain_apply(x, [w[:, 0, :8].contiguous()], ("L", 17),
+                                 (("diag", (1, 2, 3)),), n)  # three bits
+    with pytest.raises(TypeError):
+        cuda_kernels.chain_apply(x, [w.double()], ("L", 17), (("win", 7, 14),), n)
+    with pytest.raises(RuntimeError, match="no autograd backward"):
+        cuda_kernels.chain_apply(x, [w.clone().requires_grad_()], ("L", 17),
+                                 (("win", 7, 14),), n)

@@ -457,5 +457,6 @@ def test_lambda_mode_and_executor_switches():
     saved.set_saved_executor(False)
     assert not saved.ENABLED
     saved.set_saved_executor(True)
-    assert saved.usable(tsim.LARGE_STATE_MIN_N) and not saved.usable(12)
+    static = (("mat", (0, 1)),)
+    assert saved.usable(static, tsim.LARGE_STATE_MIN_N) and not saved.usable(static, 12)
     assert memory.available_memory_bytes("cpu") > 0
