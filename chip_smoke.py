@@ -15,7 +15,10 @@ phase:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
-   shared-memory use; the 22q/24q/26q plans are printed (24q: 14 steps);
+   shared-memory use; the SASS of the split-TF32 tile under adjoint_step and
+   adjoint_rotmat (``csrc/adjoint_tc.cuh``) must hold tensor-core HMMA
+   instructions (counted with cuobjdump); the 22q/24q/26q plans are printed
+   (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -47,7 +50,8 @@ phase:
    adjoint_step per window and per rotwin step, one adjoint_step_top per
    top window, one adjoint_rotmat / adjoint_matrot per such step,
    rotate_pair at least once per rotation and rotwin step, no backward
-   kernel).  22q forced: against the CPU float64 gradient (f32 lambda
+   kernel; the 24q plan's gradient is 9 adjoint_step and 2 adjoint_rotmat
+   launches).  22q forced: against the CPU float64 gradient (f32 lambda
    <= 1e-4, bf16 <= 5e-4).  24q forced: against the saved executor (f32
    lambda, <= 1e-4 max|g| + 1e-6) and bf16 against f32 lambda (<= 5e-4).
    Two 24q batches bracket the rule's 0.35 line, sized from the rule's
@@ -91,8 +95,15 @@ phase:
    beside its plain version's, its library yardstick's (the cuBLAS complex64
    products of the same shapes through ``torch.matmul``, a transpose copy,
    or for the chain kernels the products of the step's windows and its
-   diagonals' multiplies, summed) and its bound (max of flops / 67 TFLOP/s
-   and bytes / 3.35 TB/s), CUDA events, best of 3 after warm-up.
+   diagonals' multiplies, summed) and its bound, CUDA events, best of 3
+   after warm-up.  The bound is max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)
+   for the kernels on the float32 CUDA cores; for adjoint_step and
+   adjoint_rotmat, whose three products run on the tensor cores in split
+   TF32, it is max(passes x 8K flops an amplitude / 495 TFLOP/s + the 8K^3
+   flops of gw = G0 W / 67 TFLOP/s, bytes / 3.35 TB/s), with 3 passes for a
+   product of two float32 operands and 2 for one with a bfloat16 cotangent
+   (9 a call with a float32 lambda, 7 with bfloat16); the float32-core
+   figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -133,6 +144,8 @@ BATCH_MARGIN = 0.10  # the batch over the 0.35 line is >= 10 % over it
 TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass order)
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
+TC_KERNELS = ("adjoint_step", "adjoint_rotmat")  # split TF32, csrc/adjoint_tc.cuh
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -388,6 +401,30 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
     want["adjoint_matrot"] = requests * len(shape["matrot_apply"])
     want["rotate_pair"] = requests * (len(shape["rotate"]) + len(shape["rotwin_apply"]))
     return want
+
+
+def check_sass(path: Path) -> None:
+    """Every instantiation of the split-TF32 tile (``tc_cgemm_kernel``, under
+    adjoint_step and adjoint_rotmat) issues tensor-core HMMA instructions;
+    counted in the library's SASS with cuobjdump, beside nvcc."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    tool = Path(ck._nvcc()).with_name("cuobjdump")
+    _check(tool.is_file(), f"no cuobjdump beside {ck._nvcc()}")
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    hmma, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            hmma[name] = 0
+        elif name is not None and "HMMA" in line:
+            hmma[name] += 1
+    tc = {f: c for f, c in hmma.items() if "tc_cgemm_kernel" in f}
+    other = sum(c for f, c in hmma.items() if "tc_cgemm_kernel" not in f)
+    log(f"  SASS: {len(tc)} split-TF32 tile kernels with {sorted(set(tc.values()))} HMMA "
+        f"instructions each; {other} HMMA in the other {len(hmma) - len(tc)} kernels")
+    _check(bool(tc) and all(tc.values()), f"a split-TF32 kernel without HMMA: {tc}")
 
 
 # ---------------------------------------------------------------------------
@@ -679,12 +716,16 @@ def phase_parity(shapes: dict) -> dict:
     check_bwd(ck, kn, [(12, 11, 1), (12, 10, 2), (6, 0, 6), (11, 6, 5)], True, gen, rng)
 
     log("  adjoint kernels (main-path shapes at 24q and 26q, the 22q top window, edges):")
-    adj_windows = main_windows + sorted({(WIDE, a, k) for a, k in shapes[WIDE]["window_apply"]})
+    # Every adjoint_step shape of the 24q and 26q plans: the windows and the
+    # rotwin steps' windows on [0, k).
+    adj_windows = sorted({(w, a, k) for w in (n, WIDE) for a, k in shapes[w]["window_apply"]}
+                         | {(w, 0, k) for w in (n, WIDE) for _, k in shapes[w]["rotwin_apply"]})
     adj_rot = main_rot + sorted({(WIDE, r) for r in shapes[WIDE]["rotate"]})
     errs["adjoint_step"] = check_adjoint(ck, kn, adj_windows, False, gen, rng)
     errs["adjoint_step_top"] = check_adjoint(ck, kn, grad_top, True, gen, rng)
     errs["rotate_pair"] = check_rotate_pair(ck, kn, adj_rot, gen)
-    check_adjoint(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4)], False, gen, rng)
+    check_adjoint(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4), (12, 8, 3),
+                           (14, 3, 3), (12, 5, 4)], False, gen, rng)
     check_adjoint(ck, kn, [(12, 11, 1), (16, 10, 6), (6, 0, 6), (11, 6, 5)], True, gen, rng)
     check_rotate_pair(ck, kn, [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2)], gen)
 
@@ -694,7 +735,8 @@ def phase_parity(shapes: dict) -> dict:
         | {("matrot", w, r, w - r) for w in (m, n, WIDE) for r in shapes[w]["matrot_apply"]}
         | {("rotwin", w, r, k) for w in (m, n, WIDE) for r, k in shapes[w]["rotwin_apply"]})
     errs.update(check_fused(ck, kn, main_fused, gen, rng))
-    check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
+    check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("rotmat", 4, 3, 3),
+                         ("rotmat", 11, 3, 3), ("matrot", 6, 5, 1),
                          ("matrot", 9, 1, 8), ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5),
                          ("rotwin", 12, 7, 9)], gen, rng)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
@@ -1043,6 +1085,10 @@ def phase_adjoint(models: dict, shapes: dict, g64: torch.Tensor) -> tuple:
         _within(g, g64, f"{m}q adjoint (lambda={lam}) vs CPU fp64", 0.0, tol)
 
     # 24q, forced, one input: against the saved executor, and bf16 vs f32 lambda.
+    want = adjoint_counts(shapes[n])
+    _check(want["adjoint_step"] == 9 and want["adjoint_rotmat"] == 2,
+           f"{n}q plan: {want['adjoint_step']} adjoint_step and {want['adjoint_rotmat']} "
+           "adjoint_rotmat launches a gradient, not 9 and 2")
     model = models[n]
     _, g_adj, c = _adjoint_grad(model, x0, "adjoint", "f32")
     _check_adjoint_counts(c, shapes[n], f"{n}q adjoint (lambda=f32)")
@@ -1636,6 +1682,15 @@ def work_adjoint(K, n, el, eo):
     return 24 * K * 2**n + 8 * K**3, 16 * K * K + 2 * 2**n * (8 + el + eo)
 
 
+def work_adjoint_tc(K, n, el):
+    """The split-TF32 adjoint step's work: (tensor-core flops, CUDA-core
+    flops).  Its three products issue 8K flops an amplitude per pass: 3
+    passes for float32 x float32, 2 when the bfloat16 lambda (exact in TF32)
+    is one operand; gw = G0 W stays on the CUDA cores."""
+    passes = 3 + 2 * (3 if el == 4 else 2)
+    return passes * 8 * K * 2**n, 8 * K**3
+
+
 def work_rotate(n, e):
     return 0, 4 * 2**n * e
 
@@ -1694,11 +1749,14 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flop_ms=0.0,
-                         byte_ms=0.0) for name in KERNELS}
+                         byte_ms=0.0, fp32_bound_ms=0.0) for name in KERNELS}
 
-    def add(name, label, kern, plain, lib, work):
+    def add(name, label, kern, plain, lib, work, tc=None):
+        """Times one call; *tc* = (tensor-core flops, CUDA-core flops) of a
+        split-TF32 kernel, whose bound then counts the tensor cores' rate."""
         t_k, t_p, t_l = _events_ms(kern), _events_ms(plain), _events_ms(lib)
-        flop_ms, byte_ms = work[0] / PEAK_FP32 * 1e3, work[1] / PEAK_HBM * 1e3
+        fp32_ms, byte_ms = work[0] / PEAK_FP32 * 1e3, work[1] / PEAK_HBM * 1e3
+        flop_ms = fp32_ms if tc is None else (tc[0] / PEAK_TF32 + tc[1] / PEAK_FP32) * 1e3
         tot = totals[name]
         tot["ms"] += t_k
         tot["plain_ms"] += t_p
@@ -1706,8 +1764,11 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
         tot["bound_ms"] += max(flop_ms, byte_ms)
         tot["flop_ms"] += flop_ms
         tot["byte_ms"] += byte_ms
+        tot["fp32_bound_ms"] += max(fp32_ms, byte_ms)
         rate = f"  {work[0] / t_k / 1e9:6.1f} TFLOP/s" if work[0] else \
             f"  {work[1] / t_k / 1e9:6.2f} TB/s"
+        if tc is not None:
+            rate += f" (fp32-core bound {max(fp32_ms, byte_ms) * 1e3:.1f} us)"
         log(f"  {name:20s} {label:36s} kernel {t_k * 1e3:9.1f} us  plain {t_p * 1e3:9.1f} us  "
             f"library {t_l * 1e3:9.1f} us  bound {max(flop_ms, byte_ms) * 1e3:8.1f} us{rate}")
 
@@ -1810,7 +1871,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add("adjoint_step", f"n={n} a={a} k={k} {tag}",
                     lambda: ck.adjoint_step(w, x, gg, a, k, n, out_dt),
                     lambda: kn.adjoint_step_plain(w, x, gg, a, k, n, out_dt),
-                    lib_adjoint(w, x, gg, a, k, n), work_adjoint(2**k, n, el, eo))
+                    lib_adjoint(w, x, gg, a, k, n), work_adjoint(2**k, n, el, eo),
+                    tc=work_adjoint_tc(2**k, n, el))
             if kind in ("rotmat", "matrot"):
                 k = shape if kind == "rotmat" else n - shape
                 w = _unitary(k, rng)
@@ -1820,7 +1882,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add(name, f"n={n} r={shape} k={k} {tag}",
                     lambda: getattr(ck, name)(w, x, gg, shape, n, out_dt),
                     lambda: getattr(kn, f"{name}_plain")(w, x, gg, shape, n, out_dt),
-                    lib, work_adjoint(2**k, n, el, eo))
+                    lib, work_adjoint(2**k, n, el, eo),
+                    tc=work_adjoint_tc(2**k, n, el) if name in TC_KERNELS else None)
         for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
             if kind != "top":
                 continue
@@ -1845,14 +1908,23 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
         f"rotate_pair per {n}q adjoint gradient, rotate per {n}q forward + saved gradient, "
         f"window_apply_top / window_apply_top_bwd / adjoint_step_top per {m}q forward / "
         f"gradient, chain_apply / adjoint_chain per {n}q chain forward / adjoint gradient; "
-        f"bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call)")
+        f"bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call, for "
+        f"{' and '.join(TC_KERNELS)} max(split-TF32 passes x 8K flops / 495 TFLOP/s + "
+        f"8K^3 / 67 TFLOP/s, bytes / 3.35 TB/s))")
     for name, t in totals.items():
+        extra = f" (fp32-core bound {t['fp32_bound_ms']:.3f} ms)" if name in TC_KERNELS else ""
         log(f"  total {name:20s} kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
-            f"library {t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms")
+            f"library {t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms{extra}")
     return totals
 
 
 # ---------------------------------------------------------------------------
+
+
+def _bound_by(name: str, t: dict) -> str:
+    if t["flop_ms"] < t["byte_ms"]:
+        return "bytes"
+    return "operations (split-TF32 tensor cores)" if name in TC_KERNELS else "operations"
 
 
 def main() -> int:
@@ -1883,6 +1955,7 @@ def main() -> int:
     for line in ck.BUILD_LOG.splitlines():
         if "Compiling entry function" in line or "Used" in line:
             log(f"  {line.strip()}")
+    check_sass(path)
 
     shapes = {n: plan_shapes(n) for n in (*WIDTHS, WIDE)}
     for n in (*WIDTHS, WIDE):
@@ -1913,7 +1986,7 @@ def main() -> int:
         dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
              max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
              bound_ms=t["bound_ms"],
-             bound_by="operations" if t["flop_ms"] >= t["byte_ms"] else "bytes",
+             bound_by=_bound_by(name, t),
              library_ms=t["library_ms"])
         for name, t in totals.items()
     ]}))

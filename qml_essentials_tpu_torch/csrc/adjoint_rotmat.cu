@@ -14,29 +14,24 @@
 // traffic become 2 for the undo).
 //
 // What bounds it on an H100: arithmetic, 24K flops per amplitude (three
-// products).  The design is adjoint_step.cu's: the two pullbacks in one pass
-// of cgemm_pair_kernel over a shared conj(W) column operand, oriented rows x,
-// columns j (RotPullbackMap, the pullback of rotmat_apply_bwd.cu), so psi and
-// lam are read along x and the undone arrays stored along j (the rotation
-// back is the orientation of the store); the gram on the step's output, split
-// over the X columns (WindowGramMap on the (K, X) view) and summed in a fixed
-// order; gw = G0 W in fp32 FMA.
-#include "cgemm_tile.cuh"
+// products).  The design is adjoint_step.cu's, on the split-TF32 tensor-core
+// tile of adjoint_tc.cuh: the two pullbacks over a shared conj(W) column
+// operand, oriented rows x, columns j (RotPullbackMap, the pullback of
+// rotmat_apply_bwd.cu), so psi and lam are read along x and the undone arrays
+// stored along j (the rotation back is the orientation of the store); the
+// gram on the step's output, split over the X columns (WindowGramMap on the
+// (K, X) view) and summed in a fixed order; gw = G0 W in fp32 FMA.
+#include "adjoint_tc.cuh"
 
 namespace {
 
 template <class TL, class TO>
 int run(const float* w, const float* psi, const TL* lam, float* psi_in, TO* lam_in,
         float* gw, float* ws, int64_t K, int64_t X, int64_t splits, cudaStream_t stream) {
-  const int64_t plane = K * X;
-  int code = qml::launch_cgemm_pair<qml::RotPullbackMap, false>(
-      w, K * K, psi, lam, plane, psi_in, lam_in, plane, X, K, K,
-      qml::RotPullbackMap{qml::rot_cols(K, X, K)}, stream);
-  if (code != 0) return code;
-  code = qml::launch_cgemm(lam, plane, psi, plane, ws, K * K, 2 * K * K, K, K, X, splits,
-                           qml::WindowGramMap{qml::window_cols(K, X)}, stream);
-  if (code != 0) return code;
-  return qml::launch_gram_times_w(ws, splits, ws + splits * 2 * K * K, w, gw, K, stream);
+  return qml::launch_adjoint_tc(w, psi, lam, psi_in, lam_in, gw, ws, K * X, K, X, K, X, splits,
+                                qml::tc_vec_shape(K, X),
+                                qml::RotPullbackMap{qml::rot_cols(K, X, K)},
+                                qml::WindowGramMap{qml::window_cols(K, X)}, stream);
 }
 
 }  // namespace

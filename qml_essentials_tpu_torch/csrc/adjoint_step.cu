@@ -17,22 +17,25 @@
 //
 // What bounds it on an H100: arithmetic.  Three products of K complex
 // multiply-adds per amplitude (24K flops per amplitude, 1.5x the saved
-// backward's window_apply_bwd), at K = 256..1024 on the main path.  The
-// design is four launches on cgemm_tile.cuh:
+// backward's window_apply_bwd), at K = 256..1024 on the main path.  On the
+// float32 CUDA cores (67 TFLOP/s) that is the ceiling whatever the tile, so
+// the products run on the tensor cores in split TF32 (adjoint_tc.cuh:
+// mma.sync m16n8k8 TF32 with cvt.rna.tf32.f32 hi/lo splits, float32-grade,
+// whatever the caller's TF32 setting), staged through a cp.async ring:
 //
-// * the two pullbacks in one pass (cgemm_pair_kernel): a block stages its
-//   slice of W^dagger once per depth stage and applies it to psi (float32 in
-//   and out) and to lam (float32 or bfloat16 in, either out);
+// * the two pullbacks, one launch each over W^dagger (psi float32 in and
+//   out; lam float32 or bfloat16 in, either out: three passes, two for a
+//   bfloat16 lam, which is exact in TF32);
 // * the gram split over the columns into a caller-owned workspace, as in
 //   window_apply_bwd.cu, and a fixed-order sum of the partials (no atomics:
 //   gradients repeat bit for bit);
-// * gw = G0 W in fp32 FMA, whatever the caller's TF32 setting.
+// * gw = G0 W in fp32 FMA (8K^3 flops, cgemm_tile.cuh).
 //
 // The TPU kernel reads (psi, lam) once for all three products and keeps G0
-// in VMEM across its sequential grid; here psi and lam are read twice and the
-// workspace written and read once.  One fused pass and tensor cores are later
-// work.
-#include "cgemm_tile.cuh"
+// in VMEM across its sequential grid; G0 is 2K x 2K real (4 MB at K = 512),
+// far above a block's shared memory, so here psi and lam are read twice and
+// the workspace written and read once.
+#include "adjoint_tc.cuh"
 
 namespace {
 
@@ -41,16 +44,10 @@ int run(const float* w, const float* psi, const TL* lam, float* psi_prev, TO* la
         float* gw, float* ws, int64_t A, int64_t K, int64_t B, int64_t splits,
         cudaStream_t stream) {
   const qml::WindowCols cols = qml::window_cols(K, B);
-  const int64_t plane = A * K * B;
   const int64_t C = A * B;
-  int code = qml::launch_cgemm_pair<qml::WindowPullbackMap, true>(
-      w, K * K, psi, lam, plane, psi_prev, lam_prev, plane, K, C, K,
-      qml::WindowPullbackMap{cols}, stream);
-  if (code != 0) return code;
-  code = qml::launch_cgemm(lam, plane, psi, plane, ws, K * K, 2 * K * K, K, K, C, splits,
-                           qml::WindowGramMap{cols}, stream);
-  if (code != 0) return code;
-  return qml::launch_gram_times_w(ws, splits, ws + splits * 2 * K * K, w, gw, K, stream);
+  return qml::launch_adjoint_tc(w, psi, lam, psi_prev, lam_prev, gw, ws, A * K * B, K, K, C, C,
+                                splits, qml::tc_vec_shape(K, B), qml::WindowPullbackMap{cols},
+                                qml::WindowGramMap{cols}, stream);
 }
 
 }  // namespace

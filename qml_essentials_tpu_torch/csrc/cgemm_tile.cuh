@@ -1,8 +1,9 @@
 // Shared block tile of the window kernels (window_apply.cu, window_apply_top.cu,
 // their backwards window_apply_bwd.cu, window_apply_top_bwd.cu, the adjoint
-// steps adjoint_step.cu, adjoint_step_top.cu, and the fused rotation steps
-// rotmat_apply.cu, rotwin_apply.cu, matrot_apply.cu, their backwards and
-// adjoint_rotmat.cu, adjoint_matrot.cu): a complex matrix product
+// step adjoint_step_top.cu, and the fused rotation steps rotmat_apply.cu,
+// rotwin_apply.cu, matrot_apply.cu, their backwards and adjoint_matrot.cu;
+// adjoint_step.cu and adjoint_rotmat.cu take only its maps and gw = G0 W,
+// their products run on adjoint_tc.cuh's tensor cores): a complex matrix product
 // C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.

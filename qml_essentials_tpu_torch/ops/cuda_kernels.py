@@ -27,6 +27,11 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
+``adjoint_step`` and ``adjoint_rotmat`` run their three products on the
+tensor cores in split TF32 (``csrc/adjoint_tc.cuh``: float32-grade, whatever
+``torch.backends.cuda.matmul.allow_tf32`` says); the other kernels multiply
+in float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
+
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
 name carries a hash of both.  Nothing is compiled or loaded at import time.
@@ -78,7 +83,7 @@ SOURCES = (
     "adjoint_step.cu", "adjoint_step_top.cu", "adjoint_rotmat.cu", "adjoint_matrot.cu",
     "rotate_pair.cu", "chain_apply.cu", "adjoint_chain.cu",
 )
-HEADERS = ("cgemm_tile.cuh", "transpose_tile.cuh", "chain_block.cuh")
+HEADERS = ("cgemm_tile.cuh", "adjoint_tc.cuh", "transpose_tile.cuh", "chain_block.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -143,11 +148,14 @@ def build() -> Tuple[Path, float]:
     """Compile the kernels if the library for the current sources is missing.
 
     Returns ``(path, seconds spent compiling)`` (0.0 when it was up to date);
-    the compiler's output is kept in ``BUILD_LOG``.
+    the compiler's output is kept in ``BUILD_LOG`` and beside the library
+    (``<library>.log``), so an up-to-date build still reports it.
     """
     global BUILD_LOG
     path = library_path()
+    log_path = path.with_name(path.name + ".log")
     if path.exists():
+        BUILD_LOG = log_path.read_text() if log_path.exists() else ""
         return path, 0.0
     objdir = BUILD_DIR / f"obj.{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
@@ -160,6 +168,7 @@ def build() -> Tuple[Path, float]:
     log += _run_all([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                       "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
+    log_path.write_text(log)
     os.replace(tmp, path)
     shutil.rmtree(objdir, ignore_errors=True)
     BUILD_LOG = log

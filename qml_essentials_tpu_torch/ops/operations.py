@@ -7,8 +7,10 @@ itself on the active recording tape.  Application to a state delegates to
 
 Matrices follow their parameters: a gate built from a float64 tensor has a
 complex128 matrix on that tensor's device; parameter-free gates keep
-complex64 class constants on the CPU.  The simulator casts every matrix to
-the state's dtype and device where it is applied.
+complex128 class constants on the CPU (as do numpy-built Hermitians), so a
+float64 model computes with them exactly and a float32 one rounds them once.
+The simulator casts every matrix to the state's dtype and device where it is
+applied.
 
 Counterpart of ``qml_essentials_tpu/ops/operations.py`` (Operation up to the
 controlled rotations).  Noise channels, Hamiltonians and ``PauliWord`` come
@@ -35,8 +37,9 @@ def _as_wire_list(wires: Wires) -> List[int]:
 
 
 def _const(values) -> torch.Tensor:
-    """A complex64 class-level constant matrix (CPU)."""
-    return torch.tensor(values, dtype=torch.complex64)
+    """A complex128 class-level constant matrix (CPU); users cast it to
+    their dtype (:func:`_placed`)."""
+    return torch.tensor(values, dtype=torch.complex128)
 
 
 _CONST_CACHE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -234,7 +237,7 @@ class Operation:
 def _as_complex(matrix) -> torch.Tensor:
     if isinstance(matrix, torch.Tensor):
         return matrix.to(cdtype(matrix.dtype)) if not matrix.is_complex() else matrix
-    return torch.as_tensor(np.asarray(matrix), dtype=torch.complex64)
+    return torch.as_tensor(np.asarray(matrix), dtype=torch.complex128)
 
 
 class Hermitian(Operation):
@@ -252,14 +255,14 @@ class Hermitian(Operation):
 class Id(Operation):
     """Identity gate on an arbitrary number of wires."""
 
-    _matrix = torch.eye(2, dtype=torch.complex64)
+    _matrix = torch.eye(2, dtype=torch.complex128)
     _num_wires = None
     is_clifford = True
 
     def __init__(self, wires: Wires = 0, **kwargs) -> None:
         k = len(_as_wire_list(wires))
         if k > 1:
-            kwargs["matrix"] = torch.eye(2**k, dtype=torch.complex64)
+            kwargs["matrix"] = torch.eye(2**k, dtype=torch.complex128)
         super().__init__(wires=wires, **kwargs)
 
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
@@ -372,7 +375,7 @@ _EYES: Dict[int, torch.Tensor] = {}
 
 def _eye(dim: int) -> torch.Tensor:
     if dim not in _EYES:
-        _EYES[dim] = torch.eye(dim, dtype=torch.complex64)
+        _EYES[dim] = torch.eye(dim, dtype=torch.complex128)
     return _EYES[dim]
 
 

@@ -198,6 +198,47 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     }
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, nearest with ties away
+    from zero (cvt.rna.tf32.f32, as the kernel computes it)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What a tensor core reads of a float32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b for float32 operands as the tensor-core tile forms it: hi the
+    TF32 rounding, lo = x - hi read as TF32, the products of the passes exact
+    (float64), the sum in float64 and rounded once to float32.  One pass is
+    plain TF32."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    terms = [(ah, bh), (ah, bl), (al, bh)][:passes]
+    return sum(x.double() @ y.double() for x, y in terms).float()
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_split_tf32_scheme_is_float32_grade(passes, within):
+    """The adjoint steps' split-TF32 scheme at K = 1024 (psi_prev = W^dagger
+    psi on 64 columns, four real products) is within CUDA_TOL of float64,
+    and plain TF32 (one pass) is not."""
+    K = 1024
+    w = torch.from_numpy(_unitary_pair(10, 3))
+    x = torch.from_numpy(_state(16, 4)).reshape(2, K, 64)
+    wr, wi = w[0].T.contiguous(), -w[1].T.contiguous()  # W^dagger = conj(W)^T
+    re = _split_tf32_product(wr, x[0], passes) - _split_tf32_product(wi, x[1], passes)
+    im = _split_tf32_product(wr, x[1], passes) + _split_tf32_product(wi, x[0], passes)
+    w64, x64 = w.double(), x.double()
+    ref_re = w64[0].T @ x64[0] + w64[1].T @ x64[1]
+    ref_im = w64[0].T @ x64[1] - w64[1].T @ x64[0]
+    got, ref = torch.stack([re, im]).double(), torch.stack([ref_re, ref_im])
+    assert (_rel(got, ref) <= CUDA_TOL) == within
+
+
 @pytest.mark.unittest
 def test_wrappers_refuse_other_devices():
     psi2 = torch.zeros((2, 2**6), device="meta")
@@ -418,14 +459,25 @@ def _assert_adjoint_close(got, ref, lam_dtype):
     _assert_bwd_close((lp, gw), (rl, rw), lam_dtype)
 
 
+# The adjoint step's shapes on the card: edges (K = 2, 4 and 8 with B = 2,
+# which take the tensor-core tile's scalar staging; K = 8 and 16 with B = 8,
+# the smallest shapes of its 16-byte copies), the 24q plan's nine windows
+# (a, k) = (9, 8), (2, 8), (7, 9), (8, 9), rotwin's (0, 9) and (0, 10), and a
+# 26q K = 1024 window.
+ADJOINT_STEP_CASES = [
+    (14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (12, 8, 3), (14, 3, 3), (12, 5, 4),
+    (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10),
+    (24, 9, 8), (24, 2, 8), (24, 7, 9), (24, 8, 9), (24, 0, 9), (24, 0, 10), (26, 0, 10),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "n,a,k", [(14, 3, 1), (14, 0, 2), (14, 12, 1), (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10)]
-)
+@pytest.mark.parametrize("n,a,k", ADJOINT_STEP_CASES)
 def test_cuda_adjoint_step_matches_plain(cuda, n, a, k, lam_dtype, out_dtype):
-    """K = 2 and 4, B = 2, a = 0, the K = 1024 window; lambda bf16 in and out."""
+    """K = 2 to 1024, B = 2 up, a = 0, the 24q and 26q plans' windows; lambda
+    bf16 in and out."""
     out_dtype = getattr(torch, out_dtype)
     w, lam, psi = _bwd_inputs(cuda, n, k, 7 * n + a + k, getattr(torch, lam_dtype))
     before = cuda_kernels.launch_counts()["adjoint_step"]
@@ -534,10 +586,18 @@ def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_d
     _assert_bwd_close(got, ref, out_dtype)
 
 
+# B14 beyond FUSED_CASES: the 24q plan's rotmat (r = 8), K = 4 and K = 8
+# with X = 8 and X = 2 (scalar staging) and X = 256 (16-byte copies).
+ADJOINT_ROTMAT_EXTRA = [
+    ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind,n,r,k", [c for c in FUSED_CASES if c[0] != "rotwin"])
+@pytest.mark.parametrize("kind,n,r,k",
+                         [c for c in FUSED_CASES if c[0] != "rotwin"] + ADJOINT_ROTMAT_EXTRA)
 def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, lam, psi = _bwd_inputs(cuda, n, k, 13 * n + r, getattr(torch, lam_dtype))
@@ -549,6 +609,23 @@ def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dt
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts()[name] == before + 1
     _assert_adjoint_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,lam_dtype", [("step", "float32"), ("step", "bfloat16"),
+                                            ("rotmat", "float32"), ("rotmat", "bfloat16")])
+def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
+    """Two launches of B12 / B14 on the same inputs give the same bits: the
+    gram's split partials are summed in a fixed order, with no atomics."""
+    n, k = 20, 8
+    w, lam, psi = _bwd_inputs(cuda, n, k, 17, getattr(torch, lam_dtype))
+    if kind == "step":
+        run = lambda: cuda_kernels.adjoint_step(w, psi, lam, 3, k, n, torch.bfloat16)  # noqa: E731
+    else:
+        run = lambda: cuda_kernels.adjoint_rotmat(w, psi, lam, k, n, torch.bfloat16)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -224,3 +224,40 @@ def test_safe_random_split_derives_independent_generators():
     draw = lambda g: torch.rand(4, generator=g)  # noqa: E731
     assert torch.equal(draw(a), draw(a2))  # same seed, same stream
     assert not torch.equal(draw(a), draw(b))
+
+
+def _ghz(n):
+    to.H(wires=0)
+    for q in range(n - 1):
+        to.CX(wires=[q, q + 1])
+
+
+@pytest.mark.unittest
+def test_float64_ghz_state_is_exact():
+    """A float64 circuit computes with its fixed gates in float64: the 5q
+    GHZ state is (|0...0> + |1...1>)/sqrt(2) to 1e-15 (complex64 constants
+    would leave H's 1/sqrt(2) off by ~1e-8)."""
+    from qml_essentials_tpu_torch.core.executor import Script
+
+    n = 5
+    state = Script(_ghz, n_qubits=n, device="cpu", dtype=torch.float64).execute(
+        type="state", args=(n,))
+    assert state.dtype == torch.complex128
+    want = np.zeros(2**n, dtype=np.complex128)
+    want[0] = want[-1] = 1 / np.sqrt(2.0)
+    assert np.abs(_np(state) - want).max() <= 1e-15
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("which", ["H", "Hermitian"])
+def test_fixed_matrices_are_exact_at_float64(which):
+    """H and a numpy-built Hermitian, cast to complex128 where a float64
+    state uses them, equal numpy's matrices to 1e-15."""
+    if which == "H":
+        want = np.array([[1, 1], [1, -1]], dtype=np.complex128) / np.sqrt(2.0)
+        mat = to.H(wires=0, record=False).matrix
+    else:
+        want = np.array([[0.1, 0.5 - 0.2j], [0.5 + 0.2j, -1 / 3]])
+        mat = to.Hermitian(want, wires=0, record=False).matrix
+    got = to._placed(mat, torch.device("cpu"), torch.complex128)
+    assert np.abs(_np(got) - want).max() <= 1e-15
