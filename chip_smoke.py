@@ -15,9 +15,11 @@ phase:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
-   shared-memory use; the SASS of the split-TF32 tile under adjoint_step and
-   adjoint_rotmat (``csrc/adjoint_tc.cuh``) must hold tensor-core HMMA
-   instructions (counted with cuobjdump); the 22q/24q/26q plans are printed
+   shared-memory use; the SASS of the split-TF32 tile (``csrc/adjoint_tc.cuh``,
+   under window_apply_bwd, rotmat_apply_bwd, adjoint_step and
+   adjoint_rotmat) must hold tensor-core HMMA instructions in every
+   instantiation (counted with cuobjdump, named by their maps; RotGramMap's,
+   rotmat_apply_bwd's gram, among them); the 22q/24q/26q plans are printed
    (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
@@ -97,13 +99,15 @@ phase:
    or for the chain kernels the products of the step's windows and its
    diagonals' multiplies, summed) and its bound, CUDA events, best of 3
    after warm-up.  The bound is max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)
-   for the kernels on the float32 CUDA cores; for adjoint_step and
-   adjoint_rotmat, whose three products run on the tensor cores in split
-   TF32, it is max(passes x 8K flops an amplitude / 495 TFLOP/s + the 8K^3
-   flops of gw = G0 W / 67 TFLOP/s, bytes / 3.35 TB/s), with 3 passes for a
-   product of two float32 operands and 2 for one with a bfloat16 cotangent
-   (9 a call with a float32 lambda, 7 with bfloat16); the float32-core
-   figure is printed beside it.
+   for the kernels on the float32 CUDA cores; for those whose products run
+   on the tensor cores in split TF32 (``TC_KERNELS``) it is max(passes x 8K
+   flops an amplitude / 495 TFLOP/s + CUDA-core flops / 67 TFLOP/s,
+   bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
+   and 2 for one with a bfloat16 cotangent: adjoint_step and adjoint_rotmat
+   (three products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a
+   call with a float32 lambda, 7 with bfloat16; window_apply_bwd and
+   rotmat_apply_bwd (two products) 6 a call with a float32 g, 4 with
+   bfloat16.  The float32-core figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -145,7 +149,8 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-TC_KERNELS = ("adjoint_step", "adjoint_rotmat")  # split TF32, csrc/adjoint_tc.cuh
+# Split TF32 on the tensor cores, csrc/adjoint_tc.cuh.
+TC_KERNELS = ("window_apply_bwd", "rotmat_apply_bwd", "adjoint_step", "adjoint_rotmat")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -403,10 +408,16 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
     return want
 
 
+# The maps the split-TF32 tile is instantiated with: the pullbacks and grams
+# of window_apply_bwd / adjoint_step (window layout) and rotmat_apply_bwd /
+# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd).
+TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap")
+
+
 def check_sass(path: Path) -> None:
     """Every instantiation of the split-TF32 tile (``tc_cgemm_kernel``, under
-    adjoint_step and adjoint_rotmat) issues tensor-core HMMA instructions;
-    counted in the library's SASS with cuobjdump, beside nvcc."""
+    TC_KERNELS) issues tensor-core HMMA instructions, and each map of TC_MAPS
+    has one; counted in the library's SASS with cuobjdump, beside nvcc."""
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
     tool = Path(ck._nvcc()).with_name("cuobjdump")
@@ -424,6 +435,10 @@ def check_sass(path: Path) -> None:
     other = sum(c for f, c in hmma.items() if "tc_cgemm_kernel" not in f)
     log(f"  SASS: {len(tc)} split-TF32 tile kernels with {sorted(set(tc.values()))} HMMA "
         f"instructions each; {other} HMMA in the other {len(hmma) - len(tc)} kernels")
+    for m in TC_MAPS:
+        counts = sorted(c for f, c in tc.items() if m in f)
+        log(f"    {m:18s} {len(counts)} instantiations, HMMA {counts}")
+        _check(bool(counts), f"no split-TF32 tile kernel with {m} in the SASS")
     _check(bool(tc) and all(tc.values()), f"a split-TF32 kernel without HMMA: {tc}")
 
 
@@ -712,7 +727,10 @@ def phase_parity(shapes: dict) -> dict:
     check_windows(ck, kn, edge_top, True, gen, rng)
     check_rotations(ck, kn, edge_rot, gen)
     check_rotations(ck, kn, edge_rot, gen, torch.bfloat16)
-    check_bwd(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4)], False, gen, rng)
+    # K = 2, 4 and 8 with B = 2 (the tensor-core tile's scalar staging), K = 8
+    # and 16 with B = 8 (its smallest 16-byte copies).
+    check_bwd(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4), (12, 8, 3), (14, 3, 3),
+                       (12, 5, 4)], False, gen, rng)
     check_bwd(ck, kn, [(12, 11, 1), (12, 10, 2), (6, 0, 6), (11, 6, 5)], True, gen, rng)
 
     log("  adjoint kernels (main-path shapes at 24q and 26q, the 22q top window, edges):")
@@ -735,8 +753,10 @@ def phase_parity(shapes: dict) -> dict:
         | {("matrot", w, r, w - r) for w in (m, n, WIDE) for r in shapes[w]["matrot_apply"]}
         | {("rotwin", w, r, k) for w in (m, n, WIDE) for r, k in shapes[w]["rotwin_apply"]})
     errs.update(check_fused(ck, kn, main_fused, gen, rng))
-    check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 9, 8, 8), ("rotmat", 4, 3, 3),
-                         ("rotmat", 11, 3, 3), ("matrot", 6, 5, 1),
+    # rotmat's K = 2 / X = 32, K = 4 / X = 8, K = 8 / X = 2 (scalar staging),
+    # K = 8 / X = 256 (16-byte copies) and K = 256 / X = 2, backward and adjoint.
+    check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3),
+                         ("rotmat", 11, 3, 3), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
                          ("matrot", 9, 1, 8), ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5),
                          ("rotwin", 12, 7, 9)], gen, rng)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
@@ -1418,7 +1438,8 @@ def _adjoint_times(models: dict, model26, batch: list) -> None:
     for mode, label in (("adjoint", "adjoint forced"), ("autodiff", "saved forced")):
         simulation.set_backward_mode(mode)
         _grad_times(model26, REQUESTS[0],
-                    f"{WIDE}q Circuit_19 L={N_LAYERS}, {label} (bf16 lambda), per request")
+                    f"{WIDE}q Circuit_19 L={N_LAYERS}, {label} (bf16 lambda), per request",
+                    median=True)
     simulation.set_backward_mode("auto")
     _grad_times(models[n], batch,
                 f"{n}q Circuit_19 L={N_LAYERS}, a batch of {len(batch)} under auto (adjoint, "
@@ -1691,6 +1712,15 @@ def work_adjoint_tc(K, n, el):
     return passes * 8 * K * 2**n, 8 * K**3
 
 
+def work_bwd_tc(K, n, eg):
+    """The split-TF32 saved backward's work: (tensor-core flops, CUDA-core
+    flops).  Its two products (pullback, gram) take 3 passes each with a
+    float32 g, 2 with a bfloat16 g (exact in TF32); nothing on the CUDA
+    cores."""
+    passes = 2 * (3 if eg == 4 else 2)
+    return passes * 8 * K * 2**n, 0
+
+
 def work_rotate(n, e):
     return 0, 4 * 2**n * e
 
@@ -1827,7 +1857,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add("window_apply_bwd", f"n={n} a={a} k={k} {tag}",
                     lambda: ck.window_apply_bwd(w, gg, x, a, k, n, out_dt),
                     lambda: kn.window_apply_bwd_plain(w, gg, x, a, k, n, out_dt),
-                    lib_window_bwd(w, gg, x, a, k, n), work_bwd(2**k, n, eg, eo))
+                    lib_window_bwd(w, gg, x, a, k, n), work_bwd(2**k, n, eg, eo),
+                    tc=work_bwd_tc(2**k, n, eg))
             elif kind == "rotwin":
                 r, k = shape
                 w = _unitary(k, rng)
@@ -1843,7 +1874,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add(name, f"n={n} r={shape} k={k} {tag}",
                     lambda: getattr(ck, name)(w, gg, x, shape, n, out_dt),
                     lambda: getattr(kn, f"{name}_plain")(w, gg, x, shape, n, out_dt),
-                    lib, work_bwd(2**k, n, eg, eo))
+                    lib, work_bwd(2**k, n, eg, eo),
+                    tc=work_bwd_tc(2**k, n, eg) if name in TC_KERNELS else None)
         for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
             if kind != "top":
                 continue
@@ -1909,8 +1941,9 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
         f"window_apply_top / window_apply_top_bwd / adjoint_step_top per {m}q forward / "
         f"gradient, chain_apply / adjoint_chain per {n}q chain forward / adjoint gradient; "
         f"bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call, for "
-        f"{' and '.join(TC_KERNELS)} max(split-TF32 passes x 8K flops / 495 TFLOP/s + "
-        f"8K^3 / 67 TFLOP/s, bytes / 3.35 TB/s))")
+        f"{', '.join(TC_KERNELS)} max(split-TF32 passes x 8K flops / 495 TFLOP/s + "
+        f"CUDA-core flops (8K^3 of gw = G0 W for the adjoint steps) / 67 TFLOP/s, "
+        f"bytes / 3.35 TB/s))")
     for name, t in totals.items():
         extra = f" (fp32-core bound {t['fp32_bound_ms']:.3f} ms)" if name in TC_KERNELS else ""
         log(f"  total {name:20s} kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
@@ -1921,10 +1954,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
 # ---------------------------------------------------------------------------
 
 
-def _bound_by(name: str, t: dict) -> str:
-    if t["flop_ms"] < t["byte_ms"]:
-        return "bytes"
-    return "operations (split-TF32 tensor cores)" if name in TC_KERNELS else "operations"
+def _bound_by(t: dict) -> str:
+    return "bytes" if t["flop_ms"] < t["byte_ms"] else "operations"
 
 
 def main() -> int:
@@ -1986,7 +2017,7 @@ def main() -> int:
         dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
              max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
              bound_ms=t["bound_ms"],
-             bound_by=_bound_by(name, t),
+             bound_by=_bound_by(t),
              library_ms=t["library_ms"])
         for name, t in totals.items()
     ]}))

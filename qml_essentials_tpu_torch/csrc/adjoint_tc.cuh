@@ -1,7 +1,8 @@
-// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_rotmat.cu):
-// one complex matrix product C = op(A) * op(B) on real-split planes (each
-// operand a Re plane followed, `plane` elements later, by an Im plane), on
-// Hopper's tensor cores at float32-grade accuracy.
+// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_rotmat.cu)
+// and of the saved-residual backwards window_apply_bwd.cu and
+// rotmat_apply_bwd.cu: one complex matrix product C = op(A) * op(B) on
+// real-split planes (each operand a Re plane followed, `plane` elements
+// later, by an Im plane), on Hopper's tensor cores at float32-grade accuracy.
 //
 // Split TF32.  A float32 operand x is split into x = hi + lo, hi = x rounded
 // to TF32 (nearest, ties away: the rounding of cvt.rna.tf32.f32, done with
@@ -389,6 +390,31 @@ inline int launch_adjoint_tc(const float* w, const float* psi, const TL* lam, fl
                          gram, stream);
   if (code != 0) return code;
   return launch_gram_times_w(ws, splits, ws + splits * 2 * K * K, w, gw, K, stream);
+}
+
+// The saved-residual backward of a window or fused rotation step on the
+// tensor cores (cgemm_tile.cuh's launch_fused_bwd on this tile): the
+// pullback gp = W^dagger g through the map P over M x N outputs (W is the
+// conjugated operand: A when P conjugates A, else B), then the gram of g and
+// the saved input x over `depth` columns through G into the split partials
+// in ws, summed in order into gw.  The saved gram is gw itself: no G0 W.
+// vec is tc_vec_shape(K, run), run the state's contiguous column run.
+// Returns 0 or the first CUDA error.
+template <class P, class G, class TG, class TP>
+inline int launch_fused_bwd_tc(const float* w, const TG* g, const float* x, TP* gp, float* gw,
+                               float* ws, int64_t plane, int64_t K, int64_t M, int64_t N,
+                               int64_t depth, int64_t splits, bool vec, const P& pull,
+                               const G& gram, cudaStream_t stream) {
+  int code;
+  if constexpr (P::CONJ_A)
+    code = launch_tc_cgemm(w, K * K, g, plane, gp, plane, 0, M, N, K, 1, vec, pull, stream);
+  else
+    code = launch_tc_cgemm(g, plane, w, K * K, gp, plane, 0, M, N, K, 1, vec, pull, stream);
+  if (code != 0) return code;
+  code = launch_tc_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, depth, splits, vec,
+                         gram, stream);
+  if (code != 0) return code;
+  return launch_reduce(ws, gw, 2 * K * K, splits, stream);
 }
 
 }  // namespace qml

@@ -12,13 +12,15 @@
 // g is float32 or bfloat16, gp float32 or bfloat16, gw float32.
 //
 // What bounds it on an H100: arithmetic, 16K flops per amplitude (two
-// products), as window_apply_bwd.cu.  The design is that kernel's: the
-// pullback on cgemm_tile.cuh oriented rows x, columns j, so g is read along
-// its contiguous x and gp is stored along its contiguous j (the transposed
-// store of the TPU kernel becomes the orientation of the product); the gram
-// reads g along x and x_pre along j, split over the X columns into a
-// caller-owned workspace and summed in a fixed order (no atomics).
-#include "cgemm_tile.cuh"
+// products), as window_apply_bwd.cu, so both run on the split-TF32 tensor
+// cores of adjoint_tc.cuh: the pullback (RotPullbackMap, adjoint_rotmat.cu's)
+// oriented rows x, columns j, so g is read along its contiguous x and gp is
+// stored along its contiguous j (the transposed store of the TPU kernel
+// becomes the orientation of the product); the gram (RotGramMap) reads g
+// along x and x_pre along j, in runs of K (pre(j, x) = x*K + j), split over
+// the X columns into a caller-owned workspace and summed in a fixed order
+// (no atomics).
+#include "adjoint_tc.cuh"
 
 // w: (2, K, K) float32; g: (2, K*X) float32 (g_bf16 = 0) or bfloat16;
 // x: (2, K*X) float32; gp: (2, K*X) float32 (gp_bf16 = 0) or bfloat16;
@@ -30,8 +32,8 @@ extern "C" int qml_rotmat_apply_bwd(const float* w, const void* g, const float* 
                                     void* stream) {
   const qml::RotCols cols = qml::rot_cols(K, X, K);
   return qml::with_cotangent_types(g, gp, g_bf16, gp_bf16, [&](auto gt, auto pt) {
-    return qml::launch_fused_bwd(w, gt, x, pt, gw, ws, K * X, K, X, K, X, splits,
-                                 qml::RotPullbackMap{cols}, qml::RotGramMap{cols},
-                                 (cudaStream_t)stream);
+    return qml::launch_fused_bwd_tc(w, gt, x, pt, gw, ws, K * X, K, X, K, X, splits,
+                                    qml::tc_vec_shape(K, X), qml::RotPullbackMap{cols},
+                                    qml::RotGramMap{cols}, (cudaStream_t)stream);
   });
 }

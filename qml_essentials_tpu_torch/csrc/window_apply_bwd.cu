@@ -13,11 +13,15 @@
 //
 // What bounds it on an H100: arithmetic, as the forward.  Both products are
 // K complex multiply-adds per amplitude (8K flops each, 16K in all: twice the
-// forward), so the design is the forward's tile (cgemm_tile.cuh) run twice:
+// forward); on the float32 CUDA cores (67 TFLOP/s) that is the ceiling
+// whatever the tile, so both run on the tensor cores in split TF32
+// (adjoint_tc.cuh, the tile of adjoint_step.cu, whose pullback and gram these
+// are): float32-grade, whatever the caller's TF32 setting, staged through a
+// cp.async ring.
 //
 // * the pullback is the forward's product with A = W^dagger: W is read along
 //   its row index (A_M_CONTIG) with the Im part negated, g is the right
-//   operand, loaded and upcast from bfloat16 where it is one;
+//   operand, float32 (three passes) or bfloat16 (exact in TF32: two);
 // * the matrix cotangent is a (K x C) * (C x K) product with C = A*B = 2^n/K
 //   columns (2^14..2^16 at 24 qubits), so a K x K output has too few 64 x 64
 //   tiles to fill 132 SMs.  The TPU kernel kept one (2, K, K) accumulator in
@@ -25,13 +29,14 @@
 //   reduction over C is split: each of `splits` blocks per output tile sums
 //   its chunk of columns into its own (2, K, K) partial in a workspace the
 //   caller allocates, and a second pass adds the partials in a fixed order
-//   (deterministic: no atomics).  The sum is fp32 FMA throughout.
+//   (deterministic: no atomics).  Within a block each 32-deep stage's sum
+//   joins the running sum in a float32 add (the tensor cores truncate).
 //
 // Unlike the TPU kernel, which reads (g, x) once for both outputs, this is
 // three launches (pullback, split gram, reduction): g is read twice and x
 // once, plus the workspace (at most 64 MB, chosen by the caller) written and
-// read once.  One fused pass is later work, as are tensor cores.
-#include "cgemm_tile.cuh"
+// read once.  One fused pass is later work.
+#include "adjoint_tc.cuh"
 
 namespace {
 
@@ -39,15 +44,10 @@ template <class TG, class TP>
 int run(const float* w, const TG* g, const float* x, TP* gp, float* gw, float* ws,
         int64_t A, int64_t K, int64_t B, int64_t splits, cudaStream_t stream) {
   const qml::WindowCols cols = qml::window_cols(K, B);
-  const int64_t plane = A * K * B;
   const int64_t C = A * B;
-  int code = qml::launch_cgemm(w, K * K, g, plane, gp, plane, 0, K, C, K, 1,
-                               qml::WindowPullbackMap{cols}, stream);
-  if (code != 0) return code;
-  code = qml::launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, C, splits,
-                           qml::WindowGramMap{cols}, stream);
-  if (code != 0) return code;
-  return qml::launch_reduce(ws, gw, 2 * K * K, splits, stream);
+  return qml::launch_fused_bwd_tc(w, g, x, gp, gw, ws, A * K * B, K, K, C, C, splits,
+                                  qml::tc_vec_shape(K, B), qml::WindowPullbackMap{cols},
+                                  qml::WindowGramMap{cols}, stream);
 }
 
 }  // namespace

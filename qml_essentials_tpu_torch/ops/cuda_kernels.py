@@ -27,10 +27,12 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
-``adjoint_step`` and ``adjoint_rotmat`` run their three products on the
-tensor cores in split TF32 (``csrc/adjoint_tc.cuh``: float32-grade, whatever
-``torch.backends.cuda.matmul.allow_tf32`` says); the other kernels multiply
-in float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
+``window_apply_bwd`` and ``rotmat_apply_bwd`` (pullback and gram) and
+``adjoint_step`` and ``adjoint_rotmat`` (two pullbacks and the gram) run
+their products on the tensor cores in split TF32 (``csrc/adjoint_tc.cuh``:
+float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says);
+the other kernels multiply in float32 on the CUDA cores
+(``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file

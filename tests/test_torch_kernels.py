@@ -19,6 +19,9 @@ the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
 one).  The adjoint steps are held to the same three bounds: the rebuilt state
 and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
 cotangent 1e-4; the paired rotation is a permutation and must be exact.
+B2, B7, B12 and B14 multiply in split TF32 on the tensor cores and are held
+to the same bounds; the ``test_split_tf32_*`` tests emulate that scheme on
+the CPU against float64.
 
 The machine with the card has no JAX, so only the Pallas tests import it;
 there the card's tests run with ``-m cuda --noconftest``.
@@ -239,6 +242,68 @@ def test_split_tf32_scheme_is_float32_grade(passes, within):
     assert (_rel(got, ref) <= CUDA_TOL) == within
 
 
+def _trunc32(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32 rounded toward zero, as the tensor cores round
+    their accumulator."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int) -> torch.Tensor:
+    """The saved backward's gram gw = sum_c g[:, c] conj(x[:, c])^T on the
+    split-TF32 tile, for a bfloat16 g (exact in TF32, so its own hi) and a
+    float32 x split into hi + lo: the columns cut into `splits` chunks; in
+    each, 32-deep stages whose m16n8k8 steps run the passes (small term
+    first) and the Re/Im products into fresh accumulators, each step's sum
+    exact and rounded toward zero; each stage's partial added to the chunk's
+    float32 sum, and the chunks' sums added in order in float32."""
+    K, C = g.shape[1], g.shape[2]
+    xh = torch.stack([_tf32_rna(x[0]), -_tf32_rna(x[1])])  # conj(x): Im negated
+    xl = torch.stack([_tf32_read(x[0] - _tf32_rna(x[0])), -_tf32_read(x[1] - _tf32_rna(x[1]))])
+    chunk = C // splits
+
+    def steps(t):  # (2, K, C) -> (2, splits, stages, 4, K, 8)
+        return t.reshape(2, K, splits, chunk // 32, 4, 8).permute(0, 2, 3, 4, 1, 5).double()
+
+    gs = steps(g)
+    bs = [steps(t) for t in (xl, xh)[-passes:]]  # the lo pass first, as mma_split issues it
+    acc = torch.zeros((2, splits, K, K), dtype=torch.float32)
+    for st in range(chunk // 32):
+        part = torch.zeros_like(acc)
+        for kk in range(4):
+            a = gs[:, :, st, kk]
+            bt = [b[:, :, st, kk].transpose(-1, -2) for b in bs]
+            # Cr = Ar Br - Ai Bi and Ci = Ar Bi + Ai Br, as mma_stage issues them.
+            for c, sign, i, j in ((0, 1, 0, 0), (0, -1, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0)):
+                for b in bt:
+                    part[c] = _trunc32(part[c].double() + sign * (a[i] @ b[j]))
+        acc += part
+    out = torch.zeros((2, K, K), dtype=torch.float32)
+    for z in range(splits):
+        out += acc[:, z]
+    return out
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("passes,within", [(2, True), (1, False)])
+def test_split_tf32_saved_gram_is_float32_grade(passes, within):
+    """The saved backward's gram (window_apply_bwd, rotmat_apply_bwd) on the
+    split-TF32 tile: a bfloat16 g, exact in TF32, against a float32 x split
+    in two passes, over 2**14 columns at K = 64 in the kernel's chunks,
+    stages and accumulator rounding, is within CUDA_GRAM_TOL of float64;
+    with x rounded to TF32 alone (one pass) it is not."""
+    K, C = 64, 2**14
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(size=(2, K, C)).astype(np.float32))
+    g = (g / g.norm()).to(torch.bfloat16).float()
+    x = torch.from_numpy(_state(20, 6)).reshape(2, K, C)
+    got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes)
+    g64, x64 = g.double(), x.double()
+    ref = torch.stack([g64[0] @ x64[0].T + g64[1] @ x64[1].T,
+                       g64[1] @ x64[0].T - g64[0] @ x64[1].T])
+    assert (_rel(got.double(), ref) <= CUDA_GRAM_TOL) == within
+
+
 @pytest.mark.unittest
 def test_wrappers_refuse_other_devices():
     psi2 = torch.zeros((2, 2**6), device="meta")
@@ -377,14 +442,25 @@ def _assert_bwd_close(got, ref, out_dtype):
     assert _rel(gw.double().cpu(), rw) <= CUDA_GRAM_TOL
 
 
+# The shapes of the split-TF32 window kernels (window_apply_bwd and the
+# adjoint step, whose pullback and gram it shares): edges (K = 2, 4 and 8
+# with B = 2, which take the tile's scalar staging; K = 8 and 16 with B = 8,
+# the smallest shapes of its 16-byte copies), the 24q plan's nine windows
+# (a, k) = (9, 8), (2, 8), (7, 9), (8, 9), rotwin's (0, 9) and (0, 10), and a
+# 26q K = 1024 window.
+TC_WINDOW_CASES = [
+    (14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (12, 8, 3), (14, 3, 3), (12, 5, 4),
+    (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10),
+    (24, 9, 8), (24, 2, 8), (24, 7, 9), (24, 8, 9), (24, 0, 9), (24, 0, 10), (26, 0, 10),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "n,a,k", [(14, 3, 1), (14, 0, 2), (14, 12, 1), (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10)]
-)
+@pytest.mark.parametrize("n,a,k", TC_WINDOW_CASES)
 def test_cuda_window_bwd_matches_plain(cuda, n, a, k, g_dtype, out_dtype):
-    """K = 2 and 4, B = 2, a = 0, and the K = 1024 window; bf16 in and out."""
+    """At the split-TF32 tile's window shapes (TC_WINDOW_CASES), bf16 in and out."""
     out_dtype = getattr(torch, out_dtype)
     w, g, x = _bwd_inputs(cuda, n, k, n + a + k, getattr(torch, g_dtype))
     before = cuda_kernels.launch_counts()["window_apply_bwd"]
@@ -459,22 +535,10 @@ def _assert_adjoint_close(got, ref, lam_dtype):
     _assert_bwd_close((lp, gw), (rl, rw), lam_dtype)
 
 
-# The adjoint step's shapes on the card: edges (K = 2, 4 and 8 with B = 2,
-# which take the tensor-core tile's scalar staging; K = 8 and 16 with B = 8,
-# the smallest shapes of its 16-byte copies), the 24q plan's nine windows
-# (a, k) = (9, 8), (2, 8), (7, 9), (8, 9), rotwin's (0, 9) and (0, 10), and a
-# 26q K = 1024 window.
-ADJOINT_STEP_CASES = [
-    (14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (12, 8, 3), (14, 3, 3), (12, 5, 4),
-    (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10),
-    (24, 9, 8), (24, 2, 8), (24, 7, 9), (24, 8, 9), (24, 0, 9), (24, 0, 10), (26, 0, 10),
-]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,a,k", ADJOINT_STEP_CASES)
+@pytest.mark.parametrize("n,a,k", TC_WINDOW_CASES)
 def test_cuda_adjoint_step_matches_plain(cuda, n, a, k, lam_dtype, out_dtype):
     """K = 2 to 1024, B = 2 up, a = 0, the 24q and 26q plans' windows; lambda
     bf16 in and out."""
@@ -568,10 +632,18 @@ def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
     assert _rel(got.double().cpu(), ref.cpu()) <= CUDA_TOL
 
 
+# rotmat beyond FUSED_CASES, for its split-TF32 kernels (B7 and B14): the
+# 24q plan's rotmat (r = 8), K = 4 and K = 8 with X = 8 and X = 2 (scalar
+# staging) and X = 256 (16-byte copies).
+ROTMAT_EXTRA = [
+    ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA)
 def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, g, x = _bwd_inputs(cuda, n, k, 11 * n + r, getattr(torch, g_dtype))
@@ -586,18 +658,11 @@ def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_d
     _assert_bwd_close(got, ref, out_dtype)
 
 
-# B14 beyond FUSED_CASES: the 24q plan's rotmat (r = 8), K = 4 and K = 8
-# with X = 8 and X = 2 (scalar staging) and X = 256 (16-byte copies).
-ADJOINT_ROTMAT_EXTRA = [
-    ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
-]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind,n,r,k",
-                         [c for c in FUSED_CASES if c[0] != "rotwin"] + ADJOINT_ROTMAT_EXTRA)
+                         [c for c in FUSED_CASES if c[0] != "rotwin"] + ROTMAT_EXTRA)
 def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, lam, psi = _bwd_inputs(cuda, n, k, 13 * n + r, getattr(torch, lam_dtype))
@@ -623,6 +688,23 @@ def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
         run = lambda: cuda_kernels.adjoint_step(w, psi, lam, 3, k, n, torch.bfloat16)  # noqa: E731
     else:
         run = lambda: cuda_kernels.adjoint_rotmat(w, psi, lam, k, n, torch.bfloat16)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g_dtype", [("window", "float32"), ("window", "bfloat16"),
+                                          ("rotmat", "float32"), ("rotmat", "bfloat16")])
+def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
+    """Two launches of B2 / B7 on the same inputs give the same bits: the
+    gram's split partials are summed in a fixed order, with no atomics."""
+    n, k = 20, 8
+    w, g, x = _bwd_inputs(cuda, n, k, 19, getattr(torch, g_dtype))
+    if kind == "window":
+        run = lambda: cuda_kernels.window_apply_bwd(w, g, x, 3, k, n, torch.bfloat16)  # noqa: E731
+    else:
+        run = lambda: cuda_kernels.rotmat_apply_bwd(w, g, x, k, n, torch.bfloat16)  # noqa: E731
     first, second = run(), run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
