@@ -15,12 +15,16 @@ phase:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
-   shared-memory use; the SASS of the split-TF32 tile (``csrc/adjoint_tc.cuh``,
-   under window_apply_bwd, rotmat_apply_bwd, adjoint_step and
-   adjoint_rotmat) must hold tensor-core HMMA instructions in every
+   shared-memory use and any wgmma warning; the SASS of the split-TF32 tile
+   (``csrc/adjoint_tc.cuh``, under window_apply_bwd, rotmat_apply_bwd,
+   adjoint_step and adjoint_rotmat, and window_apply / rotmat_apply's
+   shapes under the wgmma kernel's rule) must hold tensor-core HMMA instructions in every
    instantiation (counted with cuobjdump, named by their maps; RotGramMap's,
-   rotmat_apply_bwd's gram, among them); the 22q/24q/26q plans are printed
-   (24q: 14 steps);
+   rotmat_apply_bwd's gram, among them), and the forward wgmma kernel
+   (``csrc/forward_wgmma.cuh``, window_apply and rotmat_apply) warpgroup
+   HGMMA instructions in every instantiation, under both its maps
+   (WindowMap, RotWindowMap); the 22q/24q/26q plans are printed (24q: 14
+   steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -28,7 +32,11 @@ phase:
    their matrix cotangent 1e-4 (an fp32 sum over up to 2^16 columns); the
    adjoint steps the same, with the rebuilt state at 1e-5; rotation and
    paired rotation, float32 and bfloat16: bit-exact).  The fused kernels run
-   at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes;
+   at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes.
+   window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
+   on both sides of the wgmma kernel's shape rule (B = 2 and 64); the
+   library's rule (``cuda_kernels.forward_path``) must send every window
+   and rotmat shape of the 22q, 24q and 26q plans to the wgmma kernel;
 4. the forward slice: 3 single requests and one batch of 3 per width, with
    launch counts reset just before and read just after; every forward
    kernel launches exactly once per plan step of its kind.  One request per
@@ -103,7 +111,8 @@ phase:
    on the tensor cores in split TF32 (``TC_KERNELS``) it is max(passes x 8K
    flops an amplitude / 495 TFLOP/s + CUDA-core flops / 67 TFLOP/s,
    bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
-   and 2 for one with a bfloat16 cotangent: adjoint_step and adjoint_rotmat
+   and 2 for one with a bfloat16 cotangent: window_apply and rotmat_apply
+   (one product, on wgmma) 3 a call; adjoint_step and adjoint_rotmat
    (three products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a
    call with a float32 lambda, 7 with bfloat16; window_apply_bwd and
    rotmat_apply_bwd (two products) 6 a call with a float32 g, 4 with
@@ -149,8 +158,10 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-# Split TF32 on the tensor cores, csrc/adjoint_tc.cuh.
-TC_KERNELS = ("window_apply_bwd", "rotmat_apply_bwd", "adjoint_step", "adjoint_rotmat")
+# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first two) and
+# csrc/adjoint_tc.cuh.
+TC_KERNELS = ("window_apply", "rotmat_apply", "window_apply_bwd", "rotmat_apply_bwd",
+              "adjoint_step", "adjoint_rotmat")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -414,21 +425,36 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
 TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap")
 
 
+# The maps the forward wgmma kernel is instantiated with: window_apply's and
+# rotmat_apply's.
+WGMMA_MAPS = ("WindowMap", "RotWindowMap")
+
+
+def _has_map(function: str, m: str) -> bool:
+    """The mangled name names map m (RotWindowMap's name holds WindowMap's)."""
+    return m in function and (m != "WindowMap" or "RotWindowMap" not in function)
+
+
 def check_sass(path: Path) -> None:
     """Every instantiation of the split-TF32 tile (``tc_cgemm_kernel``, under
     TC_KERNELS) issues tensor-core HMMA instructions, and each map of TC_MAPS
-    has one; counted in the library's SASS with cuobjdump, beside nvcc."""
+    has one; every instantiation of the forward wgmma kernel
+    (``forward_wgmma_kernel``) issues warpgroup HGMMA instructions, and each
+    map of WGMMA_MAPS has one; counted in the library's SASS with cuobjdump,
+    beside nvcc."""
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
     tool = Path(ck._nvcc()).with_name("cuobjdump")
     _check(tool.is_file(), f"no cuobjdump beside {ck._nvcc()}")
     out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                          check=True).stdout
-    hmma, name = {}, None
+    hmma, hgmma, name = {}, {}, None
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            hmma[name] = 0
+            hmma[name] = hgmma[name] = 0
+        elif name is not None and "HGMMA" in line:
+            hgmma[name] += 1
         elif name is not None and "HMMA" in line:
             hmma[name] += 1
     tc = {f: c for f, c in hmma.items() if "tc_cgemm_kernel" in f}
@@ -440,6 +466,13 @@ def check_sass(path: Path) -> None:
         log(f"    {m:18s} {len(counts)} instantiations, HMMA {counts}")
         _check(bool(counts), f"no split-TF32 tile kernel with {m} in the SASS")
     _check(bool(tc) and all(tc.values()), f"a split-TF32 kernel without HMMA: {tc}")
+    fw = {f: c for f, c in hgmma.items() if "forward_wgmma_kernel" in f}
+    log(f"  SASS: {len(fw)} forward wgmma kernels with {sorted(set(fw.values()))} HGMMA "
+        f"instructions each; {sum(hgmma.values()) - sum(fw.values())} HGMMA elsewhere")
+    for m in WGMMA_MAPS:
+        counts = sorted(c for f, c in fw.items() if _has_map(f, m))
+        log(f"    {m:18s} {len(counts)} instantiations, HGMMA {counts}")
+        _check(bool(counts) and all(counts), f"no forward wgmma kernel with HGMMA under {m}")
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +732,17 @@ def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
     return errs
 
 
+def check_forward_path(ck, shapes: dict) -> None:
+    """Every window and rotmat shape of the 22q, 24q and 26q plans takes the
+    forward wgmma kernel, by the library's own shape rule."""
+    calls = {(2**k, 2 ** (w - a - k)) for w in shapes for a, k in shapes[w]["window_apply"]}
+    calls |= {(2**r, 2 ** (w - r)) for w in shapes for r in shapes[w]["rotmat_apply"]}
+    off = sorted((K, run) for K, run in calls if not ck.forward_path(K, run))
+    log(f"  forward wgmma path: {len(calls) - len(off)} of {len(calls)} (K, column run) shapes "
+        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows and rotmat steps")
+    _check(not off, f"plan shapes (K, run) off the forward wgmma kernel: {off}")
+
+
 def phase_parity(shapes: dict) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
@@ -706,7 +750,10 @@ def phase_parity(shapes: dict) -> dict:
     rng = np.random.default_rng(SEED)
     n, m = WIDTHS[-1], WIDTHS[0]
     main_windows = sorted({(n, a, k) for a, k in shapes[n]["window_apply"]})
-    edge_windows = [(14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (10, 1, 5), (9, 2, 3)]
+    # K = 2 and 4 and two-column states (the scalar-staged tile), and K = 8
+    # and 16 on both sides of the wgmma kernel's rule (B = 2; B = 64).
+    edge_windows = [(14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (10, 1, 5), (9, 2, 3),
+                    (10, 6, 3), (12, 3, 3), (11, 6, 4), (12, 2, 4)]
     main_top = [(w, w - k, k) for w in (22, 23, 25) for k in (6, 7, 8)]
     edge_top = [(12, 11, 1), (12, 10, 2), (6, 0, 6), (11, 6, 5)]
     grad_top = sorted({(m, m - k, k) for k in shapes[m]["window_apply_top"]})
@@ -714,8 +761,10 @@ def phase_parity(shapes: dict) -> dict:
     edge_rot = [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2), (11, 4)]
 
     log("phase 3: kernel parity against the plain versions in float64 on the card")
+    check_forward_path(ck, shapes)
     errs = {
-        "window_apply": check_windows(ck, kn, main_windows, False, gen, rng),
+        "window_apply": check_windows(ck, kn, main_windows + sorted(
+            {(m, a, k) for a, k in shapes[m]["window_apply"]}), False, gen, rng),
         "window_apply_top": check_windows(ck, kn, main_top, True, gen, rng),
         "rotate": check_rotations(ck, kn, main_rot, gen),
         "window_apply_bwd": check_bwd(ck, kn, main_windows, False, gen, rng),
@@ -1695,6 +1744,13 @@ def work_fwd(K, n):
     return 8 * K * 2**n, 16 * 2**n + 8 * K * K
 
 
+def work_fwd_tc(K, n):
+    """The forward wgmma kernel's work: (tensor-core flops, CUDA-core flops).
+    Its one product of two float32 operands issues 3 passes x 8K flops an
+    amplitude; nothing on the CUDA cores."""
+    return 3 * 8 * K * 2**n, 0
+
+
 def work_bwd(K, n, eg, eo):
     return 16 * K * 2**n, 16 * K * K + 2 * 2**n * (eg + 4 + eo)
 
@@ -1818,7 +1874,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 w = _unitary(k, rng)
                 add("window_apply", f"n={n} a={a} k={k}", lambda: ck.window_apply(x, w, a, k, n),
                     lambda: kn.window_apply_plain(x, w, a, k, n), lib_window(x, w, a, k, n),
-                    work_fwd(2**k, n))
+                    work_fwd(2**k, n), tc=work_fwd_tc(2**k, n))
             elif kind == "rotwin":
                 r, k = shape
                 w = _unitary(k, rng)
@@ -1833,7 +1889,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 lib = (lib_rotmat if kind == "rotmat" else lib_matrot)(x, w, shape, n)
                 add(name, f"n={n} r={shape} k={k}",
                     lambda: getattr(ck, name)(x, w, shape, n),
-                    lambda: getattr(kn, f"{name}_plain")(x, w, shape, n), lib, work_fwd(2**k, n))
+                    lambda: getattr(kn, f"{name}_plain")(x, w, shape, n), lib, work_fwd(2**k, n),
+                    tc=work_fwd_tc(2**k, n) if name in TC_KERNELS else None)
         xm, gm = _state(m, gen), _state(m, gen)
         for k in shapes[m]["window_apply_top"]:
             w = _unitary(k, rng)
@@ -1984,7 +2041,7 @@ def main() -> int:
     path, seconds = ck.build()
     log(f"phase 2: built {path.relative_to(ROOT)} in {seconds:.1f} s")
     for line in ck.BUILD_LOG.splitlines():
-        if "Compiling entry function" in line or "Used" in line:
+        if "Compiling entry function" in line or "Used" in line or "wgmma" in line.lower():
             log(f"  {line.strip()}")
     check_sass(path)
 

@@ -1,8 +1,10 @@
-// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_rotmat.cu)
-// and of the saved-residual backwards window_apply_bwd.cu and
-// rotmat_apply_bwd.cu: one complex matrix product C = op(A) * op(B) on
-// real-split planes (each operand a Re plane followed, `plane` elements
-// later, by an Im plane), on Hopper's tensor cores at float32-grade accuracy.
+// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_rotmat.cu),
+// of the saved-residual backwards window_apply_bwd.cu and
+// rotmat_apply_bwd.cu, and of window_apply.cu and rotmat_apply.cu at the
+// shapes under forward_wgmma.cuh's rule (which shares split() below): one
+// complex matrix product C = op(A) * op(B) on real-split planes (each
+// operand a Re plane followed, `plane` elements later, by an Im plane), on
+// Hopper's tensor cores at float32-grade accuracy.
 //
 // Split TF32.  A float32 operand x is split into x = hi + lo, hi = x rounded
 // to TF32 (nearest, ties away: the rounding of cvt.rna.tf32.f32, done with

@@ -1,11 +1,12 @@
-// Shared block tile of the window kernels (window_apply.cu, window_apply_top.cu
-// and its backward window_apply_top_bwd.cu, the adjoint step
-// adjoint_step_top.cu, and the fused rotation steps rotmat_apply.cu,
-// rotwin_apply.cu, matrot_apply.cu, the backwards matrot_apply_bwd.cu and
-// rotwin_apply_bwd.cu, and adjoint_matrot.cu; window_apply_bwd.cu,
-// rotmat_apply_bwd.cu, adjoint_step.cu and adjoint_rotmat.cu take only its
-// maps and split-gram sum, and the adjoint steps gw = G0 W, their products
-// run on adjoint_tc.cuh's tensor cores): a complex matrix product
+// Shared block tile of the window kernels (window_apply_top.cu and its
+// backward window_apply_top_bwd.cu, the adjoint step adjoint_step_top.cu,
+// and the fused rotation steps rotwin_apply.cu, matrot_apply.cu, the
+// backwards matrot_apply_bwd.cu and rotwin_apply_bwd.cu, and
+// adjoint_matrot.cu; window_apply.cu and rotmat_apply.cu (their products on
+// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu,
+// rotmat_apply_bwd.cu, adjoint_step.cu and adjoint_rotmat.cu (on
+// adjoint_tc.cuh's) take only its maps, split-gram sum and the adjoint
+// steps' gw = G0 W): a complex matrix product
 // C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.

@@ -10,18 +10,20 @@
 //
 // What bounds it on an H100: arithmetic.  Each amplitude takes K complex
 // multiply-adds (8K flops) for 16 bytes read and written, so at the main
-// path's K = 256..1024 the intensity is 128..512 flop/byte, far above the
-// ~20 flop/byte where fp32 CUDA-core work overtakes HBM traffic.  The design
-// therefore reuses each loaded element many times: a 64 x 64 output tile per
-// block, 16-deep stages of W and x in shared memory, a 4 x 4 complex
-// register tile per thread read with float4 loads (16 floats loaded per 64
-// FMAs).  W (8 MB at K = 1024) streams through shared memory tile by tile
-// and stays in the 50 MB L2; consecutive blocks share one column tile of x.
-// The TPU kernel's lane-tile workarounds (identity padding to K >= 8,
-// recentring rotations for B < 128) are not needed: rows, columns and depth
-// are masked, and a column index c = a*B + b walks across a-groups when
-// B < 64.  Tensor-core variants (3xTF32, split bf16) are later work.
-#include "cgemm_tile.cuh"
+// path's K = 64..1024 the intensity is 32..512 flop/byte, above the ~20
+// flop/byte where float32 CUDA-core work overtakes HBM traffic; on the
+// CUDA cores no tile goes below 8K flops / 67 TFLOP/s.  So the product runs
+// on the warpgroup tensor cores in split TF32 (forward_wgmma.cuh: three
+// m64n64k8 wgmma passes at float32 grade, the state as wgmma's register A
+// operand, W's hi/lo planes split once a call into a workspace and staged
+// as the K-major shared-memory B operand), bounded by 3 x 8K flops /
+// 495 TFLOP/s.  The TPU kernel's lane-tile workarounds (identity padding to
+// K >= 8, recentring rotations for B < 128) are not needed: rows, columns
+// and depth are masked, and a column index c = a*B + b walks across
+// a-groups when B < 128.  Shapes under forward_wgmma_shape (K < 8 or
+// B < 32) take adjoint_tc.cuh's split-TF32 mma.sync tile (16-byte copies
+// when K >= 8 and B >= 8, else scalar staging).
+#include "forward_wgmma.cuh"
 
 namespace {
 
@@ -35,13 +37,22 @@ struct WindowMap : qml::WindowCols {
 
 }  // namespace
 
-// x, y: (2, A*K*B) float32 real-split states; w: (2, K, K) float32 Re/Im.
-// K and B are powers of two.  Launches on `stream`; returns cudaGetLastError().
-extern "C" int qml_window_apply(const float* x, const float* w, float* y,
-                                long long A, long long K, long long B,
-                                void* stream) {
+// x, y: (2, A*K*B) float32 real-split states; w: (2, K, K) float32 Re/Im;
+// ws: 4*K*K float32 scratch (W's split planes).  K and B are powers of two.
+// Launches on `stream`; returns the first CUDA error, or 0.
+extern "C" int qml_window_apply(const float* x, const float* w, float* ws, float* y,
+                                long long A, long long K, long long B, void* stream) {
   const WindowMap map{qml::window_cols(K, B)};
   const int64_t plane = (int64_t)A * K * B;
-  return qml::launch_cgemm(w, K * K, x, plane, y, plane, 0, K, (int64_t)A * B, K, 1,
-                           map, (cudaStream_t)stream);
+  if (qml::forward_wgmma_shape(K, B))
+    return qml::launch_forward_wgmma(x, w, ws, y, plane, K, (int64_t)A * B, B, map,
+                                     (cudaStream_t)stream);
+  return qml::launch_tc_cgemm(w, K * K, x, plane, y, plane, 0, K, (int64_t)A * B, K, 1,
+                              qml::tc_vec_shape(K, B), map, (cudaStream_t)stream);
+}
+
+// 1 when a forward window (or rotmat step) of K rows and state column run
+// `run` takes the wgmma kernel, 0 when it takes adjoint_tc.cuh's tile.
+extern "C" int qml_forward_path(long long K, long long run) {
+  return qml::forward_wgmma_shape(K, run) ? 1 : 0;
 }

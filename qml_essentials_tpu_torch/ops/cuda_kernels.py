@@ -27,12 +27,15 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
+Six kernels run their products on the tensor cores in split TF32
+(float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says):
+``window_apply`` and ``rotmat_apply`` on warpgroup ``wgmma``
+(``csrc/forward_wgmma.cuh``, W split once a call into a workspace the
+wrapper allocates; shapes under :func:`forward_path` on the tile below),
 ``window_apply_bwd`` and ``rotmat_apply_bwd`` (pullback and gram) and
-``adjoint_step`` and ``adjoint_rotmat`` (two pullbacks and the gram) run
-their products on the tensor cores in split TF32 (``csrc/adjoint_tc.cuh``:
-float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says);
-the other kernels multiply in float32 on the CUDA cores
-(``csrc/cgemm_tile.cuh``).
+``adjoint_step`` and ``adjoint_rotmat`` (two pullbacks and the gram) on
+``mma.sync`` (``csrc/adjoint_tc.cuh``); the other kernels multiply in
+float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
@@ -41,7 +44,8 @@ name carries a hash of both.  Nothing is compiled or loaded at import time.
 Each wrapper takes the plain PyTorch version in
 :mod:`qml_essentials_tpu_torch.ops.kernels` for a tensor on the CPU, and only
 then.  For a CUDA tensor it checks device, dtype, shape and contiguity,
-allocates outputs (and the backward's split-reduction workspace) with
+allocates outputs (and the forward's split-W and the backward's
+split-reduction workspaces) with
 ``torch.empty``, launches on the current stream, raises if the launch
 reports an error, and adds one to its launch count.  It never falls back to
 the plain version on the card.
@@ -85,7 +89,8 @@ SOURCES = (
     "adjoint_step.cu", "adjoint_step_top.cu", "adjoint_rotmat.cu", "adjoint_matrot.cu",
     "rotate_pair.cu", "chain_apply.cu", "adjoint_chain.cu",
 )
-HEADERS = ("cgemm_tile.cuh", "adjoint_tc.cuh", "transpose_tile.cuh", "chain_block.cuh")
+HEADERS = ("cgemm_tile.cuh", "adjoint_tc.cuh", "forward_wgmma.cuh", "transpose_tile.cuh",
+           "chain_block.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -185,13 +190,13 @@ def _argtypes() -> Dict[str, list]:
     adj = [ptr] * 7  # w, psi, lam, psi_prev, lam_prev, gw, ws
     flags = [i32, i32, ptr]  # bf16 in, bf16 out, stream
     return {
-        "window_apply": [ptr, ptr, ptr, i64, i64, i64, ptr],
+        "window_apply": [ptr] * 4 + [i64] * 3 + [ptr],  # x, w, ws, y, A, K, B, stream
         "window_apply_bwd": bwd + [i64] * 4 + flags,
         "window_apply_top": [ptr, ptr, ptr, i64, i64, ptr],
         "window_apply_top_bwd": bwd + [i64] * 3 + flags,
         "rotate": [ptr, ptr, i64, i64, ptr],
         "rotate_b16": [ptr, ptr, i64, i64, ptr],
-        "rotmat_apply": [ptr, ptr, ptr, i64, i64, ptr],
+        "rotmat_apply": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, K, X, stream
         "rotmat_apply_bwd": bwd + [i64] * 3 + flags,
         "matrot_apply": [ptr, ptr, ptr, i64, i64, ptr],
         "matrot_apply_bwd": bwd + [i64] * 3 + flags,
@@ -202,6 +207,7 @@ def _argtypes() -> Dict[str, list]:
         "adjoint_rotmat": adj + [i64] * 3 + flags,
         "adjoint_matrot": adj + [i64] * 3 + flags,
         "rotate_pair": [ptr, ptr, ptr, ptr, i64, i64, i32, ptr],
+        "forward_path": [i64, i64],
         # x, y, ws, payloads, descriptors, nd, plane, the blocks (5), ranks, stream
         "chain_apply": [ptr] * 5 + [i64] * 8 + [ptr],
         # psi, lam, psi_out, lam_out, ws_psi, ws_lam, payloads, grads,
@@ -293,16 +299,28 @@ def gram_splits(K: int, C: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _launch_window(name, psi2, w2, K, n, geometry):
-    """One forward window kernel ``qml_<name>(x, w, y, *geometry, stream)``
-    on a float32 state and ``(2, K, K)`` window; returns the new state."""
+def forward_path(K: int, run: int) -> bool:
+    """True when ``window_apply`` / ``rotmat_apply`` with ``K`` rows and a
+    state column run ``run`` (``B`` of the window view, ``X`` of the rotmat
+    view) take the wgmma kernel, False when they take the scalar-staged
+    tensor-core tile: the C launchers' shape rule, asked of the library."""
+    return bool(_load().qml_forward_path(K, run))
+
+
+def _launch_window(name, psi2, w2, K, n, geometry, split_w=False):
+    """One forward window kernel ``qml_<name>(x, w, [ws,] y, *geometry,
+    stream)`` on a float32 state and ``(2, K, K)`` window; returns the new
+    state.  *split_w*: the kernel takes a ``4*K*K`` float32 workspace for
+    W's split-TF32 planes (``window_apply``, ``rotmat_apply``)."""
     _check(name, "state", psi2, (2, 2**n))
     _check(name, "window", w2, (2, K, K))
     lib = _load()
     y = torch.empty_like(psi2)
+    ws = [torch.empty((4, K, K), dtype=torch.float32, device=psi2.device)] if split_w else []
     with torch.cuda.device(psi2.device):
         code = getattr(lib, f"qml_{name}")(
-            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), *geometry, _stream(psi2))
+            psi2.data_ptr(), w2.data_ptr(), *(t.data_ptr() for t in ws), y.data_ptr(),
+            *geometry, _stream(psi2))
     _raise_on(name, code)
     LAUNCHES[name] += 1
     return y
@@ -311,7 +329,8 @@ def _launch_window(name, psi2, w2, K, n, geometry):
 def _launch_window_apply(psi2, w2, a, k, n):
     if not (0 <= a and 1 <= k and a + k < n):
         raise ValueError(f"window_apply: support [{a}, {a + k}) needs B > 1 in n={n}")
-    return _launch_window("window_apply", psi2, w2, 2**k, n, (2**a, 2**k, 2 ** (n - a - k)))
+    return _launch_window("window_apply", psi2, w2, 2**k, n, (2**a, 2**k, 2 ** (n - a - k)),
+                          split_w=True)
 
 
 def _launch_window_apply_top(psi2, w2, k, n):
@@ -327,7 +346,7 @@ def _check_rotation(name, r, n):
 
 def _launch_rotmat_apply(psi2, w2, r, n):
     _check_rotation("rotmat_apply", r, n)
-    return _launch_window("rotmat_apply", psi2, w2, 2**r, n, (2**r, 2 ** (n - r)))
+    return _launch_window("rotmat_apply", psi2, w2, 2**r, n, (2**r, 2 ** (n - r)), split_w=True)
 
 
 def _launch_matrot_apply(psi2, w2, r, n):

@@ -19,9 +19,9 @@ the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
 one).  The adjoint steps are held to the same three bounds: the rebuilt state
 and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
 cotangent 1e-4; the paired rotation is a permutation and must be exact.
-B2, B7, B12 and B14 multiply in split TF32 on the tensor cores and are held
-to the same bounds; the ``test_split_tf32_*`` tests emulate that scheme on
-the CPU against float64.
+B1 and B6 (on wgmma) and B2, B7, B12 and B14 (on mma.sync) multiply in
+split TF32 on the tensor cores and are held to the same bounds; the
+``test_split_tf32_*`` tests emulate that scheme on the CPU against float64.
 
 The machine with the card has no JAX, so only the Pallas tests import it;
 there the card's tests run with ``-m cuda --noconftest``.
@@ -304,6 +304,55 @@ def test_split_tf32_saved_gram_is_float32_grade(passes, within):
     assert (_rel(got.double(), ref) <= CUDA_GRAM_TOL) == within
 
 
+def _wgmma_forward(w: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tensor:
+    """y = W x (x: (2, K, C)) as the forward wgmma kernel forms it: W split
+    into hi + lo by its prologue's rounding, x split in registers the same
+    way, lo read as TF32; per k8 step the two chains (Re: Ar Br then -Ai Bi;
+    Im: Ar Bi then Ai Br) issue the passes x_lo W_hi, x_hi W_lo, x_hi W_hi
+    (the last `passes` of them), each product exact and added to the
+    stage's partial rounded toward zero; every 32-deep stage's partial joins
+    the float32 running sum with a float32 add."""
+    K, C = x.shape[1], x.shape[2]
+
+    def parts(t):
+        hi = _tf32_rna(t)
+        return hi.double(), _tf32_read(t - hi).double()
+
+    (wrh, wrl), (wih, wil) = parts(w[0]), parts(w[1])
+    (xrh, xrl), (xih, xil) = parts(x[0]), parts(x[1])
+    chains = (
+        [(1, wrh, xrl), (1, wrl, xrh), (1, wrh, xrh)][-passes:]
+        + [(-1, wih, xil), (-1, wil, xih), (-1, wih, xih)][-passes:],
+        [(1, wih, xrl), (1, wil, xrh), (1, wih, xrh)][-passes:]
+        + [(1, wrh, xil), (1, wrl, xih), (1, wrh, xih)][-passes:],
+    )
+    acc = torch.zeros((2, K, C), dtype=torch.float32)
+    for s in range(0, K, 32):
+        part = torch.zeros((2, K, C), dtype=torch.float32)
+        for j in range(s, s + 32, 8):
+            for c, terms in enumerate(chains):
+                for sign, wt, xt in terms:
+                    part[c] = _trunc32(part[c].double() + sign * (wt[:, j:j + 8] @ xt[j:j + 8]))
+        acc += part
+    return acc
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_split_tf32_forward_is_float32_grade(passes, within):
+    """The forward windows' split-TF32 wgmma scheme (window_apply,
+    rotmat_apply) at K = 1024 on 64 columns, in the kernel's pass order,
+    truncating sums and 32-deep promotion interval, is within CUDA_TOL of
+    float64; plain TF32 (one pass) is not."""
+    K = 1024
+    w = torch.from_numpy(_unitary_pair(10, 8))
+    x = torch.from_numpy(_state(16, 9)).reshape(2, K, 64)
+    got = _wgmma_forward(w, x, passes)
+    w64, x64 = w.double(), x.double()
+    ref = torch.stack([w64[0] @ x64[0] - w64[1] @ x64[1], w64[0] @ x64[1] + w64[1] @ x64[0]])
+    assert (_rel(got.double(), ref) <= CUDA_TOL) == within
+
+
 @pytest.mark.unittest
 def test_wrappers_refuse_other_devices():
     psi2 = torch.zeros((2, 2**6), device="meta")
@@ -375,9 +424,14 @@ def _check_cuda_window(cuda, n, a, k, top):
     assert _rel(got.double().cpu(), ref.cpu()) <= CUDA_TOL
 
 
+# B1 on the card: K = 2 and 4 and two-column states (the scalar-staged
+# tile), the 24q plan's (9, 8) and (0, 10) and the 22q plan's (0, 6) on the
+# wgmma kernel, and K = 8 and 16 on both sides of its shape rule (B = 2:
+# the tile; B = 64: wgmma).
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,a,k", [(14, 3, 1), (14, 0, 2), (14, 12, 1), (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10)]
+    "n,a,k", [(14, 3, 1), (14, 0, 2), (14, 12, 1), (10, 1, 5), (16, 0, 8), (18, 4, 9), (20, 0, 10),
+              (24, 9, 8), (24, 0, 10), (22, 0, 6), (10, 6, 3), (12, 3, 3), (11, 6, 4), (12, 2, 4)]
 )
 def test_cuda_window_matches_plain(cuda, n, a, k):
     _check_cuda_window(cuda, n, a, k, top=False)
@@ -618,8 +672,17 @@ def _fused_geom(kind, r, k):
     return (r, k) if kind == "rotwin" else (r,)
 
 
+
+# rotmat beyond FUSED_CASES, for its split-TF32 kernels (B6, B7 and B14): the
+# 24q plan's rotmat (r = 8), K = 4 and K = 8 with X = 8 and X = 2 (scalar
+# staging) and X = 256 (16-byte copies; B6's wgmma kernel).
+ROTMAT_EXTRA = [
+    ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA)
 def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
     x = torch.from_numpy(_state(n, n + r)).to(cuda)
     w = torch.from_numpy(_unitary_pair(k, r)).to(cuda)
@@ -630,14 +693,6 @@ def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts()[name] == before + 1
     assert _rel(got.double().cpu(), ref.cpu()) <= CUDA_TOL
-
-
-# rotmat beyond FUSED_CASES, for its split-TF32 kernels (B7 and B14): the
-# 24q plan's rotmat (r = 8), K = 4 and K = 8 with X = 8 and X = 2 (scalar
-# staging) and X = 256 (16-byte copies).
-ROTMAT_EXTRA = [
-    ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
-]
 
 
 @pytest.mark.cuda
@@ -708,6 +763,21 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
     first, second = run(), run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,geom", [("window", 20, (3, 8)), ("window", 16, (0, 10)),
+                                         ("rotmat", 20, (8,)), ("rotmat", 9, (8,))])
+def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
+    """Two launches of B1 / B6 on the same inputs give the same bits: every
+    output is written once, by one block, with no atomics (the wgmma kernel;
+    rotmat n = 9, r = 8, two columns, adjoint_tc.cuh's tile)."""
+    x = torch.from_numpy(_state(n, 23)).to(cuda)
+    w = torch.from_numpy(_unitary_pair(geom[-1], 29)).to(cuda)
+    run = lambda: getattr(cuda_kernels, f"{kind}_apply")(x, w, *geom, n)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
