@@ -17,14 +17,16 @@ phase:
    (one nvcc per source, in parallel), with ptxas's register and
    shared-memory use and any wgmma warning; the SASS of the split-TF32 tile
    (``csrc/adjoint_tc.cuh``, under window_apply_bwd, rotmat_apply_bwd,
-   adjoint_step and adjoint_rotmat, and window_apply / rotmat_apply's
-   shapes under the wgmma kernel's rule) must hold tensor-core HMMA instructions in every
-   instantiation (counted with cuobjdump, named by their maps; RotGramMap's,
-   rotmat_apply_bwd's gram, among them), and the forward wgmma kernel
-   (``csrc/forward_wgmma.cuh``, window_apply and rotmat_apply) warpgroup
-   HGMMA instructions in every instantiation, under both its maps
-   (WindowMap, RotWindowMap); the 22q/24q/26q plans are printed (24q: 14
-   steps);
+   adjoint_step, adjoint_rotmat and adjoint_matrot, and window_apply /
+   rotmat_apply / window_apply_top's shapes under the wgmma kernel's rule)
+   must hold tensor-core HMMA instructions in every instantiation (counted
+   with cuobjdump, named by their maps; RotGramMap's, rotmat_apply_bwd's
+   gram, MatrotPullbackMap and TopGramMap, adjoint_matrot's, and TopMap,
+   window_apply_top's, among them), and the forward wgmma kernel
+   (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply and
+   window_apply_top) warpgroup HGMMA instructions in every instantiation,
+   under each of its maps (WindowMap, RotWindowMap, TopForwardMap); the
+   22q/24q/26q plans are printed (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -34,9 +36,16 @@ phase:
    paired rotation, float32 and bfloat16: bit-exact).  The fused kernels run
    at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes.
    window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
-   on both sides of the wgmma kernel's shape rule (B = 2 and 64); the
-   library's rule (``cuda_kernels.forward_path``) must send every window
-   and rotmat shape of the 22q, 24q and 26q plans to the wgmma kernel;
+   on both sides of the wgmma kernel's shape rule (B = 2 and 64),
+   window_apply_top at K = 8 and 16 on both sides of it (A = 16; 512 and
+   256); the library's rule (``cuda_kernels.forward_path``) must send every
+   window, rotmat and top-window shape of the 22q, 24q and 26q plans to the
+   wgmma kernel.  At the 22q plan's top window, window_apply_top is timed
+   once beside the split-TF32 mma.sync tile on the same shape (the datum its
+   wgmma route replaced, through the library's ``window_apply_top_tile``
+   entry, held to the plain version too) and cuBLAS, each also with its
+   calls queued behind a spinning kernel (device time without launch gaps;
+   a diagnostic: phase 6 times without it);
 4. the forward slice: 3 single requests and one batch of 3 per width, with
    launch counts reset just before and read just after; every forward
    kernel launches exactly once per plan step of its kind.  One request per
@@ -111,12 +120,13 @@ phase:
    on the tensor cores in split TF32 (``TC_KERNELS``) it is max(passes x 8K
    flops an amplitude / 495 TFLOP/s + CUDA-core flops / 67 TFLOP/s,
    bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
-   and 2 for one with a bfloat16 cotangent: window_apply and rotmat_apply
-   (one product, on wgmma) 3 a call; adjoint_step and adjoint_rotmat
-   (three products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a
-   call with a float32 lambda, 7 with bfloat16; window_apply_bwd and
-   rotmat_apply_bwd (two products) 6 a call with a float32 g, 4 with
-   bfloat16.  The float32-core figure is printed beside it.
+   and 2 for one with a bfloat16 cotangent: window_apply, rotmat_apply and
+   window_apply_top (one product, on wgmma) 3 a call; adjoint_step,
+   adjoint_rotmat and adjoint_matrot (three products and the 8K^3 flops of
+   gw = G0 W on the CUDA cores) 9 a call with a float32 lambda, 7 with
+   bfloat16; window_apply_bwd and rotmat_apply_bwd (two products) 6 a call
+   with a float32 g, 4 with bfloat16.  The float32-core figure is printed
+   beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -158,10 +168,10 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first two) and
+# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first three) and
 # csrc/adjoint_tc.cuh.
-TC_KERNELS = ("window_apply", "rotmat_apply", "window_apply_bwd", "rotmat_apply_bwd",
-              "adjoint_step", "adjoint_rotmat")
+TC_KERNELS = ("window_apply", "rotmat_apply", "window_apply_top", "window_apply_bwd",
+              "rotmat_apply_bwd", "adjoint_step", "adjoint_rotmat", "adjoint_matrot")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -420,14 +430,17 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
 
 
 # The maps the split-TF32 tile is instantiated with: the pullbacks and grams
-# of window_apply_bwd / adjoint_step (window layout) and rotmat_apply_bwd /
-# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd).
-TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap")
+# of window_apply_bwd / adjoint_step (window layout), rotmat_apply_bwd /
+# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd)
+# and adjoint_matrot (MatrotPullbackMap, TopGramMap), and window_apply_top's
+# product at the shapes off the wgmma kernel (TopMap).
+TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap",
+           "MatrotPullbackMap", "TopGramMap", "TopMap")
 
 
-# The maps the forward wgmma kernel is instantiated with: window_apply's and
-# rotmat_apply's.
-WGMMA_MAPS = ("WindowMap", "RotWindowMap")
+# The maps the forward wgmma kernel is instantiated with: window_apply's,
+# rotmat_apply's and window_apply_top's.
+WGMMA_MAPS = ("WindowMap", "RotWindowMap", "TopForwardMap")
 
 
 def _has_map(function: str, m: str) -> bool:
@@ -733,14 +746,49 @@ def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
 
 
 def check_forward_path(ck, shapes: dict) -> None:
-    """Every window and rotmat shape of the 22q, 24q and 26q plans takes the
-    forward wgmma kernel, by the library's own shape rule."""
+    """Every window, rotmat and top-window shape of the 22q, 24q and 26q
+    plans takes the forward wgmma kernel, by the library's own shape rule."""
     calls = {(2**k, 2 ** (w - a - k)) for w in shapes for a, k in shapes[w]["window_apply"]}
     calls |= {(2**r, 2 ** (w - r)) for w in shapes for r in shapes[w]["rotmat_apply"]}
+    tops = {(2**k, 2 ** (w - k)) for w in shapes for k in shapes[w]["window_apply_top"]}
+    _check(bool(tops), "no top window in the plans")
+    calls |= tops
     off = sorted((K, run) for K, run in calls if not ck.forward_path(K, run))
     log(f"  forward wgmma path: {len(calls) - len(off)} of {len(calls)} (K, column run) shapes "
-        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows and rotmat steps")
+        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat steps and top "
+        f"windows ({len(tops)} top-window shapes)")
     _check(not off, f"plan shapes (K, run) off the forward wgmma kernel: {off}")
+
+
+def _top_tile(ck, x, w, k, n):
+    """The top window on the split-TF32 mma.sync tile at any shape, through
+    the library's ``qml_window_apply_top_tile`` entry (no wrapper, no launch
+    count): the datum window_apply_top's wgmma route is timed against."""
+    y = torch.empty_like(x)
+    code = ck._load().qml_window_apply_top_tile(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                                 2 ** (n - k), 2**k, ck._stream(x))
+    ck._raise_on("window_apply_top_tile", code)
+    return y
+
+
+def time_top_datum(ck, kn, shapes: dict, gen, rng) -> None:
+    """At each top window of the 22q plan: window_apply_top (the wgmma
+    kernel) beside the datum it replaced, the split-TF32 tile on the same
+    shape, and cuBLAS; the tile is held to the plain version as well."""
+    m = WIDTHS[0]
+    for k in shapes[m]["window_apply_top"]:
+        x, w = _state(m, gen), _unitary(k, rng)
+        ref = kn.window_apply_top_plain(x.double(), w.double(), k, m)
+        y = _top_tile(ck, x, w, k, m)
+        torch.cuda.synchronize()
+        rel = ((y.double() - ref).abs().max() / ref.abs().max()).item()
+        _check(rel <= TOL_WINDOW, f"the top-window tile n={m} k={k}: rel err {rel:.3e}")
+        del y, ref
+        t_k, t_t, t_l = (_both_us(f) for f in (lambda: ck.window_apply_top(x, w, k, m),
+                                               lambda: _top_tile(ck, x, w, k, m),
+                                               lib_window_top(x, w, k, m)))
+        log(f"  window_apply_top n={m} k={k}: wgmma kernel {t_k}, the tile (datum) {t_t} "
+            f"(rel err {rel:.3e}), cuBLAS {t_l}")
 
 
 def phase_parity(shapes: dict) -> dict:
@@ -755,7 +803,10 @@ def phase_parity(shapes: dict) -> dict:
     edge_windows = [(14, 3, 1), (14, 0, 2), (14, 12, 1), (14, 11, 2), (10, 1, 5), (9, 2, 3),
                     (10, 6, 3), (12, 3, 3), (11, 6, 4), (12, 2, 4)]
     main_top = [(w, w - k, k) for w in (22, 23, 25) for k in (6, 7, 8)]
-    edge_top = [(12, 11, 1), (12, 10, 2), (6, 0, 6), (11, 6, 5)]
+    # K = 2, 4 and 64 with one row (the tile), K = 32, and K = 8 and 16 on both
+    # sides of the wgmma kernel's rule (A = 16: the tile; A = 512 and 256).
+    edge_top = [(12, 11, 1), (12, 10, 2), (6, 0, 6), (11, 6, 5), (7, 4, 3), (12, 9, 3),
+                (8, 4, 4), (12, 8, 4)]
     grad_top = sorted({(m, m - k, k) for k in shapes[m]["window_apply_top"]})
     main_rot = sorted({(n, r) for r in shapes[n]["rotate"]})
     edge_rot = [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2), (11, 4)]
@@ -771,6 +822,7 @@ def phase_parity(shapes: dict) -> dict:
         "window_apply_top_bwd": check_bwd(ck, kn, grad_top, True, gen, rng),
     }
     check_rotations(ck, kn, main_rot, gen, torch.bfloat16)
+    time_top_datum(ck, kn, shapes, gen, rng)
     log("  edge shapes:")
     check_windows(ck, kn, edge_windows, False, gen, rng)
     check_windows(ck, kn, edge_top, True, gen, rng)
@@ -1370,14 +1422,41 @@ def phase_chains(models: dict, shapes: dict, refs: dict, g64: torch.Tensor) -> t
 # ---------------------------------------------------------------------------
 
 
-def _events_ms(fn, reps: int = 10, trials: int = 3) -> float:
-    """Best-of-trials mean device time of fn() in ms (CUDA events)."""
+_CYCLES_PER_MS = []
+
+
+def _hold_stream(ms: float) -> None:
+    """Keeps the current stream busy for about ms on the device (a spinning
+    kernel), so that what the host queues meanwhile runs back to back."""
+    if not _CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10**6)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10**6 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def _events_ms(fn, reps: int = 10, trials: int = 3, hold: bool = False) -> float:
+    """Best-of-trials mean device time of fn() in ms (CUDA events).  With
+    `hold` (a diagnostic, used by no kernel row) the reps calls are queued
+    behind a spin that outlasts their host time, so that a call whose launch
+    costs the host more than its kernel costs the card is timed on the card."""
     fn()
     torch.cuda.synchronize()
+    host_ms = 0.0
+    if hold:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
     best = float("inf")
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            _hold_stream(2 * reps * host_ms + 0.1)
         start.record()
         for _ in range(reps):
             fn()
@@ -1385,6 +1464,11 @@ def _events_ms(fn, reps: int = 10, trials: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+def _both_us(fn) -> str:
+    """fn()'s time as phase 6 takes it, and held behind a spin (diagnostic)."""
+    return f"{_events_ms(fn) * 1e3:.1f} us (held {_events_ms(fn, hold=True) * 1e3:.1f})"
 
 
 def _host_ms(fn, reps: int = 3) -> tuple:
@@ -1896,7 +1980,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
             w = _unitary(k, rng)
             add("window_apply_top", f"n={m} k={k}", lambda: ck.window_apply_top(xm, w, k, m),
                 lambda: kn.window_apply_top_plain(xm, w, k, m), lib_window_top(xm, w, k, m),
-                work_fwd(2**k, m))
+                work_fwd(2**k, m), tc=work_fwd_tc(2**k, m))
         # One 24q gradient through the saved executor, bf16 lambda.
         for kind, shape, g_dt, out_dt in backward_calls(shapes[n]["steps"]):
             if kind == "top":

@@ -11,30 +11,33 @@
 //     lam_in[j, b] = sum_i conj(W[i, j]) lam[b, i]     (float32 or bfloat16)
 //     G0[i, j]     = sum_b lam[b, i] conj(psi[b, j]),   gw = G0 W
 //
-// What bounds it on an H100: arithmetic, 24K flops per amplitude.  The
-// design is adjoint_step.cu's with transposed loads: the two pullbacks in
-// one pass of cgemm_pair_kernel with conj(W) as the shared row operand, rows
-// j, columns b (MatrotPullbackMap, the pullback of matrot_apply_bwd.cu), so
-// psi and lam are read along their contiguous i and stored along b; the gram
-// on the step's output is the top-window gram of the (B, K) row-major view
-// (TopGramMap), split over the B rows and summed in a fixed order; gw = G0 W
-// in fp32 FMA.
-#include "cgemm_tile.cuh"
+// What bounds it on an H100: arithmetic, 24K flops per amplitude (three
+// products).  The design is adjoint_step.cu's and adjoint_rotmat.cu's, on the
+// split-TF32 tensor-core tile of adjoint_tc.cuh: the two pullbacks with
+// conj(W) as the row operand, rows j, depth i, columns b (MatrotPullbackMap,
+// the pullback of matrot_apply_bwd.cu), so psi and lam are read along their
+// contiguous i (the rotation back is the orientation of the load) and the
+// undone arrays stored along b; the gram on the step's output is the
+// top-window gram of the (B, K) row-major view (TopGramMap: rows i, depth b,
+// columns j), split over the B rows and summed in a fixed order (no atomics:
+// gradients repeat bit for bit); gw = G0 W in fp32 FMA.
+//
+// The 16-byte copies (tc_vec_shape(K, K)).  Every operand of the three
+// products runs along the window index: the pullbacks read conj(W) along its
+// rows j and psi / lam along i, the gram reads lam along i and psi along j,
+// all in runs of K (the rows of W and of the (B, K) view), never along b.
+// So the copies need K >= 8 (a bfloat16 lam's 16 bytes are 8 elements),
+// whatever B is; K = 2 and 4 take the tile's scalar staging.
+#include "adjoint_tc.cuh"
 
 namespace {
 
 template <class TL, class TO>
 int run(const float* w, const float* psi, const TL* lam, float* psi_in, TO* lam_in,
         float* gw, float* ws, int64_t K, int64_t B, int64_t splits, cudaStream_t stream) {
-  const int64_t plane = K * B;
-  int code = qml::launch_cgemm_pair<qml::MatrotPullbackMap, true>(
-      w, K * K, psi, lam, plane, psi_in, lam_in, plane, K, B, K,
-      qml::MatrotPullbackMap{K, B}, stream);
-  if (code != 0) return code;
-  code = qml::launch_cgemm(lam, plane, psi, plane, ws, K * K, 2 * K * K, K, K, B, splits,
-                           qml::TopGramMap{K}, stream);
-  if (code != 0) return code;
-  return qml::launch_gram_times_w(ws, splits, ws + splits * 2 * K * K, w, gw, K, stream);
+  return qml::launch_adjoint_tc(w, psi, lam, psi_in, lam_in, gw, ws, K * B, K, K, B, B, splits,
+                                qml::tc_vec_shape(K, K), qml::MatrotPullbackMap{K, B},
+                                qml::TopGramMap{K}, stream);
 }
 
 }  // namespace

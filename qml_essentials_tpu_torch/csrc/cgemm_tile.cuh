@@ -1,12 +1,11 @@
-// Shared block tile of the window kernels (window_apply_top.cu and its
-// backward window_apply_top_bwd.cu, the adjoint step adjoint_step_top.cu,
-// and the fused rotation steps rotwin_apply.cu, matrot_apply.cu, the
-// backwards matrot_apply_bwd.cu and rotwin_apply_bwd.cu, and
-// adjoint_matrot.cu; window_apply.cu and rotmat_apply.cu (their products on
-// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu,
-// rotmat_apply_bwd.cu, adjoint_step.cu and adjoint_rotmat.cu (on
-// adjoint_tc.cuh's) take only its maps, split-gram sum and the adjoint
-// steps' gw = G0 W): a complex matrix product
+// Shared block tile of the window kernels (window_apply_top_bwd.cu, the
+// adjoint step adjoint_step_top.cu, and the fused rotation steps
+// rotwin_apply.cu, matrot_apply.cu and the backwards matrot_apply_bwd.cu and
+// rotwin_apply_bwd.cu; window_apply.cu, rotmat_apply.cu and
+// window_apply_top.cu (their products on forward_wgmma.cuh's tensor cores),
+// window_apply_bwd.cu, rotmat_apply_bwd.cu, adjoint_step.cu, adjoint_rotmat.cu
+// and adjoint_matrot.cu (on adjoint_tc.cuh's) take only its maps, split-gram
+// sum and the adjoint steps' gw = G0 W): a complex matrix product
 // C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.
@@ -38,7 +37,8 @@
 // arithmetic is float32 throughout.
 //
 // cgemm_pair_kernel runs two products that share one operand in one pass
-// (the adjoint step's state and cotangent through one W^dagger).  The maps of
+// (adjoint_step_top.cu's state and cotangent through one conj(W), its one
+// user left).  The maps of
 // the window layouts that several kernels use live at the end of this file.
 #pragma once
 
@@ -81,7 +81,9 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t off, float v
 //   B_K_CONTIG  B is contiguous along depth k (else along its column n);
 //   CONJ_A, CONJ_B  use the complex conjugate of that operand;
 //   INNER_M     consecutive blocks walk the row tiles first (they then share
-//               one column tile of B through L2), else the column tiles.
+//               one column tile of B through L2), else the column tiles;
+//   C_M_CONTIG  (the maps of forward_wgmma.cuh's kernel only) C is
+//               contiguous along its row index m (else along its column n).
 // The loads put neighbouring threads on the contiguous index.
 // One BK-deep stage of a row operand (A: rows m, depth k) into s[re/im][k][m].
 template <class Map, class T>
@@ -372,7 +374,7 @@ inline RotCols rot_cols(int64_t K, int64_t X, int64_t L) {
 // Rotation then window, y[i, x] = sum_j' W[i, j'] pre(j', x), written in the
 // post-rotation (K, X) layout: rows i, depth j', columns x.
 struct RotWindowMap : RotCols {
-  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true;
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = true, C_M_CONTIG = false;
   static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = true;
   __device__ __forceinline__ int64_t a_off(int64_t i, int64_t j) const { return i * K + j; }
   __device__ __forceinline__ int64_t b_off(int64_t j, int64_t x) const { return pre(j, x); }
@@ -402,8 +404,9 @@ struct RotGramMap : RotCols {
 // Window on [0, k) then the rotation by r = n - k (matrot_apply.cu): the
 // post-rotation state is (B, K), B = 2^r, the transpose of the window's
 // (K, B) output.  Pullback gp[j, b] = sum_i conj(W[i, j]) g[b, i] into the
-// pre-rotation (K, B) layout (matrot_apply_bwd.cu, adjoint_matrot.cu): rows
-// j, depth i, columns b; g is read along i (the transposed load).
+// pre-rotation (K, B) layout (matrot_apply_bwd.cu on this tile,
+// adjoint_matrot.cu on adjoint_tc.cuh's): rows j, depth i, columns b; g is
+// read along i (the transposed load).
 struct MatrotPullbackMap {
   static constexpr bool A_M_CONTIG = true, B_K_CONTIG = true;
   static constexpr bool CONJ_A = true, CONJ_B = false, INNER_M = true;

@@ -1,6 +1,7 @@
 // Forward window product on Hopper's warpgroup tensor cores (window_apply.cu,
-// rotmat_apply.cu): y[i, c] = sum_j W[i, j] x[j, c] for a (2, K, K) window W
-// and the state's columns c, on real-split planes, at float32-grade accuracy.
+// rotmat_apply.cu, window_apply_top.cu): y[i, c] = sum_j W[i, j] x[j, c] for a
+// (2, K, K) window W and the state's columns c, on real-split planes, at
+// float32-grade accuracy.
 //
 // The product is written y^T = x^T W^T, so that both of wgmma's TF32 rules
 // are met: its B operand must lie in shared memory depth-contiguous
@@ -47,19 +48,36 @@
 // at each launch (cuTensorMapEncodeTiled, found through
 // cudaGetDriverEntryPoint: no link against the driver library).
 //
+// Persistence (K <= 64).  A window this shallow is one or two stages: a
+// block's own stages leave nothing to overlap with its store, and at the 22q
+// plan's top window (K = 64, 512 tiles) one block an SM runs load, products
+// and store back to back, four times over.  So a block then takes every
+// gridDim.x-th tile, one block an SM, with a ring of two stages and an
+// output tile of its own beside it: its stages are numbered on across its
+// tiles, so the next tile's copies are issued as this tile's stages free
+// their slots and land while this tile is stored.  Deeper windows keep one
+// tile a block and three stages, the output tile staged in the ring.
+//
 // Store.  The block's 64 x 128 complex tile is staged through shared memory
-// ([Re/Im][row i][column c], padded) and written with 16-byte stores along
-// the output's contiguous columns.  Each output is written once, by one
-// block: no atomics, so results repeat bit for bit.
+// and written with 16-byte stores along the output's contiguous index: the
+// columns c ([Re/Im][row i][column c], padded), or, for a map whose output
+// is contiguous along its rows (C_M_CONTIG: the top window's y[a, i] at
+// a K + i), the rows i ([Re/Im][column c][row i], padded to 72 floats a
+// column, so that the fragments' 8-byte writes of row pairs are free of
+// bank conflicts).  Each output is written once, by one block: no atomics,
+// so results repeat bit for bit.
 //
 // Shape rule (forward_wgmma_shape).  K >= 8 (the 16-byte stores; rows past
 // K, depths past K and columns past the state are zero-filled by the copies
 // or masked at the store) and a contiguous column run of the state >= 32 (B
 // of the window view, a 32-column box within one a-group; X of the rotmat
-// view).  Other shapes take adjoint_tc.cuh's tile.
+// view; A, the rows of the top window's (A, K) view).  Other shapes take
+// adjoint_tc.cuh's tile.
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "adjoint_tc.cuh"
 
@@ -76,9 +94,19 @@ constexpr int W_STAGE = 4 * W_TILE;  // Re hi, Re lo, Im hi, Im lo
 constexpr int X_STAGE = 2 * BC * BK * 4;  // the state tile, Re and Im (32 KB)
 constexpr int X_BOX = 2 * 32 * BK * 4;    // one 32-column box of the window view (8 KB)
 constexpr int Y_STRIDE = BC + 4;     // floats per row of the staged output tile
+constexpr int YT_STRIDE = BM + 8;    // floats per column of it, stored along the rows
+constexpr int Y_BYTES = 2 * BC * YT_STRIDE * 4;  // the staged tile, either layout
+static_assert(2 * BM * Y_STRIDE * 4 <= Y_BYTES, "both layouts fit");
 
-constexpr int smem_bytes() {  // the ring, its mbarriers, slack for 1024-byte alignment
-  return 1024 + STAGES * (W_STAGE + X_STAGE) + 2 * STAGES * 8;
+// A persistent block (the note above) keeps a ring of two stages and its own
+// output tile beside it; the others three stages, the output staged in them.
+template <bool PERSIST>
+constexpr int RING_STAGES = PERSIST ? 2 : STAGES;
+
+template <bool PERSIST>
+constexpr int smem_bytes() {  // the ring, the output tile, the mbarriers, 1024-byte alignment
+  return 1024 + RING_STAGES<PERSIST> * (W_STAGE + X_STAGE) + (PERSIST ? Y_BYTES : 0) +
+         2 * RING_STAGES<PERSIST> * 8;
 }
 
 // ws[(2p + h) K^2 + e] = hi (h = 0) or lo (h = 1) of w[p K^2 + e].
@@ -217,36 +245,50 @@ __device__ __forceinline__ int x_at(int c, int j) {
   return (c >> 5) * X_BOX + j * 128 + ((((b >> 2) ^ j) & 7) << 4) + (b & 3) * 4;
 }
 
-// Map: WindowMap or RotWindowMap (W is the row-major A operand a_off(i, j) =
-// i K + j, the state the B operand b_off(j, c), the output c_off(i, c)).
-// tmw: ws as (K, K, 4) in boxes (32, 64, 4); tmx: the window view (B, K, A,
-// 2) in boxes (32, 32, 1, 2), or the rotmat view (K, X, 2) in boxes (32, 128,
-// 2).
-template <class Map>
+// Map: WindowMap, RotWindowMap or the top window's TopForwardMap (W is the
+// row-major A operand a_off(i, j) = i K + j, the state the B operand
+// b_off(j, c), the output c_off(i, c), contiguous along i when
+// Map::C_M_CONTIG, else along c).  tmw: ws as (K, K, 4) in boxes (32, 64,
+// 4); tmx: the window view (B, K, A, 2) in boxes (32, 32, 1, 2), or the
+// depth-contiguous view (K, X, 2) of rotmat (and of the top window, X = A)
+// in boxes (32, 128, 2).  The block takes tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ... of the `tiles` output tiles: one, unless PERSIST.
+template <class Map, bool PERSIST>
 __global__ void __launch_bounds__(NT, 1)
 forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
                      const __grid_constant__ CUtensorMap tmx, float* __restrict__ y,
-                     int64_t plane, int64_t K, int64_t C, int64_t B, int64_t tiles_m, Map map) {
+                     int64_t plane, int64_t K, int64_t C, int64_t B, int64_t tiles_m,
+                     int64_t tiles, Map map) {
   static_assert(!Map::A_M_CONTIG && !Map::CONJ_A && !Map::CONJ_B, "y = W x, W row-major");
   constexpr bool KC = Map::B_K_CONTIG;
+  constexpr int S = RING_STAGES<PERSIST>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* Ws = smem;
-  unsigned char* Xs = smem + STAGES * W_STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * (W_STAGE + X_STAGE));
-  uint64_t* empty = full + STAGES;
+  unsigned char* Xs = smem + S * W_STAGE;
+  float* Ys = reinterpret_cast<float*>(PERSIST ? smem + S * (W_STAGE + X_STAGE) : smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * (W_STAGE + X_STAGE) +
+                                               (PERSIST ? Y_BYTES : 0));
+  uint64_t* empty = full + S;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int64_t t = blockIdx.x;
-  const int i0 = (int)((t % tiles_m) * BM);  // consecutive blocks share one state tile via L2
-  const int64_t c0 = (t / tiles_m) * BC;
   const int nk = (int)((K + BK - 1) / BK);
+  // The block's g-th stage: depth (g mod nk) BK of its (g / nk)-th tile,
+  // tile blockIdx.x + (g / nk) gridDim.x (with one tile a block, g = kt).
+  auto tile_of = [&](int g) -> int64_t {
+    return PERSIST ? blockIdx.x + (int64_t)(g / nk) * gridDim.x : (int64_t)blockIdx.x;
+  };
+  auto has_stage = [&](int g) { return PERSIST ? tile_of(g) < tiles : g < nk; };
 
-  // Stage kt's copies into its slot (thread 0).
-  auto issue = [&](int kt) {
-    const int slot = kt % STAGES, k0 = kt * BK;
+  // Stage g's copies into its slot (thread 0); consecutive blocks share one
+  // state tile via L2.
+  auto issue = [&](int g) {
+    const int64_t t = tile_of(g);
+    const int slot = g % S, k0 = (PERSIST ? g % nk : g) * BK;
+    const int i0 = (int)((t % tiles_m) * BM);
+    const int64_t c0 = (t / tiles_m) * BC;
     mbar_expect(&full[slot], W_STAGE + X_STAGE);
     tma_load(Ws + slot * W_STAGE, &tmw, k0, i0, 0, &full[slot]);
     if constexpr (KC) {
@@ -261,7 +303,7 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
     }
   };
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NT / 32);
     }
@@ -269,7 +311,7 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
   }
   __syncthreads();
   if (tid == 0)
-    for (int kt = 0; kt < STAGES && kt < nk; ++kt) issue(kt);
+    for (int g = 0; g < S && has_stage(g); ++g) issue(g);
 
   // This thread's fragment offsets (bytes, in the Re plane of a stage's state
   // tile) for q = 0..3 of m16n8k8's layout, at depth step 0; a step moves
@@ -288,66 +330,101 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
       }
   };
 
-  float accr[32], acci[32], pr[32], pi[32];
+  // One output tile from the block's stages g0 .. g0 + nk - 1.
+  auto run_tile = [&](int64_t t, int g0) {
+    const int i0 = (int)((t % tiles_m) * BM);
+    const int64_t c0 = (t / tiles_m) * BC;
+    float accr[32], acci[32], pr[32], pi[32];
 #pragma unroll
-  for (int v = 0; v < 32; ++v) accr[v] = acci[v] = pr[v] = pi[v] = 0.f;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int slot = kt % STAGES;
-    const uint32_t parity = (kt / STAGES) & 1;
-    mbar_wait(&full[slot], parity);
-    const unsigned char* xs = Xs + slot * X_STAGE;
-    uint64_t wd[4];
+    for (int v = 0; v < 32; ++v) accr[v] = acci[v] = pr[v] = pi[v] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int g = g0 + kt, slot = g % S;
+      const uint32_t parity = (g / S) & 1;
+      mbar_wait(&full[slot], parity);
+      const unsigned char* xs = Xs + slot * X_STAGE;
+      uint64_t wd[4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) wd[p] = sw128_desc(Ws + slot * W_STAGE + p * W_TILE);
-    uint32_t h[2][2][4], l[2][2][4];
+      for (int p = 0; p < 4; ++p) wd[p] = sw128_desc(Ws + slot * W_STAGE + p * W_TILE);
+      uint32_t h[2][2][4], l[2][2][4];
 #pragma unroll
-    for (int st = 0; st < BK / 8; ++st) {
-      if (st >= 2) wgmma_wait<1>();  // step st - 2, the last reader of this buffer, retired
-      fragments(xs, st, h[st & 1], l[st & 1]);
-      wgmma_step(pr, pi, h[st & 1], l[st & 1], wd, st, st == 0);
+      for (int st = 0; st < BK / 8; ++st) {
+        if (st >= 2) wgmma_wait<1>();  // step st - 2, the last reader of this buffer, retired
+        fragments(xs, st, h[st & 1], l[st & 1]);
+        wgmma_step(pr, pi, h[st & 1], l[st & 1], wd, st, st == 0);
+      }
+      wgmma_wait<0>();
+      fence_regs(pr);
+      fence_regs(pi);
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (tid == 0 && has_stage(g + S)) {
+        mbar_wait(&empty[slot], parity);  // every warp is done with the slot
+        issue(g + S);
+      }
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        accr[v] += pr[v];
+        acci[v] += pi[v];
+      }
     }
-    wgmma_wait<0>();
-    fence_regs(pr);
-    fence_regs(pi);
-    if (lane == 0) mbar_arrive(&empty[slot]);
-    if (tid == 0 && kt + STAGES < nk) {
-      mbar_wait(&empty[slot], parity);  // every warp is done with the slot
-      issue(kt + STAGES);
-    }
-#pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      accr[v] += pr[v];
-      acci[v] += pi[v];
-    }
-  }
-  __syncthreads();  // every wgmma and copy retired: the ring becomes the output tile
+    // Every wgmma retired, and the output tile free: the last tile's store has
+    // read it (PERSIST), or no copy is left in flight and the ring becomes it.
+    __syncthreads();
 
-  // d[v], v = v0 + 2 v1 + 4 v2: column m = 16 warp + gid + 8 v1, row n = 8 v2 + 2 tig + v0.
-  float* Ys = reinterpret_cast<float*>(smem);
+    // d[v], v = v0 + 2 v1 + 4 v2: column m = 16 warp + gid + 8 v1, row n = 8 v2 + 2 tig + v0.
+    constexpr int CHUNKS = 2 * BM * BC / 4;
+    if constexpr (Map::C_M_CONTIG) {  // [Re/Im][column m][row n]: rows n, n + 1 as one float2
 #pragma unroll
-  for (int v = 0; v < 32; ++v) {
-    const int m = wg * 64 + warp * 16 + gid + ((v >> 1) & 1) * 8;
-    const int n = (v >> 2) * 8 + 2 * tig + (v & 1);
-    Ys[n * Y_STRIDE + m] = accr[v];
-    Ys[(BM + n) * Y_STRIDE + m] = acci[v];
-  }
-  __syncthreads();
-  constexpr int CHUNKS = 2 * BM * BC / 4;
+      for (int u = 0; u < 16; ++u) {
+        const int m = wg * 64 + warp * 16 + gid + (u & 1) * 8;
+        const int n = (u >> 1) * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(&Ys[m * YT_STRIDE + n]) =
+            make_float2(accr[2 * u], accr[2 * u + 1]);
+        *reinterpret_cast<float2*>(&Ys[(BC + m) * YT_STRIDE + n]) =
+            make_float2(acci[2 * u], acci[2 * u + 1]);
+      }
+      __syncthreads();
 #pragma unroll 4
-  for (int q = 0; q < CHUNKS / NT; ++q) {
-    const int e = tid + q * NT;
-    const int cc = (e % (BC / 4)) * 4, r = (e / (BC / 4)) % BM, p = e / (BC / 4 * BM);
-    const int64_t i = i0 + r, c = c0 + cc;
-    if (i >= K || c >= C) continue;
-    const float4 v = *reinterpret_cast<const float4*>(&Ys[(p * BM + r) * Y_STRIDE + cc]);
-    *reinterpret_cast<float4*>(y + p * plane + map.c_off(i, c)) = v;
+      for (int q = 0; q < CHUNKS / NT; ++q) {
+        const int e = tid + q * NT;
+        const int r = (e % (BM / 4)) * 4, cc = (e / (BM / 4)) % BC, p = e / (BM / 4 * BC);
+        const int64_t i = i0 + r, c = c0 + cc;
+        if (i >= K || c >= C) continue;
+        const float4 v = *reinterpret_cast<const float4*>(&Ys[(p * BC + cc) * YT_STRIDE + r]);
+        *reinterpret_cast<float4*>(y + p * plane + map.c_off(i, c)) = v;
+      }
+    } else {  // [Re/Im][row n][column m]
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int m = wg * 64 + warp * 16 + gid + ((v >> 1) & 1) * 8;
+        const int n = (v >> 2) * 8 + 2 * tig + (v & 1);
+        Ys[n * Y_STRIDE + m] = accr[v];
+        Ys[(BM + n) * Y_STRIDE + m] = acci[v];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int q = 0; q < CHUNKS / NT; ++q) {
+        const int e = tid + q * NT;
+        const int cc = (e % (BC / 4)) * 4, r = (e / (BC / 4)) % BM, p = e / (BC / 4 * BM);
+        const int64_t i = i0 + r, c = c0 + cc;
+        if (i >= K || c >= C) continue;
+        const float4 v = *reinterpret_cast<const float4*>(&Ys[(p * BM + r) * Y_STRIDE + cc]);
+        *reinterpret_cast<float4*>(y + p * plane + map.c_off(i, c)) = v;
+      }
+    }
+  };
+  if constexpr (PERSIST) {
+    int g0 = 0;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, g0 += nk) run_tile(t, g0);
+  } else {
+    run_tile(blockIdx.x, 0);
   }
 }
 
 }  // namespace fwd
 
 // The shape rule of the forward wgmma kernel (the note above): K >= 8 and a
-// state column run >= 32; run is B of the window view, X of the rotmat view.
+// state column run >= 32; run is B of the window view, X of the rotmat view,
+// A of the top window's (A, K) view.
 inline bool forward_wgmma_shape(int64_t K, int64_t run) { return K >= 8 && run >= 32; }
 
 namespace fwd {
@@ -379,12 +456,27 @@ inline int encode(CUtensorMap* m, const float* base, int rank, const cuuint64_t*
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The current device's SM count, asked of CUDA once a device and kept.
+inline int sm_count(int* sms) {
+  static int counts[64] = {};
+  int dev = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (e != 0) return e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    e = (int)cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != 0) return e;
+  }
+  *sms = counts[dev];
+  return 0;
+}
+
 }  // namespace fwd
 
 // y = W x over C state columns on the forward wgmma kernel (see the note
 // above); ws: 4*K*K floats, W's split planes, written here first.  run: the
-// state's column run (B of the window view, X of the rotmat view).  Returns
-// 0 or the first CUDA error.
+// state's column run (B of the window view, X of the rotmat view, A of the
+// top window's).  Returns 0 or the first CUDA error.
 template <class Map>
 inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float* y,
                                 int64_t plane, int64_t K, int64_t C, int64_t run,
@@ -399,7 +491,7 @@ inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float
   const cuuint32_t wbox[3] = {fwd::BK, fwd::BM, 4};
   code = fwd::encode(&tmw, ws, 3, wdims, wstr, wbox);
   if (code != 0) return code;
-  if constexpr (Map::B_K_CONTIG) {  // the rotmat view: x_pre[x, j] at x K + j
+  if constexpr (Map::B_K_CONTIG) {  // the rotmat (top) view: x_pre[x, j] (x[a, j]) at x K + j
     const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)C, 2};
     const cuuint64_t str[2] = {(cuuint64_t)K * 4, (cuuint64_t)plane * 4};
     const cuuint32_t box[3] = {fwd::BK, fwd::BC, 2};
@@ -413,15 +505,27 @@ inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float
   }
   if (code != 0) return code;
   const int64_t tiles_m = ceil_div(K, fwd::BM);
-  const int64_t blocks = tiles_m * ceil_div(C, fwd::BC);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  constexpr int bytes = fwd::smem_bytes();
-  auto kernel = fwd::forward_wgmma_kernel<Map>;
-  code = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (code != 0) return code;
-  kernel<<<(unsigned)blocks, fwd::NT, bytes, stream>>>(tmw, tmx, y, plane, K, C, run, tiles_m,
-                                                        map);
-  return (int)cudaGetLastError();
+  const int64_t tiles = tiles_m * ceil_div(C, fwd::BC);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto launch = [&](auto persist) {
+    constexpr bool P = decltype(persist)::value;
+    constexpr int bytes = fwd::smem_bytes<P>();
+    auto kernel = fwd::forward_wgmma_kernel<Map, P>;
+    int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != 0) return e;
+    int64_t blocks = tiles;
+    if constexpr (P) {
+      int sms = 0;
+      e = fwd::sm_count(&sms);
+      if (e != 0) return e;
+      blocks = tiles < sms ? tiles : sms;
+    }
+    kernel<<<(unsigned)blocks, fwd::NT, bytes, stream>>>(tmw, tmx, y, plane, K, C, run, tiles_m,
+                                                          tiles, map);
+    return (int)cudaGetLastError();
+  };
+  if (K <= 2 * fwd::BK) return launch(std::true_type{});
+  return launch(std::false_type{});
 }
 
 }  // namespace qml

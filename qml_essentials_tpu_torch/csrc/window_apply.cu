@@ -28,7 +28,7 @@
 namespace {
 
 struct WindowMap : qml::WindowCols {
-  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false;
+  static constexpr bool A_M_CONTIG = false, B_K_CONTIG = false, C_M_CONTIG = false;
   static constexpr bool CONJ_A = false, CONJ_B = false, INNER_M = true;
   __device__ __forceinline__ int64_t a_off(int64_t i, int64_t j) const { return i * K + j; }
   __device__ __forceinline__ int64_t b_off(int64_t j, int64_t c) const { return col(c) + j * B; }
@@ -51,8 +51,9 @@ extern "C" int qml_window_apply(const float* x, const float* w, float* ws, float
                               qml::tc_vec_shape(K, B), map, (cudaStream_t)stream);
 }
 
-// 1 when a forward window (or rotmat step) of K rows and state column run
-// `run` takes the wgmma kernel, 0 when it takes adjoint_tc.cuh's tile.
+// 1 when a forward window, rotmat step or top window of K rows and state
+// column run `run` (B, X, or the top window's A) takes the wgmma kernel, 0
+// when it takes adjoint_tc.cuh's tile.
 extern "C" int qml_forward_path(long long K, long long run) {
   return qml::forward_wgmma_shape(K, run) ? 1 : 0;
 }

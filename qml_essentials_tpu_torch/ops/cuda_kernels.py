@@ -27,15 +27,15 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
-Six kernels run their products on the tensor cores in split TF32
+Eight kernels run their products on the tensor cores in split TF32
 (float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says):
-``window_apply`` and ``rotmat_apply`` on warpgroup ``wgmma``
-(``csrc/forward_wgmma.cuh``, W split once a call into a workspace the
-wrapper allocates; shapes under :func:`forward_path` on the tile below),
+``window_apply``, ``rotmat_apply`` and ``window_apply_top`` on warpgroup
+``wgmma`` (``csrc/forward_wgmma.cuh``, W split once a call into a workspace
+the wrapper allocates; shapes under :func:`forward_path` on the tile below),
 ``window_apply_bwd`` and ``rotmat_apply_bwd`` (pullback and gram) and
-``adjoint_step`` and ``adjoint_rotmat`` (two pullbacks and the gram) on
-``mma.sync`` (``csrc/adjoint_tc.cuh``); the other kernels multiply in
-float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
+``adjoint_step``, ``adjoint_rotmat`` and ``adjoint_matrot`` (two pullbacks
+and the gram) on ``mma.sync`` (``csrc/adjoint_tc.cuh``); the other kernels
+multiply in float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
@@ -192,7 +192,8 @@ def _argtypes() -> Dict[str, list]:
     return {
         "window_apply": [ptr] * 4 + [i64] * 3 + [ptr],  # x, w, ws, y, A, K, B, stream
         "window_apply_bwd": bwd + [i64] * 4 + flags,
-        "window_apply_top": [ptr, ptr, ptr, i64, i64, ptr],
+        "window_apply_top": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, A, K, stream
+        "window_apply_top_tile": [ptr] * 3 + [i64] * 2 + [ptr],  # x, w, y, A, K, stream
         "window_apply_top_bwd": bwd + [i64] * 3 + flags,
         "rotate": [ptr, ptr, i64, i64, ptr],
         "rotate_b16": [ptr, ptr, i64, i64, ptr],
@@ -300,10 +301,11 @@ def gram_splits(K: int, C: int) -> int:
 
 
 def forward_path(K: int, run: int) -> bool:
-    """True when ``window_apply`` / ``rotmat_apply`` with ``K`` rows and a
-    state column run ``run`` (``B`` of the window view, ``X`` of the rotmat
-    view) take the wgmma kernel, False when they take the scalar-staged
-    tensor-core tile: the C launchers' shape rule, asked of the library."""
+    """True when ``window_apply`` / ``rotmat_apply`` / ``window_apply_top``
+    with ``K`` rows and a state column run ``run`` (``B`` of the window view,
+    ``X`` of the rotmat view, ``A`` of the top window's ``(A, K)`` view) take
+    the wgmma kernel, False when they take the split-TF32 ``mma.sync`` tile:
+    the C launchers' shape rule, asked of the library."""
     return bool(_load().qml_forward_path(K, run))
 
 
@@ -311,7 +313,8 @@ def _launch_window(name, psi2, w2, K, n, geometry, split_w=False):
     """One forward window kernel ``qml_<name>(x, w, [ws,] y, *geometry,
     stream)`` on a float32 state and ``(2, K, K)`` window; returns the new
     state.  *split_w*: the kernel takes a ``4*K*K`` float32 workspace for
-    W's split-TF32 planes (``window_apply``, ``rotmat_apply``)."""
+    W's split-TF32 planes (``window_apply``, ``rotmat_apply``,
+    ``window_apply_top``)."""
     _check(name, "state", psi2, (2, 2**n))
     _check(name, "window", w2, (2, K, K))
     lib = _load()
@@ -336,7 +339,8 @@ def _launch_window_apply(psi2, w2, a, k, n):
 def _launch_window_apply_top(psi2, w2, k, n):
     if not 1 <= k <= n:
         raise ValueError(f"window_apply_top: k={k} out of range for n={n}")
-    return _launch_window("window_apply_top", psi2, w2, 2**k, n, (2 ** (n - k), 2**k))
+    return _launch_window("window_apply_top", psi2, w2, 2**k, n, (2 ** (n - k), 2**k),
+                          split_w=True)
 
 
 def _check_rotation(name, r, n):

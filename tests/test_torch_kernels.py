@@ -19,9 +19,10 @@ the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
 one).  The adjoint steps are held to the same three bounds: the rebuilt state
 and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
 cotangent 1e-4; the paired rotation is a permutation and must be exact.
-B1 and B6 (on wgmma) and B2, B7, B12 and B14 (on mma.sync) multiply in
-split TF32 on the tensor cores and are held to the same bounds; the
-``test_split_tf32_*`` tests emulate that scheme on the CPU against float64.
+B1, B3 and B6 (on wgmma) and B2, B7, B12, B14 and B15 (on mma.sync)
+multiply in split TF32 on the tensor cores and are held to the same bounds;
+the ``test_split_tf32_*`` tests emulate that scheme on the CPU against
+float64.
 
 The machine with the card has no JAX, so only the Pallas tests import it;
 there the card's tests run with ``-m cuda --noconftest``.
@@ -249,33 +250,44 @@ def _trunc32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int) -> torch.Tensor:
-    """The saved backward's gram gw = sum_c g[:, c] conj(x[:, c])^T on the
-    split-TF32 tile, for a bfloat16 g (exact in TF32, so its own hi) and a
-    float32 x split into hi + lo: the columns cut into `splits` chunks; in
-    each, 32-deep stages whose m16n8k8 steps run the passes (small term
-    first) and the Re/Im products into fresh accumulators, each step's sum
-    exact and rounded toward zero; each stage's partial added to the chunk's
-    float32 sum, and the chunks' sums added in order in float32."""
-    K, C = g.shape[1], g.shape[2]
+def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
+             split_g: bool = False, rows: bool = False) -> torch.Tensor:
+    """The gram gw = sum_c g[:, c] conj(x[:, c])^T on the split-TF32 tile,
+    for a float32 x split into hi + lo and a g that is bfloat16 (exact in
+    TF32, so its own hi) or, with `split_g`, float32 split the same way: the
+    columns cut into `splits` chunks; in each, 32-deep stages whose m16n8k8
+    steps run the passes (small terms first: g_lo x_hi, g_hi x_lo, g_hi
+    x_hi, as mma_split issues them) and the Re/Im products into fresh
+    accumulators, each step's sum exact and rounded toward zero; each
+    stage's partial added to the chunk's float32 sum, and the chunks' sums
+    added in order in float32.  g and x are (2, K, C), the window view's
+    rows along the depth c (WindowGramMap), or with `rows` (2, C, K), depth
+    first and the gram's rows contiguous, as TopGramMap reads the (B, K)
+    view: each 32-deep stage is then cut from 32 whole rows."""
+    K, C = (g.shape[2], g.shape[1]) if rows else (g.shape[1], g.shape[2])
     xh = torch.stack([_tf32_rna(x[0]), -_tf32_rna(x[1])])  # conj(x): Im negated
     xl = torch.stack([_tf32_read(x[0] - _tf32_rna(x[0])), -_tf32_read(x[1] - _tf32_rna(x[1]))])
     chunk = C // splits
 
-    def steps(t):  # (2, K, C) -> (2, splits, stages, 4, K, 8)
+    def steps(t):  # -> (2, splits, stages, 4, K, 8)
+        if rows:
+            return t.reshape(2, splits, chunk // 32, 4, 8, K).transpose(-1, -2).double()
         return t.reshape(2, K, splits, chunk // 32, 4, 8).permute(0, 2, 3, 4, 1, 5).double()
 
-    gs = steps(g)
-    bs = [steps(t) for t in (xl, xh)[-passes:]]  # the lo pass first, as mma_split issues it
+    if split_g:
+        gh = _tf32_rna(g)
+        terms = [(_tf32_read(g - gh), xh), (gh, xl), (gh, xh)]
+    else:
+        terms = [(g, xl), (g, xh)]
+    terms = [(steps(a), steps(b)) for a, b in terms[-passes:]]
     acc = torch.zeros((2, splits, K, K), dtype=torch.float32)
     for st in range(chunk // 32):
         part = torch.zeros_like(acc)
         for kk in range(4):
-            a = gs[:, :, st, kk]
-            bt = [b[:, :, st, kk].transpose(-1, -2) for b in bs]
+            ops = [(a[:, :, st, kk], b[:, :, st, kk].transpose(-1, -2)) for a, b in terms]
             # Cr = Ar Br - Ai Bi and Ci = Ar Bi + Ai Br, as mma_stage issues them.
             for c, sign, i, j in ((0, 1, 0, 0), (0, -1, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0)):
-                for b in bt:
+                for a, b in ops:
                     part[c] = _trunc32(part[c].double() + sign * (a[i] @ b[j]))
         acc += part
     out = torch.zeros((2, K, K), dtype=torch.float32)
@@ -285,20 +297,38 @@ def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int) -> torc
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("passes,within", [(2, True), (1, False)])
-def test_split_tf32_saved_gram_is_float32_grade(passes, within):
-    """The saved backward's gram (window_apply_bwd, rotmat_apply_bwd) on the
-    split-TF32 tile: a bfloat16 g, exact in TF32, against a float32 x split
-    in two passes, over 2**14 columns at K = 64 in the kernel's chunks,
-    stages and accumulator rounding, is within CUDA_GRAM_TOL of float64;
-    with x rounded to TF32 alone (one pass) it is not."""
+@pytest.mark.parametrize(
+    "view,g_dtype,passes,within",
+    [("window", "bfloat16", 2, True), ("window", "bfloat16", 1, False),
+     ("matrot", "float32", 3, True), ("matrot", "float32", 1, False),
+     ("matrot", "bfloat16", 2, True), ("matrot", "bfloat16", 1, False)],
+    ids=["2-True", "1-False", "matrot-f32-3-True", "matrot-f32-1-False", "matrot-bf16-2-True",
+         "matrot-bf16-1-False"])
+def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
+    """The grams on the split-TF32 tile, over 2**14 columns at K = 64 in the
+    kernel's chunks, stages and accumulator rounding, against float64: the
+    saved backward's (window_apply_bwd, rotmat_apply_bwd; the window view's
+    (K, C) columns), a bfloat16 g, exact in TF32, against a float32 x split
+    in two passes; and adjoint_matrot's G0 = sum_b lam[b, i] conj(psi[b,
+    j]) over the 2**14 rows b of the (B, K) view, lam and psi laid out as
+    the matrot step holds them and staged row by row as TopGramMap stages
+    them, a float32 lam split in three passes or a bfloat16 one in two.
+    The tile's order of sums is the window case's; what differs is the
+    operands' layout and the float32 lam's split.  Each is within
+    CUDA_GRAM_TOL with all its passes, and not with one (x, and a float32 g,
+    rounded to TF32 alone)."""
     K, C = 64, 2**14
+    rows = view == "matrot"  # lam and psi (2, B, K): the depth b first
     rng = np.random.default_rng(5)
-    g = torch.from_numpy(rng.normal(size=(2, K, C)).astype(np.float32))
-    g = (g / g.norm()).to(torch.bfloat16).float()
-    x = torch.from_numpy(_state(20, 6)).reshape(2, K, C)
-    got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes)
+    g = torch.from_numpy(rng.normal(size=(2, C, K) if rows else (2, K, C)).astype(np.float32))
+    g = g / g.norm()
+    if g_dtype == "bfloat16":
+        g = g.to(torch.bfloat16).float()
+    x = torch.from_numpy(_state(20, 6)).reshape((2, C, K) if rows else (2, K, C))
+    got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes, g_dtype == "float32", rows)
     g64, x64 = g.double(), x.double()
+    if rows:
+        g64, x64 = g64.transpose(1, 2), x64.transpose(1, 2)
     ref = torch.stack([g64[0] @ x64[0].T + g64[1] @ x64[1].T,
                        g64[1] @ x64[0].T - g64[0] @ x64[1].T])
     assert (_rel(got.double(), ref) <= CUDA_GRAM_TOL) == within
@@ -338,15 +368,23 @@ def _wgmma_forward(w: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tenso
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
-def test_split_tf32_forward_is_float32_grade(passes, within):
-    """The forward windows' split-TF32 wgmma scheme (window_apply,
-    rotmat_apply) at K = 1024 on 64 columns, in the kernel's pass order,
-    truncating sums and 32-deep promotion interval, is within CUDA_TOL of
-    float64; plain TF32 (one pass) is not."""
-    K = 1024
-    w = torch.from_numpy(_unitary_pair(10, 8))
-    x = torch.from_numpy(_state(16, 9)).reshape(2, K, 64)
+@pytest.mark.parametrize("view,passes,within",
+                         [("window", 3, True), ("window", 1, False), ("top", 3, True),
+                          ("top", 1, False)],
+                         ids=["3-True", "1-False", "top-3-True", "top-1-False"])
+def test_split_tf32_forward_is_float32_grade(view, passes, within):
+    """The forward windows' split-TF32 wgmma scheme, in the kernel's pass
+    order, truncating sums and 32-deep promotion interval, is within
+    CUDA_TOL of float64, and plain TF32 (one pass) is not: window_apply and
+    rotmat_apply at K = 1024 on 64 columns, and window_apply_top (Y = X W^T
+    on the (A, K) view, formed as Y^T = W X^T) at the 22q plan's K = 64,
+    two stages, on 1024 rows of X."""
+    k = 10 if view == "window" else 6
+    K = 2**k
+    w = torch.from_numpy(_unitary_pair(k, 8))
+    x = torch.from_numpy(_state(16, 9)).reshape(2, K, -1)
+    if view == "top":
+        x = x.reshape(2, -1, K).transpose(1, 2)  # X^T: columns a, depth j
     got = _wgmma_forward(w, x, passes)
     w64, x64 = w.double(), x.double()
     ref = torch.stack([w64[0] @ x64[0] - w64[1] @ x64[1], w64[0] @ x64[1] + w64[1] @ x64[0]])
@@ -437,8 +475,13 @@ def test_cuda_window_matches_plain(cuda, n, a, k):
     _check_cuda_window(cuda, n, a, k, top=False)
 
 
+# B3 on the card: K = 2 and 4 (the scalar-staged tile), K = 64 with one row
+# (the tile), the 22q plan's (22, 6) and K = 64-256 on the wgmma kernel, and
+# K = 8 and 16 on both sides of its shape rule (A = 16: the tile; A = 512
+# and 256: wgmma).
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(12, 1), (12, 2), (6, 6), (16, 6), (16, 8), (18, 7)])
+@pytest.mark.parametrize("n,k", [(12, 1), (12, 2), (6, 6), (16, 6), (16, 8), (18, 7), (22, 6),
+                                 (7, 3), (12, 3), (8, 4), (12, 4)])
 def test_cuda_window_top_matches_plain(cuda, n, k):
     _check_cuda_window(cuda, n, n - k, k, top=True)
 
@@ -733,16 +776,20 @@ def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dt
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,lam_dtype", [("step", "float32"), ("step", "bfloat16"),
-                                            ("rotmat", "float32"), ("rotmat", "bfloat16")])
+                                            ("rotmat", "float32"), ("rotmat", "bfloat16"),
+                                            ("matrot", "float32"), ("matrot", "bfloat16")])
 def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
-    """Two launches of B12 / B14 on the same inputs give the same bits: the
-    gram's split partials are summed in a fixed order, with no atomics."""
+    """Two launches of B12 / B14 / B15 on the same inputs give the same bits:
+    the gram's split partials are summed in a fixed order, with no atomics."""
     n, k = 20, 8
     w, lam, psi = _bwd_inputs(cuda, n, k, 17, getattr(torch, lam_dtype))
     if kind == "step":
         run = lambda: cuda_kernels.adjoint_step(w, psi, lam, 3, k, n, torch.bfloat16)  # noqa: E731
-    else:
+    elif kind == "rotmat":
         run = lambda: cuda_kernels.adjoint_rotmat(w, psi, lam, k, n, torch.bfloat16)  # noqa: E731
+    else:
+        run = lambda: cuda_kernels.adjoint_matrot(  # noqa: E731
+            w, psi, lam, n - k, n, torch.bfloat16)
     first, second = run(), run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -767,14 +814,17 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,n,geom", [("window", 20, (3, 8)), ("window", 16, (0, 10)),
-                                         ("rotmat", 20, (8,)), ("rotmat", 9, (8,))])
+                                         ("rotmat", 20, (8,)), ("rotmat", 9, (8,)),
+                                         ("top", 22, (6,)), ("top", 7, (3,))])
 def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
-    """Two launches of B1 / B6 on the same inputs give the same bits: every
-    output is written once, by one block, with no atomics (the wgmma kernel;
-    rotmat n = 9, r = 8, two columns, adjoint_tc.cuh's tile)."""
+    """Two launches of B1 / B6 / B3 on the same inputs give the same bits:
+    every output is written once, by one block, with no atomics (the wgmma
+    kernel; rotmat n = 9, r = 8, two columns, and the top window with 16
+    rows of K = 8, on adjoint_tc.cuh's tile)."""
     x = torch.from_numpy(_state(n, 23)).to(cuda)
     w = torch.from_numpy(_unitary_pair(geom[-1], 29)).to(cuda)
-    run = lambda: getattr(cuda_kernels, f"{kind}_apply")(x, w, *geom, n)  # noqa: E731
+    name = "window_apply_top" if kind == "top" else f"{kind}_apply"
+    run = lambda: getattr(cuda_kernels, name)(x, w, *geom, n)  # noqa: E731
     first, second = run(), run()
     torch.cuda.synchronize()
     assert torch.equal(first, second)

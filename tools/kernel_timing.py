@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Times some of the port's kernels at one plan's shapes on one NVIDIA GPU.
+
+    python3 tools/kernel_timing.py [--root DIR] [--n 24] [--kernels a,b] [--max-k K]
+
+``--kernels`` picks from B1 ``window_apply``, B6 ``rotmat_apply``, B3
+``window_apply_top`` and B15 ``adjoint_matrot`` (default: the first two);
+each runs at every call of its kind in the n-qubit Circuit_19 plan
+(``chip_smoke.plan_shapes``; B15 with the cotangent dtypes of one adjoint
+gradient, ``chip_smoke.backward_calls``), calls whose K = 2^k is above
+``--max-k`` left out.  The kernels come from the package under ``--root`` (by
+default this checkout); the shapes, the library products and the timing come
+from this checkout's ``chip_smoke.py``, so that pointing ``--root`` at a
+second tree compares two versions of the kernels by one method in one call
+on one card.  It builds the kernels, prints ptxas's lines for the forward
+wgmma kernel and the top-window and matrot kernels, then for every call:
+the kernel against its plain version in float64 (max|err| / max|ref|: 1e-5;
+for B15 the rebuilt state 1e-5, a float32 cotangent 1e-5, a bfloat16 one
+one ulp, gw 1e-4), its time and the cuBLAS complex64 product's of the same
+shapes (``torch.matmul``, TF32 off), and for the forward kernels the TFLOP/s
+issued in split TF32 (3 passes x 8K flops an amplitude).  B3 is also timed
+on the split-TF32 tile (``qml_window_apply_top_tile``, where the tree has
+it), B15 beside B14 ``adjoint_rotmat`` at the same K and column count.
+Times are ``chip_smoke._events_ms`` (CUDA events, best of 3 means of 10
+after a warm-up, as phase 6 takes them), each also "held": the calls queued
+behind a spinning kernel, device time without the host's launch gaps; and
+"host": the host's time to issue one call while the stream is held (best of
+3 means of 10), which bounds the unheld time from below.
+Exits non-zero without CUDA or on a failed check.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+KINDS = ("window_apply", "rotmat_apply", "window_apply_top", "adjoint_matrot")
+TOL = 1e-5
+TOL_GW = 1e-4
+
+
+def _load_chip_smoke(root: Path):
+    """This checkout's chip_smoke, importing the package from root."""
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _rel(got, ref) -> float:
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--n", type=int, default=24)
+    ap.add_argument("--kernels", default="window_apply,rotmat_apply")
+    ap.add_argument("--max-k", type=int, default=2**30, help="largest K (2^k) timed")
+    args = ap.parse_args()
+    kinds = args.kernels.split(",")
+    if set(kinds) - set(KINDS):
+        ap.error(f"--kernels: pick from {','.join(KINDS)}")
+    if not torch.cuda.is_available():
+        print("kernel_timing: CUDA is not available", file=sys.stderr)
+        return 1
+    cs = _load_chip_smoke(args.root.resolve())
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"root {args.root}  card: {smi}", flush=True)
+    path, seconds = ck.build()
+    print(f"built {path.name} in {seconds:.1f} s", flush=True)
+    entry = None  # ptxas's lines for these kernels: registers, stack, spills, shared memory
+    for line in ck.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            entry = line if any(k in line for k in ("forward_wgmma", "WindowMap", "Top",
+                                                    "Matrot")) else None
+            if entry:
+                print(f"  {line.strip()}")
+        elif entry and ("Used" in line or "spill" in line):
+            print(f"    {line.strip()}")
+        elif "wgmma" in line.lower():
+            print(f"  ptxas: {line.strip()}")
+
+    def host_ms(fn, reps: int = 10, trials: int = 3) -> float:
+        """Best-of-trials mean host ms to issue fn(), the stream held busy
+        so that no call waits for the card."""
+        best = float("inf")
+        for _ in range(trials):
+            cs._hold_stream(20.0)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / reps * 1e3)
+            torch.cuda.synchronize()
+        return best
+
+    def times(fn) -> tuple:
+        return cs._events_ms(fn), cs._events_ms(fn, hold=True), host_ms(fn)
+
+    def us(t: tuple) -> str:
+        return f"{t[0] * 1e3:8.1f} us (held {t[1] * 1e3:8.1f}, host {t[2] * 1e3:6.1f})"
+
+    n = args.n
+    shapes = cs.plan_shapes(n)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    rng = cs.np.random.default_rng(cs.SEED)
+    lib = ck._load()
+    x = cs._state(n, gen)
+    calls = []
+    if "window_apply" in kinds:
+        calls += [("window_apply", (a, k)) for a, k in shapes["window_apply"]]
+    if "rotmat_apply" in kinds:
+        calls += [("rotmat_apply", (r,)) for r in shapes["rotmat_apply"]]
+    if "window_apply_top" in kinds:
+        calls += [("window_apply_top", (k,)) for k in shapes["window_apply_top"]]
+    totals, ok = {}, True
+    for name, geom in calls:
+        k = geom[-1]
+        if 2**k > args.max_k:
+            continue
+        K = 2**k
+        run = 2 ** (n - sum(geom)) if name != "window_apply_top" else 2 ** (n - k)
+        w = cs._unitary(k, rng)
+        kern = lambda: getattr(ck, name)(x, w, *geom, n)  # noqa: E731
+        lib_fn = {"window_apply": cs.lib_window, "rotmat_apply": cs.lib_rotmat,
+                  "window_apply_top": cs.lib_window_top}[name](x, w, *geom, n)
+        ref = getattr(kn, f"{name}_plain")(x.double(), w.double(), *geom, n)
+        rel = _rel(kern(), ref)
+        ok &= rel <= TOL
+        t_k, t_l = times(kern), times(lib_fn)
+        route = (("wgmma" if ck.forward_path(K, run) else "tile")
+                 if hasattr(ck, "forward_path") else "-")
+        if name == "window_apply_top" and not hasattr(lib, "qml_window_apply_top_tile"):
+            route = "fma"  # a tree whose B3 is still the float32-FMA tile
+        tflops = 3 * 8 * K * 2**n / t_k[0] / 1e9
+        print(f"  {name:16s} {str(geom):8s} K={K:5d} run={run:6d} {route:5s} rel {rel:.2e}  "
+              f"kernel {us(t_k)}  cuBLAS {us(t_l)}  {tflops:6.1f} TFLOP/s issued", flush=True)
+        if name == "window_apply_top" and hasattr(lib, "qml_window_apply_top_tile"):
+            rel = _rel(cs._top_tile(ck, x, w, k, n), ref)
+            ok &= rel <= TOL
+            print(f"  {name:16s} {str(geom):8s} the tile rel {rel:.2e}  "
+                  f"kernel {us(times(lambda: cs._top_tile(ck, x, w, k, n)))}", flush=True)
+        del ref
+        tot = totals.setdefault(name, [0.0, 0.0])
+        tot[0] += t_k[0]
+        tot[1] += t_l[0]
+
+    if "adjoint_matrot" in kinds:
+        g = cs._state(n, gen)
+        tot = totals.setdefault("adjoint_matrot", [0.0, 0.0])
+        for kind, r, l_dt, out_dt in cs.backward_calls(shapes["steps"]):
+            if kind != "matrot" or 2 ** (n - r) > args.max_k:
+                continue
+            k = n - r
+            w, lam = cs._unitary(k, rng), g.to(l_dt)
+            got = ck.adjoint_matrot(w, x, lam, r, n, out_dt)
+            ref = kn.adjoint_matrot_plain(w.double(), x.double(), lam.double(), r, n,
+                                          torch.float64)
+            rels = [_rel(a, b) for a, b in zip(got, ref)]
+            lam_tol = TOL if out_dt == torch.float32 else 2.0**-8
+            ok &= rels[0] <= TOL and rels[1] <= lam_tol and rels[2] <= TOL_GW
+            del got, ref
+            t_k = times(lambda: ck.adjoint_matrot(w, x, lam, r, n, out_dt))
+            t_l = times(cs.lib_adjoint_matrot(w, x, lam, r, n))
+            t_14 = times(lambda: ck.adjoint_rotmat(w, x, lam, k, n, out_dt))
+            tot[0] += t_k[0]
+            tot[1] += t_l[0]
+            print(f"  adjoint_matrot r={r} k={k} lam={cs._dt(l_dt)} out={cs._dt(out_dt)} "
+                  f"rel {rels[0]:.1e}/{rels[1]:.1e}/{rels[2]:.1e}  kernel {us(t_k)}  "
+                  f"cuBLAS {us(t_l)}  adjoint_rotmat (same K, columns) {us(t_14)}", flush=True)
+    for name, (t_k, t_l) in totals.items():
+        print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms per {n}q request")
+    print(f"card: {smi}")
+    if not ok:
+        print("kernel_timing: a kernel missed its bound against float64", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
