@@ -17,11 +17,13 @@ phase:
    (one nvcc per source, in parallel), with ptxas's register and
    shared-memory use and any wgmma warning; the SASS of the split-TF32 tile
    (``csrc/adjoint_tc.cuh``, under window_apply_bwd, rotmat_apply_bwd,
-   adjoint_step, adjoint_rotmat and adjoint_matrot, and window_apply /
-   rotmat_apply / window_apply_top's shapes under the wgmma kernel's rule)
-   must hold tensor-core HMMA instructions in every instantiation (counted
-   with cuobjdump, named by their maps; RotGramMap's, rotmat_apply_bwd's
-   gram, MatrotPullbackMap and TopGramMap, adjoint_matrot's, and TopMap,
+   matrot_apply_bwd, adjoint_step, adjoint_step_top, adjoint_rotmat and
+   adjoint_matrot, and window_apply / rotmat_apply / window_apply_top's
+   shapes under the wgmma kernel's rule) must hold tensor-core HMMA
+   instructions in every instantiation (counted with cuobjdump, named by
+   their maps; RotGramMap's, rotmat_apply_bwd's gram, MatrotPullbackMap and
+   TopGramMap, adjoint_matrot's, MatrotGramMap, matrot_apply_bwd's gram,
+   TopPullbackMap, adjoint_step_top's pullback, and TopMap,
    window_apply_top's, among them), and the forward wgmma kernel
    (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply and
    window_apply_top) warpgroup HGMMA instructions in every instantiation,
@@ -34,7 +36,11 @@ phase:
    their matrix cotangent 1e-4 (an fp32 sum over up to 2^16 columns); the
    adjoint steps the same, with the rebuilt state at 1e-5; rotation and
    paired rotation, float32 and bfloat16: bit-exact).  The fused kernels run
-   at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes.
+   at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes, and
+   matrot's at K = 512 on a 26q plane and on both sides of its 16-byte copy
+   rule (K = 8 / B = 16; K = 16 / B = 4, K = 4 / B = 8); adjoint_step_top
+   at the 22q plan's top window, K = 64 on 24q and 26q planes and K = 8 with
+   A = 16.
    window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
    on both sides of the wgmma kernel's shape rule (B = 2 and 64),
    window_apply_top at K = 8 and 16 on both sides of it (A = 16; 512 and
@@ -122,11 +128,11 @@ phase:
    bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
    and 2 for one with a bfloat16 cotangent: window_apply, rotmat_apply and
    window_apply_top (one product, on wgmma) 3 a call; adjoint_step,
-   adjoint_rotmat and adjoint_matrot (three products and the 8K^3 flops of
-   gw = G0 W on the CUDA cores) 9 a call with a float32 lambda, 7 with
-   bfloat16; window_apply_bwd and rotmat_apply_bwd (two products) 6 a call
-   with a float32 g, 4 with bfloat16.  The float32-core figure is printed
-   beside it.
+   adjoint_step_top, adjoint_rotmat and adjoint_matrot (three products and
+   the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a call with a float32
+   lambda, 7 with bfloat16; window_apply_bwd, rotmat_apply_bwd and
+   matrot_apply_bwd (two products) 6 a call with a float32 g, 4 with
+   bfloat16.  The float32-core figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -171,7 +177,8 @@ PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 # Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first three) and
 # csrc/adjoint_tc.cuh.
 TC_KERNELS = ("window_apply", "rotmat_apply", "window_apply_top", "window_apply_bwd",
-              "rotmat_apply_bwd", "adjoint_step", "adjoint_rotmat", "adjoint_matrot")
+              "rotmat_apply_bwd", "matrot_apply_bwd", "adjoint_step", "adjoint_step_top",
+              "adjoint_rotmat", "adjoint_matrot")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -431,11 +438,13 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
 
 # The maps the split-TF32 tile is instantiated with: the pullbacks and grams
 # of window_apply_bwd / adjoint_step (window layout), rotmat_apply_bwd /
-# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd)
-# and adjoint_matrot (MatrotPullbackMap, TopGramMap), and window_apply_top's
+# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd),
+# matrot_apply_bwd / adjoint_matrot (MatrotPullbackMap; MatrotGramMap, the
+# saved gram, only under matrot_apply_bwd) and adjoint_step_top
+# (TopPullbackMap; TopGramMap, also adjoint_matrot's), and window_apply_top's
 # product at the shapes off the wgmma kernel (TopMap).
 TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap",
-           "MatrotPullbackMap", "TopGramMap", "TopMap")
+           "MatrotPullbackMap", "MatrotGramMap", "TopPullbackMap", "TopGramMap", "TopMap")
 
 
 # The maps the forward wgmma kernel is instantiated with: window_apply's,
@@ -845,7 +854,10 @@ def phase_parity(shapes: dict) -> dict:
     errs["rotate_pair"] = check_rotate_pair(ck, kn, adj_rot, gen)
     check_adjoint(ck, kn, [(14, 3, 1), (14, 0, 2), (14, 12, 1), (12, 0, 4), (12, 8, 3),
                            (14, 3, 3), (12, 5, 4)], False, gen, rng)
-    check_adjoint(ck, kn, [(12, 11, 1), (16, 10, 6), (6, 0, 6), (11, 6, 5)], True, gen, rng)
+    # The top window at K = 2, 64 (on a 16q plane, with one row, on 24q and
+    # 26q planes), 32, and K = 8 with A = 16 (the smallest 16-byte copies).
+    check_adjoint(ck, kn, [(12, 11, 1), (16, 10, 6), (6, 0, 6), (11, 6, 5), (7, 4, 3),
+                           (24, 18, 6), (26, 20, 6)], True, gen, rng)
     check_rotate_pair(ck, kn, [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2)], gen)
 
     log("  fused rotation kernels (the main path's 22q, 24q and 26q shapes, edges):")
@@ -855,11 +867,14 @@ def phase_parity(shapes: dict) -> dict:
         | {("rotwin", w, r, k) for w in (m, n, WIDE) for r, k in shapes[w]["rotwin_apply"]})
     errs.update(check_fused(ck, kn, main_fused, gen, rng))
     # rotmat's K = 2 / X = 32, K = 4 / X = 8, K = 8 / X = 2 (scalar staging),
-    # K = 8 / X = 256 (16-byte copies) and K = 256 / X = 2, backward and adjoint.
+    # K = 8 / X = 256 (16-byte copies) and K = 256 / X = 2, backward and adjoint;
+    # matrot's K = 8 / B = 16 (16-byte copies), K = 16 / B = 4 and K = 4 / B = 8
+    # (scalar staging), and K = 512 on a 26q plane.
     check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3),
                          ("rotmat", 11, 3, 3), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
-                         ("matrot", 9, 1, 8), ("rotwin", 6, 1, 3), ("rotwin", 10, 2, 5),
-                         ("rotwin", 12, 7, 9)], gen, rng)
+                         ("matrot", 9, 1, 8), ("matrot", 7, 4, 3), ("matrot", 6, 2, 4),
+                         ("matrot", 5, 3, 2), ("matrot", 26, 17, 9), ("rotwin", 6, 1, 3),
+                         ("rotwin", 10, 2, 5), ("rotwin", 12, 7, 9)], gen, rng)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
@@ -2066,7 +2081,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 lambda: ck.adjoint_step_top(w, xm, gg, k, m, out_dt),
                 lambda: kn.adjoint_step_top_plain(w, xm, gg, k, m, out_dt),
                 lib_adjoint_top(w, xm, gg, k, m),
-                work_adjoint(2**k, m, _esize(g_dt), _esize(out_dt)))
+                work_adjoint(2**k, m, _esize(g_dt), _esize(out_dt)),
+                tc=work_adjoint_tc(2**k, m, _esize(g_dt)))
         # One 24q chain forward (B17) and adjoint gradient (B18), step by step.
         for geom, descs, pairs in plans[n]:
             label = f"n={n} {geom[0]} {len(descs)} descriptors"

@@ -29,8 +29,8 @@
 // multiply-adds per amplitude and window (24K flops) against 32 bytes of
 // state in and out.  psi and lam ping-pong through the outputs and two
 // state-sized workspaces as in chain_apply.cu; each pullback stages its own
-// slice of W (the pair kernel's shared operand is later work, with tensor
-// cores).
+// slice of W (one staged slice shared by both pullbacks, and tensor cores,
+// are later work).
 #include "chain_block.cuh"
 
 namespace {

@@ -1,9 +1,9 @@
-// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_rotmat.cu,
-// adjoint_matrot.cu), of the saved-residual backwards window_apply_bwd.cu and
-// rotmat_apply_bwd.cu, and of window_apply.cu, rotmat_apply.cu and
-// window_apply_top.cu at the shapes under forward_wgmma.cuh's rule (which
-// shares split() below): one
-// complex matrix product C = op(A) * op(B) on real-split planes (each
+// Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_step_top.cu,
+// adjoint_rotmat.cu, adjoint_matrot.cu), of the saved-residual backwards
+// window_apply_bwd.cu, rotmat_apply_bwd.cu and matrot_apply_bwd.cu, and of
+// window_apply.cu, rotmat_apply.cu and window_apply_top.cu at the shapes
+// under forward_wgmma.cuh's rule (which shares split() below): one complex
+// matrix product C = op(A) * op(B) on real-split planes (each
 // operand a Re plane followed, `plane` elements later, by an Im plane), on
 // Hopper's tensor cores at float32-grade accuracy.
 //
@@ -36,10 +36,12 @@
 // operand, and every extent along it, to hold whole 16-byte chunks: the
 // launchers pass vec = (K >= 8 and the state's column run >= 8), the run
 // being B of the window view or X of the rotmat layout; the top window's
-// and the matrot step's operands all run along the window index, so theirs
-// is K for both (window_apply_top.cu, adjoint_matrot.cu).  Other shapes (K = 2
-// or 4, B = 2 or 4) take the same kernel with VEC = false: masked scalar
-// loads into the same ring, no copy in flight.  Either way out-of-range rows,
+// and the matrot adjoint step's operands all run along the window index, so
+// theirs is K for both (window_apply_top.cu, adjoint_step_top.cu,
+// adjoint_matrot.cu), and the matrot backward's is B, along which its gram
+// reads x (matrot_apply_bwd.cu).  Other shapes (K = 2 or 4, B = 2 or 4) take
+// the same kernel with VEC = false: masked scalar loads into the same ring,
+// no copy in flight.  Either way out-of-range rows,
 // columns and depths are zero, so every power-of-two K from 2 up and every
 // column count runs on the card.
 //

@@ -1,12 +1,11 @@
-// Shared block tile of the window kernels (window_apply_top_bwd.cu, the
-// adjoint step adjoint_step_top.cu, and the fused rotation steps
-// rotwin_apply.cu, matrot_apply.cu and the backwards matrot_apply_bwd.cu and
-// rotwin_apply_bwd.cu; window_apply.cu, rotmat_apply.cu and
-// window_apply_top.cu (their products on forward_wgmma.cuh's tensor cores),
-// window_apply_bwd.cu, rotmat_apply_bwd.cu, adjoint_step.cu, adjoint_rotmat.cu
-// and adjoint_matrot.cu (on adjoint_tc.cuh's) take only its maps, split-gram
-// sum and the adjoint steps' gw = G0 W): a complex matrix product
-// C = op(A) * op(B) on real-split planes (each operand
+// Shared block tile of the window kernels (window_apply_top_bwd.cu and the
+// fused rotation steps rotwin_apply.cu, matrot_apply.cu and rotwin_apply_bwd.cu;
+// window_apply.cu, rotmat_apply.cu and window_apply_top.cu (their products on
+// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu, rotmat_apply_bwd.cu,
+// matrot_apply_bwd.cu, adjoint_step.cu, adjoint_step_top.cu,
+// adjoint_rotmat.cu and adjoint_matrot.cu (on adjoint_tc.cuh's) take only
+// its maps, split-gram sum and the adjoint steps' gw = G0 W): a complex
+// matrix product C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
 // FMA on the CUDA cores.
 //
@@ -36,10 +35,8 @@
 // C is float or __nv_bfloat16 (rounded to nearest even at the store); the
 // arithmetic is float32 throughout.
 //
-// cgemm_pair_kernel runs two products that share one operand in one pass
-// (adjoint_step_top.cu's state and cotangent through one conj(W), its one
-// user left).  The maps of
-// the window layouts that several kernels use live at the end of this file.
+// The maps of the window layouts that several kernels use live at the end of
+// this file.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -218,60 +215,6 @@ cgemm_tile_kernel(const TA* __restrict__ a, int64_t a_plane,
   store_tile(c, c_plane, map, m0, n0, M, N, ty, tx, accr, acci);
 }
 
-// Two products that share one operand S, in one pass over it:
-//   SHARED_A:  C0 = S * P0 and C1 = S * P1  (S is the row operand A)
-//   otherwise: C0 = P0 * S and C1 = P1 * S  (S is the column operand B)
-// P0 and C0 are float (a state), P1 and C1 float or bfloat16 (a cotangent).
-// A block stages its slice of S once per depth stage and both streams' slices
-// beside it, and keeps two complex sub-tiles (64 accumulators) a thread.  The
-// adjoint step pulls the state and its cotangent back through one W^dagger
-// this way.  No split reduction: the depth is the window's K.
-template <class Map, bool SHARED_A, class TP1, class TC1>
-__global__ void __launch_bounds__(NT)
-cgemm_pair_kernel(const float* __restrict__ s, int64_t s_plane,
-                  const float* __restrict__ p0, const TP1* __restrict__ p1, int64_t p_plane,
-                  float* __restrict__ c0, TC1* __restrict__ c1, int64_t c_plane,
-                  int64_t M, int64_t N, int64_t KD, int64_t tiles_m, int64_t tiles_n, Map map) {
-  __shared__ __align__(16) float Ss[2][BK][BM + PAD];
-  __shared__ __align__(16) float P0s[2][BK][BM + PAD];
-  __shared__ __align__(16) float P1s[2][BK][BM + PAD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int64_t t = blockIdx.x;
-  const int64_t mt = Map::INNER_M ? t % tiles_m : t / tiles_n;
-  const int64_t nt = Map::INNER_M ? t / tiles_m : t % tiles_n;
-  const int64_t m0 = mt * BM;
-  const int64_t n0 = nt * BN;
-
-  float r0[TM][TN], i0[TM][TN], r1[TM][TN], i1[TM][TN];
-  zero_tile(r0, i0);
-  zero_tile(r1, i1);
-  for (int64_t k0 = 0; k0 < KD; k0 += BK) {
-    if (SHARED_A) {
-      stage_a(Ss, s, s_plane, map, m0, k0, M, KD, tid);
-      stage_b(P0s, p0, p_plane, map, n0, k0, N, KD, tid);
-      stage_b(P1s, p1, p_plane, map, n0, k0, N, KD, tid);
-    } else {
-      stage_a(P0s, p0, p_plane, map, m0, k0, M, KD, tid);
-      stage_a(P1s, p1, p_plane, map, m0, k0, M, KD, tid);
-      stage_b(Ss, s, s_plane, map, n0, k0, N, KD, tid);
-    }
-    __syncthreads();
-    if (SHARED_A) {
-      mac_stage(Ss, P0s, ty, tx, r0, i0);
-      mac_stage(Ss, P1s, ty, tx, r1, i1);
-    } else {
-      mac_stage(P0s, Ss, ty, tx, r0, i0);
-      mac_stage(P1s, Ss, ty, tx, r1, i1);
-    }
-    __syncthreads();
-  }
-  store_tile(c0, c_plane, map, m0, n0, M, N, ty, tx, r0, i0);
-  store_tile(c1, c_plane, map, m0, n0, M, N, ty, tx, r1, i1);
-}
-
 // out[e] = sum_z parts[z * count + e] for e < count, z = 0, 1, ... in order.
 // (static: this header is compiled into several translation units.)
 static __global__ void reduce_splits(const float* __restrict__ parts,
@@ -404,9 +347,9 @@ struct RotGramMap : RotCols {
 // Window on [0, k) then the rotation by r = n - k (matrot_apply.cu): the
 // post-rotation state is (B, K), B = 2^r, the transpose of the window's
 // (K, B) output.  Pullback gp[j, b] = sum_i conj(W[i, j]) g[b, i] into the
-// pre-rotation (K, B) layout (matrot_apply_bwd.cu on this tile,
-// adjoint_matrot.cu on adjoint_tc.cuh's): rows j, depth i, columns b; g is
-// read along i (the transposed load).
+// pre-rotation (K, B) layout (matrot_apply_bwd.cu and adjoint_matrot.cu, on
+// adjoint_tc.cuh's tile): rows j, depth i, columns b; g is read along i (the
+// transposed load).
 struct MatrotPullbackMap {
   static constexpr bool A_M_CONTIG = true, B_K_CONTIG = true;
   static constexpr bool CONJ_A = true, CONJ_B = false, INNER_M = true;
@@ -445,20 +388,6 @@ inline int launch_cgemm(const TA* a, int64_t a_plane, const TB* b, int64_t b_pla
   return (int)cudaGetLastError();
 }
 
-// Launch of cgemm_pair_kernel; returns 0 or a CUDA error.
-template <class Map, bool SHARED_A, class TP1, class TC1>
-inline int launch_cgemm_pair(const float* s, int64_t s_plane, const float* p0, const TP1* p1,
-                             int64_t p_plane, float* c0, TC1* c1, int64_t c_plane, int64_t M,
-                             int64_t N, int64_t KD, const Map& map, cudaStream_t stream) {
-  const int64_t tiles_m = ceil_div(M, BM);
-  const int64_t tiles_n = ceil_div(N, BN);
-  const int64_t blocks = tiles_m * tiles_n;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cgemm_pair_kernel<Map, SHARED_A, TP1, TC1><<<(unsigned)blocks, NT, 0, stream>>>(
-      s, s_plane, p0, p1, p_plane, c0, c1, c_plane, M, N, KD, tiles_m, tiles_n, map);
-  return (int)cudaGetLastError();
-}
-
 // Sum `splits` partials of `count` floats each into out, in order.
 inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t splits,
                          cudaStream_t stream) {
@@ -468,11 +397,12 @@ inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t 
   return (int)cudaGetLastError();
 }
 
-// The split backward of a fused rotation step (rotmat, rotwin, matrot) whose
-// pullback and gram have the maps P and G: gp = W^dagger g over M x N outputs
-// (W, the conjugated operand, is A when P conjugates A, else B), then the
-// gram over `depth` columns into the split partials in ws, summed in order
-// into gw.  Returns 0 or the first CUDA error.
+// The split backward of a fused rotation step (rotwin_apply_bwd.cu's; the
+// others run adjoint_tc.cuh's launch_fused_bwd_tc) whose pullback and gram
+// have the maps P and G: gp = W^dagger g over M x N outputs (W, the
+// conjugated operand, is A when P conjugates A, else B), then the gram over
+// `depth` columns into the split partials in ws, summed in order into gw.
+// Returns 0 or the first CUDA error.
 template <class P, class G, class TG, class TP>
 inline int launch_fused_bwd(const float* w, const TG* g, const float* x, TP* gp, float* gw,
                             float* ws, int64_t plane, int64_t K, int64_t M, int64_t N,

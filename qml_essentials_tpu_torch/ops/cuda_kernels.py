@@ -27,15 +27,16 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
-Eight kernels run their products on the tensor cores in split TF32
+Ten kernels run their products on the tensor cores in split TF32
 (float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says):
 ``window_apply``, ``rotmat_apply`` and ``window_apply_top`` on warpgroup
 ``wgmma`` (``csrc/forward_wgmma.cuh``, W split once a call into a workspace
 the wrapper allocates; shapes under :func:`forward_path` on the tile below),
-``window_apply_bwd`` and ``rotmat_apply_bwd`` (pullback and gram) and
-``adjoint_step``, ``adjoint_rotmat`` and ``adjoint_matrot`` (two pullbacks
-and the gram) on ``mma.sync`` (``csrc/adjoint_tc.cuh``); the other kernels
-multiply in float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
+``window_apply_bwd``, ``rotmat_apply_bwd`` and ``matrot_apply_bwd``
+(pullback and gram) and ``adjoint_step``, ``adjoint_step_top``,
+``adjoint_rotmat`` and ``adjoint_matrot`` (two pullbacks and the gram) on
+``mma.sync`` (``csrc/adjoint_tc.cuh``); the other kernels multiply in
+float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file

@@ -19,10 +19,10 @@ the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
 one).  The adjoint steps are held to the same three bounds: the rebuilt state
 and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
 cotangent 1e-4; the paired rotation is a permutation and must be exact.
-B1, B3 and B6 (on wgmma) and B2, B7, B12, B14 and B15 (on mma.sync)
-multiply in split TF32 on the tensor cores and are held to the same bounds;
-the ``test_split_tf32_*`` tests emulate that scheme on the CPU against
-float64.
+B1, B3 and B6 (on wgmma) and B2, B7, B9, B12, B13, B14 and B15 (on
+mma.sync) multiply in split TF32 on the tensor cores and are held to the
+same bounds; the ``test_split_tf32_*`` tests emulate that scheme on the CPU
+against float64.
 
 The machine with the card has no JAX, so only the Pallas tests import it;
 there the card's tests run with ``-m cuda --noconftest``.
@@ -225,20 +225,37 @@ def _split_tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
-def test_split_tf32_scheme_is_float32_grade(passes, within):
-    """The adjoint steps' split-TF32 scheme at K = 1024 (psi_prev = W^dagger
-    psi on 64 columns, four real products) is within CUDA_TOL of float64,
-    and plain TF32 (one pass) is not."""
-    K = 1024
-    w = torch.from_numpy(_unitary_pair(10, 3))
-    x = torch.from_numpy(_state(16, 4)).reshape(2, K, 64)
-    wr, wi = w[0].T.contiguous(), -w[1].T.contiguous()  # W^dagger = conj(W)^T
-    re = _split_tf32_product(wr, x[0], passes) - _split_tf32_product(wi, x[1], passes)
-    im = _split_tf32_product(wr, x[1], passes) + _split_tf32_product(wi, x[0], passes)
-    w64, x64 = w.double(), x.double()
-    ref_re = w64[0].T @ x64[0] + w64[1].T @ x64[1]
-    ref_im = w64[0].T @ x64[1] - w64[1].T @ x64[0]
+@pytest.mark.parametrize("view,passes,within",
+                         [("window", 3, True), ("window", 1, False), ("top", 3, True),
+                          ("top", 1, False)],
+                         ids=["3-True", "1-False", "top-3-True", "top-1-False"])
+def test_split_tf32_scheme_is_float32_grade(view, passes, within):
+    """The adjoint steps' split-TF32 pullback scheme (four real products) is
+    within CUDA_TOL of float64, and plain TF32 (one pass) is not: psi_prev =
+    W^dagger psi at K = 1024 on 64 columns (the window view), and
+    adjoint_step_top's psi_prev = psi conj(W) at the 22q plan's K = 64 on
+    1024 rows of the (A, K) view (the state the row operand, conj(W) the
+    column operand, as TopPullbackMap reads them)."""
+    k = 10 if view == "window" else 6
+    K = 2**k
+    w = torch.from_numpy(_unitary_pair(k, 3))
+    w64 = w.double()
+    if view == "window":
+        x = torch.from_numpy(_state(16, 4)).reshape(2, K, 64)
+        wr, wi = w[0].T.contiguous(), -w[1].T.contiguous()  # W^dagger = conj(W)^T
+        re = _split_tf32_product(wr, x[0], passes) - _split_tf32_product(wi, x[1], passes)
+        im = _split_tf32_product(wr, x[1], passes) + _split_tf32_product(wi, x[0], passes)
+        x64 = x.double()
+        ref_re = w64[0].T @ x64[0] + w64[1].T @ x64[1]
+        ref_im = w64[0].T @ x64[1] - w64[1].T @ x64[0]
+    else:
+        x = torch.from_numpy(_state(16, 4)).reshape(2, -1, K)  # (A, K) rows, 2**10 of them
+        wr, wi = w[0], -w[1]  # conj(W)
+        re = _split_tf32_product(x[0], wr, passes) - _split_tf32_product(x[1], wi, passes)
+        im = _split_tf32_product(x[1], wr, passes) + _split_tf32_product(x[0], wi, passes)
+        x64 = x.double()
+        ref_re = x64[0] @ w64[0] + x64[1] @ w64[1]
+        ref_im = x64[1] @ w64[0] - x64[0] @ w64[1]
     got, ref = torch.stack([re, im]).double(), torch.stack([ref_re, ref_im])
     assert (_rel(got, ref) <= CUDA_TOL) == within
 
@@ -251,7 +268,8 @@ def _trunc32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
-             split_g: bool = False, rows: bool = False) -> torch.Tensor:
+             split_g: bool = False, rows: bool = False,
+             x_rows: bool | None = None) -> torch.Tensor:
     """The gram gw = sum_c g[:, c] conj(x[:, c])^T on the split-TF32 tile,
     for a float32 x split into hi + lo and a g that is bfloat16 (exact in
     TF32, so its own hi) or, with `split_g`, float32 split the same way: the
@@ -263,14 +281,18 @@ def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
     added in order in float32.  g and x are (2, K, C), the window view's
     rows along the depth c (WindowGramMap), or with `rows` (2, C, K), depth
     first and the gram's rows contiguous, as TopGramMap reads the (B, K)
-    view: each 32-deep stage is then cut from 32 whole rows."""
+    view: each 32-deep stage is then cut from 32 whole rows.  `x_rows` (by
+    default `rows`) gives x's layout apart from g's: matrot_apply_bwd's
+    gram (MatrotGramMap) reads g from the (B, K) view and x from the
+    (K, B) one."""
+    x_rows = rows if x_rows is None else x_rows
     K, C = (g.shape[2], g.shape[1]) if rows else (g.shape[1], g.shape[2])
     xh = torch.stack([_tf32_rna(x[0]), -_tf32_rna(x[1])])  # conj(x): Im negated
     xl = torch.stack([_tf32_read(x[0] - _tf32_rna(x[0])), -_tf32_read(x[1] - _tf32_rna(x[1]))])
     chunk = C // splits
 
-    def steps(t):  # -> (2, splits, stages, 4, K, 8)
-        if rows:
+    def steps(t, by_rows):  # -> (2, splits, stages, 4, K, 8)
+        if by_rows:
             return t.reshape(2, splits, chunk // 32, 4, 8, K).transpose(-1, -2).double()
         return t.reshape(2, K, splits, chunk // 32, 4, 8).permute(0, 2, 3, 4, 1, 5).double()
 
@@ -279,7 +301,7 @@ def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
         terms = [(_tf32_read(g - gh), xh), (gh, xl), (gh, xh)]
     else:
         terms = [(g, xl), (g, xh)]
-    terms = [(steps(a), steps(b)) for a, b in terms[-passes:]]
+    terms = [(steps(a, rows), steps(b, x_rows)) for a, b in terms[-passes:]]
     acc = torch.zeros((2, splits, K, K), dtype=torch.float32)
     for st in range(chunk // 32):
         part = torch.zeros_like(acc)
@@ -301,9 +323,12 @@ def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
     "view,g_dtype,passes,within",
     [("window", "bfloat16", 2, True), ("window", "bfloat16", 1, False),
      ("matrot", "float32", 3, True), ("matrot", "float32", 1, False),
-     ("matrot", "bfloat16", 2, True), ("matrot", "bfloat16", 1, False)],
+     ("matrot", "bfloat16", 2, True), ("matrot", "bfloat16", 1, False),
+     ("matrot_bwd", "float32", 3, True), ("matrot_bwd", "float32", 1, False),
+     ("matrot_bwd", "bfloat16", 2, True), ("matrot_bwd", "bfloat16", 1, False)],
     ids=["2-True", "1-False", "matrot-f32-3-True", "matrot-f32-1-False", "matrot-bf16-2-True",
-         "matrot-bf16-1-False"])
+         "matrot-bf16-1-False", "matrot_bwd-f32-3-True", "matrot_bwd-f32-1-False",
+         "matrot_bwd-bf16-2-True", "matrot_bwd-bf16-1-False"])
 def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
     """The grams on the split-TF32 tile, over 2**14 columns at K = 64 in the
     kernel's chunks, stages and accumulator rounding, against float64: the
@@ -312,23 +337,30 @@ def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
     in two passes; and adjoint_matrot's G0 = sum_b lam[b, i] conj(psi[b,
     j]) over the 2**14 rows b of the (B, K) view, lam and psi laid out as
     the matrot step holds them and staged row by row as TopGramMap stages
-    them, a float32 lam split in three passes or a bfloat16 one in two.
-    The tile's order of sums is the window case's; what differs is the
-    operands' layout and the float32 lam's split.  Each is within
+    them, a float32 lam split in three passes or a bfloat16 one in two;
+    and matrot_apply_bwd's gw[i, j] = sum_b g[b, i] conj(x[j, b]), its mixed
+    layout (MatrotGramMap): g in the (B, K) view read along i, x in the
+    (K, B) view read along b, a float32 g in three passes or a bfloat16 one
+    in two.  The tile's order of sums is the window case's; what differs is
+    the operands' layout and the float32 operand's split.  Each is within
     CUDA_GRAM_TOL with all its passes, and not with one (x, and a float32 g,
     rounded to TF32 alone)."""
     K, C = 64, 2**14
-    rows = view == "matrot"  # lam and psi (2, B, K): the depth b first
+    rows = view in ("matrot", "matrot_bwd")  # g (lam) (2, B, K): the depth b first
+    x_rows = view == "matrot"  # psi (2, B, K); matrot_bwd's x is (2, K, B)
     rng = np.random.default_rng(5)
     g = torch.from_numpy(rng.normal(size=(2, C, K) if rows else (2, K, C)).astype(np.float32))
     g = g / g.norm()
     if g_dtype == "bfloat16":
         g = g.to(torch.bfloat16).float()
-    x = torch.from_numpy(_state(20, 6)).reshape((2, C, K) if rows else (2, K, C))
-    got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes, g_dtype == "float32", rows)
+    x = torch.from_numpy(_state(20, 6)).reshape((2, C, K) if x_rows else (2, K, C))
+    got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes, g_dtype == "float32", rows,
+                   x_rows)
     g64, x64 = g.double(), x.double()
     if rows:
-        g64, x64 = g64.transpose(1, 2), x64.transpose(1, 2)
+        g64 = g64.transpose(1, 2)
+    if x_rows:
+        x64 = x64.transpose(1, 2)
     ref = torch.stack([g64[0] @ x64[0].T + g64[1] @ x64[1].T,
                        g64[1] @ x64[0].T - g64[0] @ x64[1].T])
     assert (_rel(got.double(), ref) <= CUDA_GRAM_TOL) == within
@@ -653,9 +685,11 @@ def test_cuda_adjoint_step_matches_plain(cuda, n, a, k, lam_dtype, out_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,k", [(12, 1), (12, 2), (6, 6), (16, 6), (16, 8), (22, 6)])
+@pytest.mark.parametrize("n,k", [(12, 1), (12, 2), (6, 6), (16, 6), (16, 8), (22, 6), (7, 3)])
 def test_cuda_adjoint_step_top_matches_plain(cuda, n, k, lam_dtype, out_dtype):
-    """Top windows: K = 2, a full-width window (one row), the 22q K = 64 one."""
+    """Top windows: K = 2 and 4 (the split-TF32 tile's scalar staging), a
+    full-width window (one row), the 22q K = 64 one, K = 8 with A = 16 (the
+    smallest 16-byte copies)."""
     out_dtype = getattr(torch, out_dtype)
     w, lam, psi = _bwd_inputs(cuda, n, k, 5 * n + k, getattr(torch, lam_dtype))
     before = cuda_kernels.launch_counts()["adjoint_step_top"]
@@ -723,9 +757,14 @@ ROTMAT_EXTRA = [
     ("rotmat", 24, 8, 8), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3), ("rotmat", 11, 3, 3),
 ]
 
+# matrot beyond FUSED_CASES, on both sides of B9's 16-byte copy rule
+# (K >= 8 and B >= 8): K = 8 with B = 16 (copies), K = 16 with B = 4 and
+# K = 4 with B = 8 (scalar staging).
+MATROT_EXTRA = [("matrot", 7, 4, 3), ("matrot", 6, 2, 4), ("matrot", 5, 3, 2)]
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA)
 def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
     x = torch.from_numpy(_state(n, n + r)).to(cuda)
     w = torch.from_numpy(_unitary_pair(k, r)).to(cuda)
@@ -741,7 +780,7 @@ def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA)
 def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, g, x = _bwd_inputs(cuda, n, k, 11 * n + r, getattr(torch, g_dtype))
@@ -760,7 +799,8 @@ def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_d
 @pytest.mark.parametrize("lam_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind,n,r,k",
-                         [c for c in FUSED_CASES if c[0] != "rotwin"] + ROTMAT_EXTRA)
+                         [c for c in FUSED_CASES if c[0] != "rotwin"] + ROTMAT_EXTRA
+                         + MATROT_EXTRA)
 def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, lam, psi = _bwd_inputs(cuda, n, k, 13 * n + r, getattr(torch, lam_dtype))
@@ -777,14 +817,19 @@ def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dt
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,lam_dtype", [("step", "float32"), ("step", "bfloat16"),
                                             ("rotmat", "float32"), ("rotmat", "bfloat16"),
-                                            ("matrot", "float32"), ("matrot", "bfloat16")])
+                                            ("matrot", "float32"), ("matrot", "bfloat16"),
+                                            ("top", "float32"), ("top", "bfloat16")])
 def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
-    """Two launches of B12 / B14 / B15 on the same inputs give the same bits:
-    the gram's split partials are summed in a fixed order, with no atomics."""
+    """Two launches of B12 / B13 / B14 / B15 on the same inputs give the same
+    bits: the gram's split partials are summed in a fixed order, with no
+    atomics."""
     n, k = 20, 8
     w, lam, psi = _bwd_inputs(cuda, n, k, 17, getattr(torch, lam_dtype))
     if kind == "step":
         run = lambda: cuda_kernels.adjoint_step(w, psi, lam, 3, k, n, torch.bfloat16)  # noqa: E731
+    elif kind == "top":
+        run = lambda: cuda_kernels.adjoint_step_top(  # noqa: E731
+            w, psi, lam, k, n, torch.bfloat16)
     elif kind == "rotmat":
         run = lambda: cuda_kernels.adjoint_rotmat(w, psi, lam, k, n, torch.bfloat16)  # noqa: E731
     else:
@@ -797,16 +842,20 @@ def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,g_dtype", [("window", "float32"), ("window", "bfloat16"),
-                                          ("rotmat", "float32"), ("rotmat", "bfloat16")])
+                                          ("rotmat", "float32"), ("rotmat", "bfloat16"),
+                                          ("matrot", "float32"), ("matrot", "bfloat16")])
 def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
-    """Two launches of B2 / B7 on the same inputs give the same bits: the
-    gram's split partials are summed in a fixed order, with no atomics."""
+    """Two launches of B2 / B7 / B9 on the same inputs give the same bits:
+    the gram's split partials are summed in a fixed order, with no atomics."""
     n, k = 20, 8
     w, g, x = _bwd_inputs(cuda, n, k, 19, getattr(torch, g_dtype))
     if kind == "window":
         run = lambda: cuda_kernels.window_apply_bwd(w, g, x, 3, k, n, torch.bfloat16)  # noqa: E731
-    else:
+    elif kind == "rotmat":
         run = lambda: cuda_kernels.rotmat_apply_bwd(w, g, x, k, n, torch.bfloat16)  # noqa: E731
+    else:
+        run = lambda: cuda_kernels.matrot_apply_bwd(  # noqa: E731
+            w, g, x, n - k, n, torch.bfloat16)
     first, second = run(), run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -4,28 +4,35 @@
     python3 tools/kernel_timing.py [--root DIR] [--n 24] [--kernels a,b] [--max-k K]
 
 ``--kernels`` picks from B1 ``window_apply``, B6 ``rotmat_apply``, B3
-``window_apply_top`` and B15 ``adjoint_matrot`` (default: the first two);
-each runs at every call of its kind in the n-qubit Circuit_19 plan
-(``chip_smoke.plan_shapes``; B15 with the cotangent dtypes of one adjoint
-gradient, ``chip_smoke.backward_calls``), calls whose K = 2^k is above
-``--max-k`` left out.  The kernels come from the package under ``--root`` (by
+``window_apply_top``, B15 ``adjoint_matrot``, B9 ``matrot_apply_bwd`` and B13
+``adjoint_step_top`` (default: the first two); each runs at every call of its
+kind in the n-qubit Circuit_19 plan (``chip_smoke.plan_shapes``; B9, B13 and
+B15 with the cotangent dtypes of one gradient, ``chip_smoke.backward_calls``),
+calls whose K = 2^k is above ``--max-k`` left out.  B3 and B13 need a plan
+with a top window (``--n 22``), B9 and B15 one with matrot steps (``--n
+24``).  The kernels come from the package under ``--root`` (by
 default this checkout); the shapes, the library products and the timing come
 from this checkout's ``chip_smoke.py``, so that pointing ``--root`` at a
 second tree compares two versions of the kernels by one method in one call
 on one card.  It builds the kernels, prints ptxas's lines for the forward
 wgmma kernel and the top-window and matrot kernels, then for every call:
 the kernel against its plain version in float64 (max|err| / max|ref|: 1e-5;
-for B15 the rebuilt state 1e-5, a float32 cotangent 1e-5, a bfloat16 one
-one ulp, gw 1e-4), its time and the cuBLAS complex64 product's of the same
-shapes (``torch.matmul``, TF32 off), and for the forward kernels the TFLOP/s
-issued in split TF32 (3 passes x 8K flops an amplitude).  B3 is also timed
-on the split-TF32 tile (``qml_window_apply_top_tile``, where the tree has
-it), B15 beside B14 ``adjoint_rotmat`` at the same K and column count.
+for B9, B13 and B15 the rebuilt state 1e-5, a float32 cotangent 1e-5, a
+bfloat16 one one ulp, gw 1e-4), its time and the cuBLAS complex64 products'
+of the same shapes (``torch.matmul``, TF32 off), and for the forward kernels
+the TFLOP/s issued in split TF32 (3 passes x 8K flops an amplitude).  B3 is
+also timed on the split-TF32 tile (``qml_window_apply_top_tile``, where the
+tree has it), B15 beside B14 ``adjoint_rotmat`` at the same K and column
+count, B9 beside B7 ``rotmat_apply_bwd`` and B13 beside B12 ``adjoint_step``
+(the window on ``[0, k)``) likewise.
 Times are ``chip_smoke._events_ms`` (CUDA events, best of 3 means of 10
 after a warm-up, as phase 6 takes them), each also "held": the calls queued
 behind a spinning kernel, device time without the host's launch gaps; and
 "host": the host's time to issue one call while the stream is held (best of
-3 means of 10), which bounds the unheld time from below.
+3 means of 10), which bounds the unheld time from below.  For B9, B13 and
+B15 the device time of each CUDA kernel a call launches (the products, the
+split gram's ordered sum, G0 W) follows, from ``torch.profiler`` over 10
+calls.
 Exits non-zero without CUDA or on a failed check.
 """
 
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +49,8 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-KINDS = ("window_apply", "rotmat_apply", "window_apply_top", "adjoint_matrot")
+KINDS = ("window_apply", "rotmat_apply", "window_apply_top", "adjoint_matrot",
+         "matrot_apply_bwd", "adjoint_step_top")
 TOL = 1e-5
 TOL_GW = 1e-4
 
@@ -54,6 +63,20 @@ def _load_chip_smoke(root: Path):
     sys.modules["chip_smoke"] = cs
     spec.loader.exec_module(cs)
     return cs
+
+
+def _short(kernel: str) -> str:
+    """A CUDA kernel's name as the profiler gives it, cut to its function
+    and template arguments: tc_cgemm_kernel<TopPullbackMap,f32,bf16,bf16>."""
+    m = re.match(r"(?:void )?(?:qml::)?(?:tc::)?(\w+)(?:<([^>]*)>)?", kernel)
+    if m is None:
+        return kernel[:48]
+    name, args = m.group(1)[:48], m.group(2)
+    if args:
+        kinds = {"float": "f32", "__nv_bfloat16": "bf16"}
+        args = [a.strip().split("::")[-1] for a in args.split(",")]
+        name += "<" + ",".join(kinds.get(a, a) for a in args if a not in ("true", "false")) + ">"
+    return name
 
 
 def _rel(got, ref) -> float:
@@ -110,6 +133,28 @@ def main() -> int:
     def times(fn) -> tuple:
         return cs._events_ms(fn), cs._events_ms(fn, hold=True), host_ms(fn)
 
+    def parts(fn, reps: int = 10) -> str:
+        """Device us a call spends in each CUDA kernel it launches, from
+        torch.profiler over `reps` calls, in launch order."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spent = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = _short(e.name)
+                spent[key] = spent.get(key, 0.0) + e.time_range.elapsed_us() / reps
+        if not spent:
+            return "    parts: the profiler saw no device time"
+        return "    parts: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + \
+            f" (sum {sum(spent.values()):.1f} us)"
+
     def us(t: tuple) -> str:
         return f"{t[0] * 1e3:8.1f} us (held {t[1] * 1e3:8.1f}, host {t[2] * 1e3:6.1f})"
 
@@ -158,29 +203,63 @@ def main() -> int:
         tot[0] += t_k[0]
         tot[1] += t_l[0]
 
-    if "adjoint_matrot" in kinds:
-        g = cs._state(n, gen)
-        tot = totals.setdefault("adjoint_matrot", [0.0, 0.0])
-        for kind, r, l_dt, out_dt in cs.backward_calls(shapes["steps"]):
-            if kind != "matrot" or 2 ** (n - r) > args.max_k:
-                continue
-            k = n - r
-            w, lam = cs._unitary(k, rng), g.to(l_dt)
-            got = ck.adjoint_matrot(w, x, lam, r, n, out_dt)
-            ref = kn.adjoint_matrot_plain(w.double(), x.double(), lam.double(), r, n,
-                                          torch.float64)
-            rels = [_rel(a, b) for a, b in zip(got, ref)]
-            lam_tol = TOL if out_dt == torch.float32 else 2.0**-8
-            ok &= rels[0] <= TOL and rels[1] <= lam_tol and rels[2] <= TOL_GW
-            del got, ref
-            t_k = times(lambda: ck.adjoint_matrot(w, x, lam, r, n, out_dt))
-            t_l = times(cs.lib_adjoint_matrot(w, x, lam, r, n))
-            t_14 = times(lambda: ck.adjoint_rotmat(w, x, lam, k, n, out_dt))
-            tot[0] += t_k[0]
-            tot[1] += t_l[0]
-            print(f"  adjoint_matrot r={r} k={k} lam={cs._dt(l_dt)} out={cs._dt(out_dt)} "
-                  f"rel {rels[0]:.1e}/{rels[1]:.1e}/{rels[2]:.1e}  kernel {us(t_k)}  "
-                  f"cuBLAS {us(t_l)}  adjoint_rotmat (same K, columns) {us(t_14)}", flush=True)
+    def backward_row(name, label, kern, ref, lib_fn, out_dt, datum_label, datum):
+        """One backward or adjoint call: its outputs against float64 (the
+        state-sized ones 1e-5, one ulp in bfloat16; gw 1e-4), its times,
+        cuBLAS's and the datum's on the same shapes; returns whether it
+        held."""
+        got = kern()
+        rels = [_rel(a, b) for a, b in zip(got, ref)]
+        tols = [TOL] * (len(rels) - 2) + [TOL if out_dt == torch.float32 else 2.0**-8, TOL_GW]
+        del got
+        t_k, t_l = times(kern), times(lib_fn)
+        tot = totals.setdefault(name, [0.0, 0.0])
+        tot[0] += t_k[0]
+        tot[1] += t_l[0]
+        print(f"  {name} {label} rel {'/'.join(f'{r:.1e}' for r in rels)}  kernel {us(t_k)}  "
+              f"cuBLAS {us(t_l)}  {datum_label} {us(times(datum))}", flush=True)
+        print(parts(kern), flush=True)
+        return all(r <= t for r, t in zip(rels, tols))
+
+    g = cs._state(n, gen)
+    for kind, shape, l_dt, out_dt in cs.backward_calls(shapes["steps"]):
+        lam = g.to(l_dt)
+        tag = f"{cs._dt(l_dt)} out={cs._dt(out_dt)}"
+        if kind == "matrot" and 2 ** (n - shape) <= args.max_k:
+            r, k = shape, n - shape
+            w = cs._unitary(k, rng)
+            if "adjoint_matrot" in kinds:
+                ref = kn.adjoint_matrot_plain(w.double(), x.double(), lam.double(), r, n,
+                                              torch.float64)
+                ok &= backward_row(
+                    "adjoint_matrot", f"r={r} k={k} lam={tag}",
+                    lambda: ck.adjoint_matrot(w, x, lam, r, n, out_dt), ref,
+                    cs.lib_adjoint_matrot(w, x, lam, r, n), out_dt,
+                    "adjoint_rotmat (same K, columns)",
+                    lambda: ck.adjoint_rotmat(w, x, lam, k, n, out_dt))
+                del ref
+            if "matrot_apply_bwd" in kinds:
+                ref = kn.matrot_apply_bwd_plain(w.double(), lam.double(), x.double(), r, n,
+                                                torch.float64)
+                ok &= backward_row(
+                    "matrot_apply_bwd", f"r={r} k={k} g={tag}",
+                    lambda: ck.matrot_apply_bwd(w, lam, x, r, n, out_dt), ref,
+                    cs.lib_matrot_bwd(w, lam, x, r, n), out_dt,
+                    "rotmat_apply_bwd (same K, columns)",
+                    lambda: ck.rotmat_apply_bwd(w, lam, x, k, n, out_dt))
+                del ref
+        if kind == "top" and "adjoint_step_top" in kinds and 2 ** shape[1] <= args.max_k:
+            k = shape[1]
+            w = cs._unitary(k, rng)
+            ref = kn.adjoint_step_top_plain(w.double(), x.double(), lam.double(), k, n,
+                                            torch.float64)
+            ok &= backward_row(
+                "adjoint_step_top", f"k={k} lam={tag}",
+                lambda: ck.adjoint_step_top(w, x, lam, k, n, out_dt), ref,
+                cs.lib_adjoint_top(w, x, lam, k, n), out_dt,
+                "adjoint_step a=0 (same K, columns)",
+                lambda: ck.adjoint_step(w, x, lam, 0, k, n, out_dt))
+            del ref
     for name, (t_k, t_l) in totals.items():
         print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms per {n}q request")
     print(f"card: {smi}")
