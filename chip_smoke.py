@@ -17,18 +17,19 @@ phase:
    (one nvcc per source, in parallel), with ptxas's register and
    shared-memory use and any wgmma warning; the SASS of the split-TF32 tile
    (``csrc/adjoint_tc.cuh``, under window_apply_bwd, rotmat_apply_bwd,
-   matrot_apply_bwd, adjoint_step, adjoint_step_top, adjoint_rotmat and
-   adjoint_matrot, and window_apply / rotmat_apply / window_apply_top's
-   shapes under the wgmma kernel's rule) must hold tensor-core HMMA
-   instructions in every instantiation (counted with cuobjdump, named by
-   their maps; RotGramMap's, rotmat_apply_bwd's gram, MatrotPullbackMap and
-   TopGramMap, adjoint_matrot's, MatrotGramMap, matrot_apply_bwd's gram,
-   TopPullbackMap, adjoint_step_top's pullback, and TopMap,
+   matrot_apply_bwd, rotwin_apply_bwd, adjoint_step, adjoint_step_top,
+   adjoint_rotmat and adjoint_matrot, and window_apply / rotmat_apply /
+   matrot_apply / window_apply_top's shapes under the wgmma kernel's rule)
+   must hold tensor-core HMMA instructions in every instantiation (counted
+   with cuobjdump, named by their maps; RotGramMap's, the rotmat and rotwin
+   backwards' gram, MatrotPullbackMap and TopGramMap, adjoint_matrot's,
+   MatrotGramMap, matrot_apply_bwd's gram, TopPullbackMap,
+   adjoint_step_top's pullback, MatrotMap, matrot_apply's, and TopMap,
    window_apply_top's, among them), and the forward wgmma kernel
-   (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply and
+   (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply, matrot_apply and
    window_apply_top) warpgroup HGMMA instructions in every instantiation,
-   under each of its maps (WindowMap, RotWindowMap, TopForwardMap); the
-   22q/24q/26q plans are printed (24q: 14 steps);
+   under each of its maps (WindowMap, RotWindowMap, MatrotForwardMap,
+   TopForwardMap); the 22q/24q/26q plans are printed (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -37,16 +38,19 @@ phase:
    adjoint steps the same, with the rebuilt state at 1e-5; rotation and
    paired rotation, float32 and bfloat16: bit-exact).  The fused kernels run
    at the 22q, 24q and 26q plans' rotmat / matrot / rotwin shapes, and
-   matrot's at K = 512 on a 26q plane and on both sides of its 16-byte copy
-   rule (K = 8 / B = 16; K = 16 / B = 4, K = 4 / B = 8); adjoint_step_top
+   matrot's at K = 512 on a 26q plane, on both sides of its 16-byte copy
+   rule (K = 8 / B = 16; K = 16 / B = 4, K = 4 / B = 8) and of the wgmma
+   kernel's (K = 256 and 8 with B = 32; K = 256 / B = 16), rotwin's on both
+   sides of its backward's copy rule (L = 8 with X = 32 and 8; X = 4,
+   L = 4); adjoint_step_top
    at the 22q plan's top window, K = 64 on 24q and 26q planes and K = 8 with
    A = 16.
    window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
    on both sides of the wgmma kernel's shape rule (B = 2 and 64),
    window_apply_top at K = 8 and 16 on both sides of it (A = 16; 512 and
    256); the library's rule (``cuda_kernels.forward_path``) must send every
-   window, rotmat and top-window shape of the 22q, 24q and 26q plans to the
-   wgmma kernel.  At the 22q plan's top window, window_apply_top is timed
+   window, rotmat, matrot and top-window shape of the 22q, 24q and 26q plans
+   to the wgmma kernel.  At the 22q plan's top window, window_apply_top is timed
    once beside the split-TF32 mma.sync tile on the same shape (the datum its
    wgmma route replaced, through the library's ``window_apply_top_tile``
    entry, held to the plain version too) and cuBLAS, each also with its
@@ -126,13 +130,13 @@ phase:
    on the tensor cores in split TF32 (``TC_KERNELS``) it is max(passes x 8K
    flops an amplitude / 495 TFLOP/s + CUDA-core flops / 67 TFLOP/s,
    bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
-   and 2 for one with a bfloat16 cotangent: window_apply, rotmat_apply and
-   window_apply_top (one product, on wgmma) 3 a call; adjoint_step,
-   adjoint_step_top, adjoint_rotmat and adjoint_matrot (three products and
-   the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a call with a float32
-   lambda, 7 with bfloat16; window_apply_bwd, rotmat_apply_bwd and
-   matrot_apply_bwd (two products) 6 a call with a float32 g, 4 with
-   bfloat16.  The float32-core figure is printed beside it.
+   and 2 for one with a bfloat16 cotangent: window_apply, rotmat_apply,
+   matrot_apply and window_apply_top (one product, on wgmma) 3 a call;
+   adjoint_step, adjoint_step_top, adjoint_rotmat and adjoint_matrot (three
+   products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a call
+   with a float32 lambda, 7 with bfloat16; window_apply_bwd,
+   rotmat_apply_bwd, matrot_apply_bwd and rotwin_apply_bwd (two products) 6
+   a call with a float32 g, 4 with bfloat16.  The float32-core figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -174,11 +178,11 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first three) and
+# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first four) and
 # csrc/adjoint_tc.cuh.
-TC_KERNELS = ("window_apply", "rotmat_apply", "window_apply_top", "window_apply_bwd",
-              "rotmat_apply_bwd", "matrot_apply_bwd", "adjoint_step", "adjoint_step_top",
-              "adjoint_rotmat", "adjoint_matrot")
+TC_KERNELS = ("window_apply", "rotmat_apply", "matrot_apply", "window_apply_top",
+              "window_apply_bwd", "rotmat_apply_bwd", "matrot_apply_bwd", "rotwin_apply_bwd",
+              "adjoint_step", "adjoint_step_top", "adjoint_rotmat", "adjoint_matrot")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -438,18 +442,20 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
 
 # The maps the split-TF32 tile is instantiated with: the pullbacks and grams
 # of window_apply_bwd / adjoint_step (window layout), rotmat_apply_bwd /
-# adjoint_rotmat (rotation layout; RotGramMap only under rotmat_apply_bwd),
-# matrot_apply_bwd / adjoint_matrot (MatrotPullbackMap; MatrotGramMap, the
-# saved gram, only under matrot_apply_bwd) and adjoint_step_top
-# (TopPullbackMap; TopGramMap, also adjoint_matrot's), and window_apply_top's
-# product at the shapes off the wgmma kernel (TopMap).
+# rotwin_apply_bwd / adjoint_rotmat (rotation layout; RotGramMap only under
+# the saved backwards), matrot_apply_bwd / adjoint_matrot
+# (MatrotPullbackMap; MatrotGramMap, the saved gram, only under
+# matrot_apply_bwd) and adjoint_step_top (TopPullbackMap; TopGramMap, also
+# adjoint_matrot's), and the products of matrot_apply (MatrotMap) and
+# window_apply_top (TopMap) at the shapes off the wgmma kernel.
 TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap",
-           "MatrotPullbackMap", "MatrotGramMap", "TopPullbackMap", "TopGramMap", "TopMap")
+           "MatrotPullbackMap", "MatrotGramMap", "TopPullbackMap", "TopGramMap", "TopMap",
+           "MatrotMap")
 
 
 # The maps the forward wgmma kernel is instantiated with: window_apply's,
-# rotmat_apply's and window_apply_top's.
-WGMMA_MAPS = ("WindowMap", "RotWindowMap", "TopForwardMap")
+# rotmat_apply's, matrot_apply's and window_apply_top's.
+WGMMA_MAPS = ("WindowMap", "RotWindowMap", "MatrotForwardMap", "TopForwardMap")
 
 
 def _has_map(function: str, m: str) -> bool:
@@ -755,17 +761,20 @@ def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
 
 
 def check_forward_path(ck, shapes: dict) -> None:
-    """Every window, rotmat and top-window shape of the 22q, 24q and 26q
-    plans takes the forward wgmma kernel, by the library's own shape rule."""
+    """Every window, rotmat, matrot and top-window shape of the 22q, 24q and
+    26q plans takes the forward wgmma kernel, by the library's own shape
+    rule."""
     calls = {(2**k, 2 ** (w - a - k)) for w in shapes for a, k in shapes[w]["window_apply"]}
     calls |= {(2**r, 2 ** (w - r)) for w in shapes for r in shapes[w]["rotmat_apply"]}
+    matrots = {(2 ** (w - r), 2**r) for w in shapes for r in shapes[w]["matrot_apply"]}
     tops = {(2**k, 2 ** (w - k)) for w in shapes for k in shapes[w]["window_apply_top"]}
     _check(bool(tops), "no top window in the plans")
-    calls |= tops
+    _check(bool(matrots), "no matrot step in the plans")
+    calls |= matrots | tops
     off = sorted((K, run) for K, run in calls if not ck.forward_path(K, run))
     log(f"  forward wgmma path: {len(calls) - len(off)} of {len(calls)} (K, column run) shapes "
-        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat steps and top "
-        f"windows ({len(tops)} top-window shapes)")
+        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat and matrot steps "
+        f"and top windows ({len(matrots)} matrot and {len(tops)} top-window shapes)")
     _check(not off, f"plan shapes (K, run) off the forward wgmma kernel: {off}")
 
 
@@ -869,12 +878,19 @@ def phase_parity(shapes: dict) -> dict:
     # rotmat's K = 2 / X = 32, K = 4 / X = 8, K = 8 / X = 2 (scalar staging),
     # K = 8 / X = 256 (16-byte copies) and K = 256 / X = 2, backward and adjoint;
     # matrot's K = 8 / B = 16 (16-byte copies), K = 16 / B = 4 and K = 4 / B = 8
-    # (scalar staging), and K = 512 on a 26q plane.
+    # (scalar staging), K = 256 and K = 8 with B = 32 (the forward's wgmma
+    # kernel at its column and K edges), K = 256 / B = 16 (its tile), and
+    # K = 512 on a 26q plane; rotwin's backward with L = 8 / K = 128 / X = 32
+    # and L = 8 / X = 8 (16-byte copies, a column tile across a-groups), X = 4
+    # and L = 4 (scalar staging), L = 2 / K = 8 and L = 128 / X = 8.
     check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3),
                          ("rotmat", 11, 3, 3), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
                          ("matrot", 9, 1, 8), ("matrot", 7, 4, 3), ("matrot", 6, 2, 4),
-                         ("matrot", 5, 3, 2), ("matrot", 26, 17, 9), ("rotwin", 6, 1, 3),
-                         ("rotwin", 10, 2, 5), ("rotwin", 12, 7, 9)], gen, rng)
+                         ("matrot", 5, 3, 2), ("matrot", 13, 5, 8), ("matrot", 8, 5, 3),
+                         ("matrot", 12, 4, 8), ("matrot", 26, 17, 9), ("rotwin", 6, 1, 3),
+                         ("rotwin", 10, 2, 5), ("rotwin", 12, 7, 9), ("rotwin", 12, 3, 7),
+                         ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5), ("rotwin", 9, 2, 5)],
+                gen, rng)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
@@ -2021,7 +2037,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add("rotwin_apply_bwd", f"n={n} r={r} k={k} {tag}",
                     lambda: ck.rotwin_apply_bwd(w, gg, x, r, k, n, out_dt),
                     lambda: kn.rotwin_apply_bwd_plain(w, gg, x, r, k, n, out_dt),
-                    lib_rotwin_bwd(ck, w, gg, x, r, k, n), work_bwd(2**k, n, eg, eo))
+                    lib_rotwin_bwd(ck, w, gg, x, r, k, n), work_bwd(2**k, n, eg, eo),
+                    tc=work_bwd_tc(2**k, n, eg))
             else:
                 k = shape if kind == "rotmat" else n - shape
                 w = _unitary(k, rng)

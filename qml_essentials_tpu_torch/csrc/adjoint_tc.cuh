@@ -1,8 +1,9 @@
 // Tensor-core tile of the adjoint steps (adjoint_step.cu, adjoint_step_top.cu,
 // adjoint_rotmat.cu, adjoint_matrot.cu), of the saved-residual backwards
-// window_apply_bwd.cu, rotmat_apply_bwd.cu and matrot_apply_bwd.cu, and of
-// window_apply.cu, rotmat_apply.cu and window_apply_top.cu at the shapes
-// under forward_wgmma.cuh's rule (which shares split() below): one complex
+// window_apply_bwd.cu, rotmat_apply_bwd.cu, matrot_apply_bwd.cu and
+// rotwin_apply_bwd.cu, and of window_apply.cu, rotmat_apply.cu,
+// matrot_apply.cu and window_apply_top.cu at the shapes under
+// forward_wgmma.cuh's rule (which shares split() below): one complex
 // matrix product C = op(A) * op(B) on real-split planes (each
 // operand a Re plane followed, `plane` elements later, by an Im plane), on
 // Hopper's tensor cores at float32-grade accuracy.
@@ -38,8 +39,10 @@
 // being B of the window view or X of the rotmat layout; the top window's
 // and the matrot adjoint step's operands all run along the window index, so
 // theirs is K for both (window_apply_top.cu, adjoint_step_top.cu,
-// adjoint_matrot.cu), and the matrot backward's is B, along which its gram
-// reads x (matrot_apply_bwd.cu).  Other shapes (K = 2 or 4, B = 2 or 4) take
+// adjoint_matrot.cu), the matrot steps' is B, along which x is read
+// (matrot_apply.cu, matrot_apply_bwd.cu), and the rotwin backward's is the
+// shorter of X and L, the run of x_pre along the window columns
+// (rotwin_apply_bwd.cu).  Other shapes (K = 2 or 4, B = 2 or 4) take
 // the same kernel with VEC = false: masked scalar loads into the same ring,
 // no copy in flight.  Either way out-of-range rows,
 // columns and depths are zero, so every power-of-two K from 2 up and every
@@ -400,12 +403,12 @@ inline int launch_adjoint_tc(const float* w, const float* psi, const TL* lam, fl
 }
 
 // The saved-residual backward of a window or fused rotation step on the
-// tensor cores (cgemm_tile.cuh's launch_fused_bwd on this tile): the
-// pullback gp = W^dagger g through the map P over M x N outputs (W is the
-// conjugated operand: A when P conjugates A, else B), then the gram of g and
-// the saved input x over `depth` columns through G into the split partials
-// in ws, summed in order into gw.  The saved gram is gw itself: no G0 W.
-// vec is tc_vec_shape(K, run), run the state's contiguous column run.
+// tensor cores (window_apply_bwd.cu and the rotmat, matrot and rotwin
+// backwards): the pullback gp = W^dagger g through the map P over M x N
+// outputs (W is the conjugated operand: A when P conjugates A, else B),
+// then the gram of g and the saved input x over `depth` columns through G
+// into the split partials in ws, summed in order into gw.  The saved gram
+// is gw itself: no G0 W.  vec is the launcher's shape rule (the note above).
 // Returns 0 or the first CUDA error.
 template <class P, class G, class TG, class TP>
 inline int launch_fused_bwd_tc(const float* w, const TG* g, const float* x, TP* gp, float* gw,

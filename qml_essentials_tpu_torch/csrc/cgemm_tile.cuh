@@ -1,9 +1,10 @@
 // Shared block tile of the window kernels (window_apply_top_bwd.cu and the
-// fused rotation steps rotwin_apply.cu, matrot_apply.cu and rotwin_apply_bwd.cu;
-// window_apply.cu, rotmat_apply.cu and window_apply_top.cu (their products on
-// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu, rotmat_apply_bwd.cu,
-// matrot_apply_bwd.cu, adjoint_step.cu, adjoint_step_top.cu,
-// adjoint_rotmat.cu and adjoint_matrot.cu (on adjoint_tc.cuh's) take only
+// fused rotation step rotwin_apply.cu, and the chain kernels' gw; the
+// others, window_apply.cu, rotmat_apply.cu, matrot_apply.cu and
+// window_apply_top.cu (their products on forward_wgmma.cuh's tensor cores),
+// window_apply_bwd.cu, rotmat_apply_bwd.cu, matrot_apply_bwd.cu,
+// rotwin_apply_bwd.cu, adjoint_step.cu, adjoint_step_top.cu,
+// adjoint_rotmat.cu and adjoint_matrot.cu (on adjoint_tc.cuh's), take only
 // its maps, split-gram sum and the adjoint steps' gw = G0 W): a complex
 // matrix product C = op(A) * op(B) on real-split planes (each operand
 // is a Re plane followed, `plane` elements later, by an Im plane), with fp32
@@ -395,29 +396,6 @@ inline int launch_reduce(const float* parts, float* out, int64_t count, int64_t 
   reduce_splits<<<(unsigned)ceil_div(count, threads), threads, 0, stream>>>(
       parts, out, count, splits);
   return (int)cudaGetLastError();
-}
-
-// The split backward of a fused rotation step (rotwin_apply_bwd.cu's; the
-// others run adjoint_tc.cuh's launch_fused_bwd_tc) whose pullback and gram
-// have the maps P and G: gp = W^dagger g over M x N outputs (W, the
-// conjugated operand, is A when P conjugates A, else B), then the gram over
-// `depth` columns into the split partials in ws, summed in order into gw.
-// Returns 0 or the first CUDA error.
-template <class P, class G, class TG, class TP>
-inline int launch_fused_bwd(const float* w, const TG* g, const float* x, TP* gp, float* gw,
-                            float* ws, int64_t plane, int64_t K, int64_t M, int64_t N,
-                            int64_t depth, int64_t splits, const P& pull, const G& gram,
-                            cudaStream_t stream) {
-  int code;
-  if constexpr (P::CONJ_A)
-    code = launch_cgemm(w, K * K, g, plane, gp, plane, 0, M, N, K, 1, pull, stream);
-  else
-    code = launch_cgemm(g, plane, w, K * K, gp, plane, 0, M, N, K, 1, pull, stream);
-  if (code != 0) return code;
-  code = launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, depth, splits, gram,
-                      stream);
-  if (code != 0) return code;
-  return launch_reduce(ws, gw, 2 * K * K, splits, stream);
 }
 
 // The adjoint steps' matrix cotangent from their split gram partials in ws:

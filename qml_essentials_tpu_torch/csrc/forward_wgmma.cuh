@@ -1,5 +1,6 @@
 // Forward window product on Hopper's warpgroup tensor cores (window_apply.cu,
-// rotmat_apply.cu, window_apply_top.cu): y[i, c] = sum_j W[i, j] x[j, c] for a
+// rotmat_apply.cu, matrot_apply.cu, window_apply_top.cu):
+// y[i, c] = sum_j W[i, j] x[j, c] for a
 // (2, K, K) window W and the state's columns c, on real-split planes, at
 // float32-grade accuracy.
 //
@@ -62,7 +63,7 @@
 // and written with 16-byte stores along the output's contiguous index: the
 // columns c ([Re/Im][row i][column c], padded), or, for a map whose output
 // is contiguous along its rows (C_M_CONTIG: the top window's y[a, i] at
-// a K + i), the rows i ([Re/Im][column c][row i], padded to 72 floats a
+// a K + i, the matrot step's y[b, i] at b K + i), the rows i ([Re/Im][column c][row i], padded to 72 floats a
 // column, so that the fragments' 8-byte writes of row pairs are free of
 // bank conflicts).  Each output is written once, by one block: no atomics,
 // so results repeat bit for bit.
@@ -70,8 +71,9 @@
 // Shape rule (forward_wgmma_shape).  K >= 8 (the 16-byte stores; rows past
 // K, depths past K and columns past the state are zero-filled by the copies
 // or masked at the store) and a contiguous column run of the state >= 32 (B
-// of the window view, a 32-column box within one a-group; X of the rotmat
-// view; A, the rows of the top window's (A, K) view).  Other shapes take
+// of the window view, a 32-column box within one a-group, and of the matrot
+// step's (K, B) view; X of the rotmat view; A, the rows of the top window's
+// (A, K) view).  Other shapes take
 // adjoint_tc.cuh's tile.
 #pragma once
 
@@ -245,11 +247,12 @@ __device__ __forceinline__ int x_at(int c, int j) {
   return (c >> 5) * X_BOX + j * 128 + ((((b >> 2) ^ j) & 7) << 4) + (b & 3) * 4;
 }
 
-// Map: WindowMap, RotWindowMap or the top window's TopForwardMap (W is the
-// row-major A operand a_off(i, j) = i K + j, the state the B operand
-// b_off(j, c), the output c_off(i, c), contiguous along i when
-// Map::C_M_CONTIG, else along c).  tmw: ws as (K, K, 4) in boxes (32, 64,
-// 4); tmx: the window view (B, K, A, 2) in boxes (32, 32, 1, 2), or the
+// Map: WindowMap, RotWindowMap, the matrot step's MatrotForwardMap or the
+// top window's TopForwardMap (W is the row-major A operand
+// a_off(i, j) = i K + j, the state the B operand b_off(j, c), the output
+// c_off(i, c), contiguous along i when Map::C_M_CONTIG, else along c).
+// tmw: ws as (K, K, 4) in boxes (32, 64, 4); tmx: the window view
+// (B, K, A, 2) (matrot's (B, K, 1, 2)) in boxes (32, 32, 1, 2), or the
 // depth-contiguous view (K, X, 2) of rotmat (and of the top window, X = A)
 // in boxes (32, 128, 2).  The block takes tiles blockIdx.x, blockIdx.x +
 // gridDim.x, ... of the `tiles` output tiles: one, unless PERSIST.
@@ -423,8 +426,9 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
 }  // namespace fwd
 
 // The shape rule of the forward wgmma kernel (the note above): K >= 8 and a
-// state column run >= 32; run is B of the window view, X of the rotmat view,
-// A of the top window's (A, K) view.
+// state column run >= 32; run is B of the window view (and of the matrot
+// step's (K, B) view), X of the rotmat view, A of the top window's (A, K)
+// view.
 inline bool forward_wgmma_shape(int64_t K, int64_t run) { return K >= 8 && run >= 32; }
 
 namespace fwd {
@@ -475,8 +479,8 @@ inline int sm_count(int* sms) {
 
 // y = W x over C state columns on the forward wgmma kernel (see the note
 // above); ws: 4*K*K floats, W's split planes, written here first.  run: the
-// state's column run (B of the window view, X of the rotmat view, A of the
-// top window's).  Returns 0 or the first CUDA error.
+// state's column run (B of the window view and of matrot's, X of the rotmat
+// view, A of the top window's).  Returns 0 or the first CUDA error.
 template <class Map>
 inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float* y,
                                 int64_t plane, int64_t K, int64_t C, int64_t run,

@@ -19,8 +19,8 @@ the 1e-5 floor (the kernel rounds its fp32 sum, the reference its float64
 one).  The adjoint steps are held to the same three bounds: the rebuilt state
 and a float32 cotangent 1e-5, a bfloat16 cotangent one ulp, the matrix
 cotangent 1e-4; the paired rotation is a permutation and must be exact.
-B1, B3 and B6 (on wgmma) and B2, B7, B9, B12, B13, B14 and B15 (on
-mma.sync) multiply in split TF32 on the tensor cores and are held to the
+B1, B3, B6 and B8 (on wgmma) and B2, B7, B9, B11, B12, B13, B14 and B15
+(on mma.sync) multiply in split TF32 on the tensor cores and are held to the
 same bounds; the ``test_split_tf32_*`` tests emulate that scheme on the CPU
 against float64.
 
@@ -325,10 +325,13 @@ def _tc_gram(g: torch.Tensor, x: torch.Tensor, splits: int, passes: int,
      ("matrot", "float32", 3, True), ("matrot", "float32", 1, False),
      ("matrot", "bfloat16", 2, True), ("matrot", "bfloat16", 1, False),
      ("matrot_bwd", "float32", 3, True), ("matrot_bwd", "float32", 1, False),
-     ("matrot_bwd", "bfloat16", 2, True), ("matrot_bwd", "bfloat16", 1, False)],
+     ("matrot_bwd", "bfloat16", 2, True), ("matrot_bwd", "bfloat16", 1, False),
+     ("rotwin_bwd", "float32", 3, True), ("rotwin_bwd", "float32", 1, False),
+     ("rotwin_bwd", "bfloat16", 2, True), ("rotwin_bwd", "bfloat16", 1, False)],
     ids=["2-True", "1-False", "matrot-f32-3-True", "matrot-f32-1-False", "matrot-bf16-2-True",
          "matrot-bf16-1-False", "matrot_bwd-f32-3-True", "matrot_bwd-f32-1-False",
-         "matrot_bwd-bf16-2-True", "matrot_bwd-bf16-1-False"])
+         "matrot_bwd-bf16-2-True", "matrot_bwd-bf16-1-False", "rotwin_bwd-f32-3-True",
+         "rotwin_bwd-f32-1-False", "rotwin_bwd-bf16-2-True", "rotwin_bwd-bf16-1-False"])
 def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
     """The grams on the split-TF32 tile, over 2**14 columns at K = 64 in the
     kernel's chunks, stages and accumulator rounding, against float64: the
@@ -341,7 +344,11 @@ def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
     and matrot_apply_bwd's gw[i, j] = sum_b g[b, i] conj(x[j, b]), its mixed
     layout (MatrotGramMap): g in the (B, K) view read along i, x in the
     (K, B) view read along b, a float32 g in three passes or a bfloat16 one
-    in two.  The tile's order of sums is the window case's; what differs is
+    in two; and rotwin_apply_bwd's gw'[i, j'] = sum_x g[i, x] conj(x_pre[a,
+    x, l]) with L = 16 < K (RotGramMap): g in the (K, X) view, x_pre read
+    through pre(j', x) = a X L + x L + l, four a-groups in each 64-wide
+    column tile, a float32 g in three passes or a bfloat16 one in two.  The
+    tile's order of sums is the window case's; what differs is
     the operands' layout and the float32 operand's split.  Each is within
     CUDA_GRAM_TOL with all its passes, and not with one (x, and a float32 g,
     rounded to TF32 alone)."""
@@ -354,6 +361,10 @@ def test_split_tf32_saved_gram_is_float32_grade(view, g_dtype, passes, within):
     if g_dtype == "bfloat16":
         g = g.to(torch.bfloat16).float()
     x = torch.from_numpy(_state(20, 6)).reshape((2, C, K) if x_rows else (2, K, C))
+    if view == "rotwin_bwd":  # x[:, j', c] = x_pre[:, pre(j', c)]
+        L = 16
+        j, c = torch.arange(K)[:, None], torch.arange(C)[None, :]
+        x = x.reshape(2, -1)[:, (j // L) * C * L + c * L + j % L]
     got = _tc_gram(g, x, cuda_kernels.gram_splits(K, C), passes, g_dtype == "float32", rows,
                    x_rows)
     g64, x64 = g.double(), x.double()
@@ -402,16 +413,20 @@ def _wgmma_forward(w: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tenso
 @pytest.mark.unittest
 @pytest.mark.parametrize("view,passes,within",
                          [("window", 3, True), ("window", 1, False), ("top", 3, True),
-                          ("top", 1, False)],
-                         ids=["3-True", "1-False", "top-3-True", "top-1-False"])
+                          ("top", 1, False), ("matrot", 3, True), ("matrot", 1, False)],
+                         ids=["3-True", "1-False", "top-3-True", "top-1-False", "matrot-3-True",
+                              "matrot-1-False"])
 def test_split_tf32_forward_is_float32_grade(view, passes, within):
     """The forward windows' split-TF32 wgmma scheme, in the kernel's pass
     order, truncating sums and 32-deep promotion interval, is within
     CUDA_TOL of float64, and plain TF32 (one pass) is not: window_apply and
-    rotmat_apply at K = 1024 on 64 columns, and window_apply_top (Y = X W^T
+    rotmat_apply at K = 1024 on 64 columns, window_apply_top (Y = X W^T
     on the (A, K) view, formed as Y^T = W X^T) at the 22q plan's K = 64,
-    two stages, on 1024 rows of X."""
-    k = 10 if view == "window" else 6
+    two stages, on 1024 rows of X, and matrot_apply (y = (W x)^T on the
+    (K, B) view, W x formed on the window view and stored along its rows)
+    at the 24q plan's K = 256, eight stages, on 256 columns, against the
+    plain version in float64."""
+    k = {"window": 10, "top": 6, "matrot": 8}[view]
     K = 2**k
     w = torch.from_numpy(_unitary_pair(k, 8))
     x = torch.from_numpy(_state(16, 9)).reshape(2, K, -1)
@@ -419,7 +434,12 @@ def test_split_tf32_forward_is_float32_grade(view, passes, within):
         x = x.reshape(2, -1, K).transpose(1, 2)  # X^T: columns a, depth j
     got = _wgmma_forward(w, x, passes)
     w64, x64 = w.double(), x.double()
-    ref = torch.stack([w64[0] @ x64[0] - w64[1] @ x64[1], w64[0] @ x64[1] + w64[1] @ x64[0]])
+    if view == "matrot":  # y[b, i] at b K + i: the tile stored along its rows
+        got = got.transpose(1, 2)
+        ref = kernels.matrot_apply_plain(x64.reshape(2, -1), w64, 16 - k, 16).reshape(2, -1, K)
+    else:
+        ref = torch.stack([w64[0] @ x64[0] - w64[1] @ x64[1],
+                           w64[0] @ x64[1] + w64[1] @ x64[0]])
     assert (_rel(got.double(), ref) <= CUDA_TOL) == within
 
 
@@ -759,12 +779,22 @@ ROTMAT_EXTRA = [
 
 # matrot beyond FUSED_CASES, on both sides of B9's 16-byte copy rule
 # (K >= 8 and B >= 8): K = 8 with B = 16 (copies), K = 16 with B = 4 and
-# K = 4 with B = 8 (scalar staging).
-MATROT_EXTRA = [("matrot", 7, 4, 3), ("matrot", 6, 2, 4), ("matrot", 5, 3, 2)]
+# K = 4 with B = 8 (scalar staging); and of B8's wgmma rule (K >= 8 and
+# B >= 32): K = 256 with B = 32 and K = 8 with B = 32 (wgmma, at its column
+# and K edges), K = 256 with B = 16 (the tile, with copies).
+MATROT_EXTRA = [("matrot", 7, 4, 3), ("matrot", 6, 2, 4), ("matrot", 5, 3, 2),
+                ("matrot", 13, 5, 8), ("matrot", 12, 4, 8), ("matrot", 8, 5, 3)]
+
+# rotwin beyond FUSED_CASES, on both sides of B11's 16-byte copy rule
+# (K >= 8, X >= 8 and L >= 8): L = 8, K = 128, X = 32 (copies, each 64-wide
+# column tile across eight a-groups), L = 8 with X = 8 (copies, at the X
+# edge), X = 4 and L = 4 (scalar staging), and the 24q plan's (8, 9).
+ROTWIN_EXTRA = [("rotwin", 12, 3, 7), ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5),
+                ("rotwin", 9, 2, 5), ("rotwin", 24, 8, 9)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA + ROTWIN_EXTRA)
 def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
     x = torch.from_numpy(_state(n, n + r)).to(cuda)
     w = torch.from_numpy(_unitary_pair(k, r)).to(cuda)
@@ -780,7 +810,7 @@ def test_cuda_fused_window_matches_plain(cuda, kind, n, r, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA)
+@pytest.mark.parametrize("kind,n,r,k", FUSED_CASES + ROTMAT_EXTRA + MATROT_EXTRA + ROTWIN_EXTRA)
 def test_cuda_fused_window_bwd_matches_plain(cuda, kind, n, r, k, g_dtype, out_dtype):
     out_dtype = getattr(torch, out_dtype)
     w, g, x = _bwd_inputs(cuda, n, k, 11 * n + r, getattr(torch, g_dtype))
@@ -843,16 +873,21 @@ def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,g_dtype", [("window", "float32"), ("window", "bfloat16"),
                                           ("rotmat", "float32"), ("rotmat", "bfloat16"),
-                                          ("matrot", "float32"), ("matrot", "bfloat16")])
+                                          ("matrot", "float32"), ("matrot", "bfloat16"),
+                                          ("rotwin", "float32"), ("rotwin", "bfloat16")])
 def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
-    """Two launches of B2 / B7 / B9 on the same inputs give the same bits:
-    the gram's split partials are summed in a fixed order, with no atomics."""
+    """Two launches of B2 / B7 / B9 / B11 on the same inputs give the same
+    bits: the gram's split partials are summed in a fixed order, with no
+    atomics (B11 with L = 16 < K = 256)."""
     n, k = 20, 8
     w, g, x = _bwd_inputs(cuda, n, k, 19, getattr(torch, g_dtype))
     if kind == "window":
         run = lambda: cuda_kernels.window_apply_bwd(w, g, x, 3, k, n, torch.bfloat16)  # noqa: E731
     elif kind == "rotmat":
         run = lambda: cuda_kernels.rotmat_apply_bwd(w, g, x, k, n, torch.bfloat16)  # noqa: E731
+    elif kind == "rotwin":
+        run = lambda: cuda_kernels.rotwin_apply_bwd(  # noqa: E731
+            w, g, x, 4, k, n, torch.bfloat16)
     else:
         run = lambda: cuda_kernels.matrot_apply_bwd(  # noqa: E731
             w, g, x, n - k, n, torch.bfloat16)
@@ -864,14 +899,16 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,n,geom", [("window", 20, (3, 8)), ("window", 16, (0, 10)),
                                          ("rotmat", 20, (8,)), ("rotmat", 9, (8,)),
-                                         ("top", 22, (6,)), ("top", 7, (3,))])
+                                         ("top", 22, (6,)), ("top", 7, (3,)),
+                                         ("matrot", 20, (12,))])
 def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
-    """Two launches of B1 / B6 / B3 on the same inputs give the same bits:
-    every output is written once, by one block, with no atomics (the wgmma
-    kernel; rotmat n = 9, r = 8, two columns, and the top window with 16
-    rows of K = 8, on adjoint_tc.cuh's tile)."""
+    """Two launches of B1 / B6 / B3 / B8 on the same inputs give the same
+    bits: every output is written once, by one block, with no atomics (the
+    wgmma kernel; rotmat n = 9, r = 8, two columns, and the top window with
+    16 rows of K = 8, on adjoint_tc.cuh's tile; matrot's K = 2^(n - r))."""
     x = torch.from_numpy(_state(n, 23)).to(cuda)
-    w = torch.from_numpy(_unitary_pair(geom[-1], 29)).to(cuda)
+    k = n - geom[0] if kind == "matrot" else geom[-1]
+    w = torch.from_numpy(_unitary_pair(k, 29)).to(cuda)
     name = "window_apply_top" if kind == "top" else f"{kind}_apply"
     run = lambda: getattr(cuda_kernels, name)(x, w, *geom, n)  # noqa: E731
     first, second = run(), run()
@@ -880,11 +917,13 @@ def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rotmat", "matrot", "rotwin"])
-def test_cuda_fused_autograd_matches_plain_autograd(cuda, kind):
+@pytest.mark.parametrize(
+    "kind,n,r,k", [("rotmat", 12, 4, 4), ("matrot", 12, 4, 8), ("rotwin", 12, 4, 6)] + ROTWIN_EXTRA,
+    ids=["rotmat", "matrot", "rotwin"] + ["-".join(map(str, c)) for c in ROTWIN_EXTRA])
+def test_cuda_fused_autograd_matches_plain_autograd(cuda, kind, n, r, k):
     """The fused kernels' autograd Functions (backward = the *_bwd kernel)
-    against autograd over the plain versions, in float64 on the card."""
-    n, r, k = 12, 4, {"rotmat": 4, "matrot": 8, "rotwin": 6}[kind]
+    against autograd over the plain versions, in float64 on the card;
+    rotwin's also on both sides of B11's copy rule."""
     x = torch.from_numpy(_state(n, 1)).to(cuda)
     w = torch.from_numpy(_unitary_pair(k, 2)).to(cuda)
     g = torch.from_numpy(_state(n, 3)).to(cuda)
