@@ -16,20 +16,22 @@ phase:
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
    (one nvcc per source, in parallel), with ptxas's register and
    shared-memory use and any wgmma warning; the SASS of the split-TF32 tile
-   (``csrc/adjoint_tc.cuh``, under window_apply_bwd, rotmat_apply_bwd,
-   matrot_apply_bwd, rotwin_apply_bwd, adjoint_step, adjoint_step_top,
-   adjoint_rotmat and adjoint_matrot, and window_apply / rotmat_apply /
-   matrot_apply / window_apply_top's shapes under the wgmma kernel's rule)
-   must hold tensor-core HMMA instructions in every instantiation (counted
-   with cuobjdump, named by their maps; RotGramMap's, the rotmat and rotwin
-   backwards' gram, MatrotPullbackMap and TopGramMap, adjoint_matrot's,
-   MatrotGramMap, matrot_apply_bwd's gram, TopPullbackMap,
-   adjoint_step_top's pullback, MatrotMap, matrot_apply's, and TopMap,
-   window_apply_top's, among them), and the forward wgmma kernel
-   (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply, matrot_apply and
-   window_apply_top) warpgroup HGMMA instructions in every instantiation,
-   under each of its maps (WindowMap, RotWindowMap, MatrotForwardMap,
-   TopForwardMap); the 22q/24q/26q plans are printed (24q: 14 steps);
+   (``csrc/adjoint_tc.cuh``, under window_apply_bwd, window_apply_top_bwd,
+   rotmat_apply_bwd, matrot_apply_bwd, rotwin_apply_bwd, adjoint_step,
+   adjoint_step_top, adjoint_rotmat and adjoint_matrot, and window_apply /
+   rotmat_apply / rotwin_apply / matrot_apply / window_apply_top's shapes
+   under the wgmma kernel's rule) must hold tensor-core HMMA instructions in
+   every instantiation (counted with cuobjdump, named by their maps, each map
+   in as many objects, one a source, as sources instantiate it: TopPullbackMap
+   in adjoint_step_top's and window_apply_top_bwd's, TopGramMap in those and
+   adjoint_matrot's, RotWindowMap, B6's and B10's tile off the wgmma rule, in
+   rotmat_apply's and rotwin_apply's; TC_MAPS), and the forward wgmma kernel
+   (``csrc/forward_wgmma.cuh``, window_apply, rotmat_apply, rotwin_apply,
+   matrot_apply and window_apply_top) warpgroup HGMMA instructions in every
+   instantiation, under each of its maps the same way (WindowMap,
+   RotWindowMap in rotmat_apply's and rotwin_apply's objects,
+   MatrotForwardMap, TopForwardMap); the 22q/24q/26q plans are printed (24q:
+   14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -42,15 +44,16 @@ phase:
    rule (K = 8 / B = 16; K = 16 / B = 4, K = 4 / B = 8) and of the wgmma
    kernel's (K = 256 and 8 with B = 32; K = 256 / B = 16), rotwin's on both
    sides of its backward's copy rule (L = 8 with X = 32 and 8; X = 4,
-   L = 4); adjoint_step_top
+   L = 4) and of its forward's wgmma rule (L = 32 with X = 32; L = 16,
+   X = 16); adjoint_step_top
    at the 22q plan's top window, K = 64 on 24q and 26q planes and K = 8 with
    A = 16.
    window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
    on both sides of the wgmma kernel's shape rule (B = 2 and 64),
    window_apply_top at K = 8 and 16 on both sides of it (A = 16; 512 and
    256); the library's rule (``cuda_kernels.forward_path``) must send every
-   window, rotmat, matrot and top-window shape of the 22q, 24q and 26q plans
-   to the wgmma kernel.  At the 22q plan's top window, window_apply_top is timed
+   window, rotmat, rotwin (run min(X, L)), matrot and top-window shape of the
+   22q, 24q and 26q plans to the wgmma kernel.  At the 22q plan's top window, window_apply_top is timed
    once beside the split-TF32 mma.sync tile on the same shape (the datum its
    wgmma route replaced, through the library's ``window_apply_top_tile``
    entry, held to the plain version too) and cuBLAS, each also with its
@@ -131,12 +134,13 @@ phase:
    flops an amplitude / 495 TFLOP/s + CUDA-core flops / 67 TFLOP/s,
    bytes / 3.35 TB/s), with 3 passes for a product of two float32 operands
    and 2 for one with a bfloat16 cotangent: window_apply, rotmat_apply,
-   matrot_apply and window_apply_top (one product, on wgmma) 3 a call;
-   adjoint_step, adjoint_step_top, adjoint_rotmat and adjoint_matrot (three
-   products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a call
-   with a float32 lambda, 7 with bfloat16; window_apply_bwd,
-   rotmat_apply_bwd, matrot_apply_bwd and rotwin_apply_bwd (two products) 6
-   a call with a float32 g, 4 with bfloat16.  The float32-core figure is printed beside it.
+   rotwin_apply, matrot_apply and window_apply_top (one product, on wgmma) 3
+   a call; adjoint_step, adjoint_step_top, adjoint_rotmat and adjoint_matrot
+   (three products and the 8K^3 flops of gw = G0 W on the CUDA cores) 9 a
+   call with a float32 lambda, 7 with bfloat16; window_apply_bwd,
+   window_apply_top_bwd, rotmat_apply_bwd, matrot_apply_bwd and
+   rotwin_apply_bwd (two products) 6 a call with a float32 g, 4 with
+   bfloat16.  The float32-core figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -178,11 +182,12 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first four) and
+# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first five) and
 # csrc/adjoint_tc.cuh.
-TC_KERNELS = ("window_apply", "rotmat_apply", "matrot_apply", "window_apply_top",
-              "window_apply_bwd", "rotmat_apply_bwd", "matrot_apply_bwd", "rotwin_apply_bwd",
-              "adjoint_step", "adjoint_step_top", "adjoint_rotmat", "adjoint_matrot")
+TC_KERNELS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
+              "window_apply_bwd", "window_apply_top_bwd", "rotmat_apply_bwd", "matrot_apply_bwd",
+              "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
+              "adjoint_matrot")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -440,22 +445,26 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
     return want
 
 
-# The maps the split-TF32 tile is instantiated with: the pullbacks and grams
-# of window_apply_bwd / adjoint_step (window layout), rotmat_apply_bwd /
-# rotwin_apply_bwd / adjoint_rotmat (rotation layout; RotGramMap only under
-# the saved backwards), matrot_apply_bwd / adjoint_matrot
-# (MatrotPullbackMap; MatrotGramMap, the saved gram, only under
-# matrot_apply_bwd) and adjoint_step_top (TopPullbackMap; TopGramMap, also
-# adjoint_matrot's), and the products of matrot_apply (MatrotMap) and
-# window_apply_top (TopMap) at the shapes off the wgmma kernel.
-TC_MAPS = ("WindowPullbackMap", "WindowGramMap", "RotPullbackMap", "RotGramMap",
-           "MatrotPullbackMap", "MatrotGramMap", "TopPullbackMap", "TopGramMap", "TopMap",
-           "MatrotMap")
+# The maps the split-TF32 tile is instantiated with, each with the number of
+# sources (objects of the library: one cubin a source) that instantiate it:
+# the pullbacks and grams of window_apply_bwd / adjoint_step (window layout;
+# WindowGramMap also adjoint_rotmat's), rotmat_apply_bwd / rotwin_apply_bwd /
+# adjoint_rotmat (rotation layout; RotGramMap only under the saved
+# backwards), matrot_apply_bwd / adjoint_matrot (MatrotPullbackMap;
+# MatrotGramMap, the saved gram, only under matrot_apply_bwd) and
+# adjoint_step_top / window_apply_top_bwd (TopPullbackMap; TopGramMap, also
+# adjoint_matrot's), and the forward products at the shapes off the wgmma
+# kernel: window_apply's (WindowMap), rotmat_apply's and rotwin_apply's
+# (RotWindowMap), matrot_apply's (MatrotMap) and window_apply_top's (TopMap).
+TC_MAPS = {"WindowPullbackMap": 2, "WindowGramMap": 3, "RotPullbackMap": 3, "RotGramMap": 2,
+           "MatrotPullbackMap": 2, "MatrotGramMap": 1, "TopPullbackMap": 2, "TopGramMap": 3,
+           "WindowMap": 1, "RotWindowMap": 2, "MatrotMap": 1, "TopMap": 1}
 
 
-# The maps the forward wgmma kernel is instantiated with: window_apply's,
-# rotmat_apply's, matrot_apply's and window_apply_top's.
-WGMMA_MAPS = ("WindowMap", "RotWindowMap", "MatrotForwardMap", "TopForwardMap")
+# The maps the forward wgmma kernel is instantiated with, and their sources:
+# window_apply's, rotmat_apply's and rotwin_apply's, matrot_apply's and
+# window_apply_top's.
+WGMMA_MAPS = {"WindowMap": 1, "RotWindowMap": 2, "MatrotForwardMap": 1, "TopForwardMap": 1}
 
 
 def _has_map(function: str, m: str) -> bool:
@@ -463,44 +472,59 @@ def _has_map(function: str, m: str) -> bool:
     return m in function and (m != "WindowMap" or "RotWindowMap" not in function)
 
 
+def _sass_counts(out: str) -> list:
+    """(object, function, HMMA, HGMMA) for every function in cuobjdump's SASS
+    listing; a new object (one source's cubin) starts at each "Fatbin elf
+    code" header."""
+    rows, obj = [], -1
+    for line in out.splitlines():
+        if "Fatbin elf code" in line:
+            obj += 1
+        elif "Function :" in line:
+            rows.append([obj, line.split("Function :", 1)[1].strip(), 0, 0])
+        elif rows and "HGMMA" in line:
+            rows[-1][3] += 1
+        elif rows and "HMMA" in line:
+            rows[-1][2] += 1
+    return rows
+
+
+def _check_maps(rows: list, kernel: str, maps: dict, col: int, what: str) -> None:
+    """Every instantiation of *kernel* issues *what*, and each map is
+    instantiated, with *what*, in at least as many objects as *maps* says."""
+    fns = [r for r in rows if kernel in r[1]]
+    log(f"  SASS: {len(fns)} {kernel} instantiations in {len({r[0] for r in fns})} objects, "
+        f"with {sorted({r[col] for r in fns})} {what} instructions each")
+    for m, need in maps.items():
+        counts = sorted(r[col] for r in fns if _has_map(r[1], m))
+        objs = len({r[0] for r in fns if _has_map(r[1], m) and r[col]})
+        log(f"    {m:18s} {len(counts)} instantiations in {objs} objects (of {need}), "
+            f"{what} {counts}")
+        _check(bool(counts) and objs >= need,
+               f"{m}: {kernel} with {what} in {objs} objects, not {need}")
+    _check(bool(fns) and all(r[col] for r in fns), f"a {kernel} without {what}")
+
+
 def check_sass(path: Path) -> None:
     """Every instantiation of the split-TF32 tile (``tc_cgemm_kernel``, under
     TC_KERNELS) issues tensor-core HMMA instructions, and each map of TC_MAPS
-    has one; every instantiation of the forward wgmma kernel
-    (``forward_wgmma_kernel``) issues warpgroup HGMMA instructions, and each
-    map of WGMMA_MAPS has one; counted in the library's SASS with cuobjdump,
-    beside nvcc."""
+    has one in as many sources as it names; every instantiation of the
+    forward wgmma kernel (``forward_wgmma_kernel``) issues warpgroup HGMMA
+    instructions, and each map of WGMMA_MAPS has one the same way; counted in
+    the library's SASS with cuobjdump, beside nvcc."""
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
     tool = Path(ck._nvcc()).with_name("cuobjdump")
     _check(tool.is_file(), f"no cuobjdump beside {ck._nvcc()}")
     out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                          check=True).stdout
-    hmma, hgmma, name = {}, {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            hmma[name] = hgmma[name] = 0
-        elif name is not None and "HGMMA" in line:
-            hgmma[name] += 1
-        elif name is not None and "HMMA" in line:
-            hmma[name] += 1
-    tc = {f: c for f, c in hmma.items() if "tc_cgemm_kernel" in f}
-    other = sum(c for f, c in hmma.items() if "tc_cgemm_kernel" not in f)
-    log(f"  SASS: {len(tc)} split-TF32 tile kernels with {sorted(set(tc.values()))} HMMA "
-        f"instructions each; {other} HMMA in the other {len(hmma) - len(tc)} kernels")
-    for m in TC_MAPS:
-        counts = sorted(c for f, c in tc.items() if m in f)
-        log(f"    {m:18s} {len(counts)} instantiations, HMMA {counts}")
-        _check(bool(counts), f"no split-TF32 tile kernel with {m} in the SASS")
-    _check(bool(tc) and all(tc.values()), f"a split-TF32 kernel without HMMA: {tc}")
-    fw = {f: c for f, c in hgmma.items() if "forward_wgmma_kernel" in f}
-    log(f"  SASS: {len(fw)} forward wgmma kernels with {sorted(set(fw.values()))} HGMMA "
-        f"instructions each; {sum(hgmma.values()) - sum(fw.values())} HGMMA elsewhere")
-    for m in WGMMA_MAPS:
-        counts = sorted(c for f, c in fw.items() if _has_map(f, m))
-        log(f"    {m:18s} {len(counts)} instantiations, HGMMA {counts}")
-        _check(bool(counts) and all(counts), f"no forward wgmma kernel with HGMMA under {m}")
+    rows = _sass_counts(out)
+    other = sum(r[2] for r in rows if "tc_cgemm_kernel" not in r[1])
+    log(f"  SASS: {len({r[0] for r in rows})} objects; {other} HMMA outside tc_cgemm_kernel, "
+        f"{sum(r[3] for r in rows if 'forward_wgmma_kernel' not in r[1])} HGMMA outside "
+        f"forward_wgmma_kernel")
+    _check_maps(rows, "tc_cgemm_kernel", TC_MAPS, 2, "HMMA")
+    _check_maps(rows, "forward_wgmma_kernel", WGMMA_MAPS, 3, "HGMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -761,20 +785,24 @@ def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
 
 
 def check_forward_path(ck, shapes: dict) -> None:
-    """Every window, rotmat, matrot and top-window shape of the 22q, 24q and
-    26q plans takes the forward wgmma kernel, by the library's own shape
-    rule."""
+    """Every window, rotmat, rotwin, matrot and top-window shape of the 22q,
+    24q and 26q plans takes the forward wgmma kernel, by the library's own
+    shape rule (rotwin's run: the shorter of X and L)."""
     calls = {(2**k, 2 ** (w - a - k)) for w in shapes for a, k in shapes[w]["window_apply"]}
     calls |= {(2**r, 2 ** (w - r)) for w in shapes for r in shapes[w]["rotmat_apply"]}
     matrots = {(2 ** (w - r), 2**r) for w in shapes for r in shapes[w]["matrot_apply"]}
     tops = {(2**k, 2 ** (w - k)) for w in shapes for k in shapes[w]["window_apply_top"]}
+    rotwins = {(2**k, min(2 ** (w - k), 2**r)) for w in shapes
+               for r, k in shapes[w]["rotwin_apply"]}
     _check(bool(tops), "no top window in the plans")
     _check(bool(matrots), "no matrot step in the plans")
-    calls |= matrots | tops
+    _check(bool(rotwins), "no rotwin step in the plans")
+    calls |= matrots | tops | rotwins
     off = sorted((K, run) for K, run in calls if not ck.forward_path(K, run))
     log(f"  forward wgmma path: {len(calls) - len(off)} of {len(calls)} (K, column run) shapes "
-        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat and matrot steps "
-        f"and top windows ({len(matrots)} matrot and {len(tops)} top-window shapes)")
+        f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat, rotwin and "
+        f"matrot steps and top windows ({len(rotwins)} rotwin, {len(matrots)} matrot and "
+        f"{len(tops)} top-window shapes)")
     _check(not off, f"plan shapes (K, run) off the forward wgmma kernel: {off}")
 
 
@@ -882,14 +910,17 @@ def phase_parity(shapes: dict) -> dict:
     # kernel at its column and K edges), K = 256 / B = 16 (its tile), and
     # K = 512 on a 26q plane; rotwin's backward with L = 8 / K = 128 / X = 32
     # and L = 8 / X = 8 (16-byte copies, a column tile across a-groups), X = 4
-    # and L = 4 (scalar staging), L = 2 / K = 8 and L = 128 / X = 8.
+    # and L = 4 (scalar staging), L = 2 / K = 8 and L = 128 / X = 8; rotwin's
+    # forward on both sides of its wgmma rule (L = 32 with X = 32: wgmma at
+    # both edges; L = 16 and X = 16: the tile).
     check_fused(ck, kn, [("rotmat", 6, 1, 1), ("rotmat", 5, 2, 2), ("rotmat", 4, 3, 3),
                          ("rotmat", 11, 3, 3), ("rotmat", 9, 8, 8), ("matrot", 6, 5, 1),
                          ("matrot", 9, 1, 8), ("matrot", 7, 4, 3), ("matrot", 6, 2, 4),
                          ("matrot", 5, 3, 2), ("matrot", 13, 5, 8), ("matrot", 8, 5, 3),
                          ("matrot", 12, 4, 8), ("matrot", 26, 17, 9), ("rotwin", 6, 1, 3),
                          ("rotwin", 10, 2, 5), ("rotwin", 12, 7, 9), ("rotwin", 12, 3, 7),
-                         ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5), ("rotwin", 9, 2, 5)],
+                         ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5), ("rotwin", 9, 2, 5),
+                         ("rotwin", 12, 5, 7), ("rotwin", 12, 4, 7), ("rotwin", 11, 5, 7)],
                 gen, rng)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
@@ -1996,7 +2027,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add("rotwin_apply", f"n={n} r={r} k={k}",
                     lambda: ck.rotwin_apply(x, w, r, k, n),
                     lambda: kn.rotwin_apply_plain(x, w, r, k, n),
-                    lib_rotwin(ck, x, w, r, k, n), work_fwd(2**k, n))
+                    lib_rotwin(ck, x, w, r, k, n), work_fwd(2**k, n),
+                    tc=work_fwd_tc(2**k, n))
             else:
                 k = shape if kind == "rotmat" else n - shape
                 w = _unitary(k, rng)
@@ -2005,7 +2037,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 add(name, f"n={n} r={shape} k={k}",
                     lambda: getattr(ck, name)(x, w, shape, n),
                     lambda: getattr(kn, f"{name}_plain")(x, w, shape, n), lib, work_fwd(2**k, n),
-                    tc=work_fwd_tc(2**k, n) if name in TC_KERNELS else None)
+                    tc=work_fwd_tc(2**k, n))
         xm, gm = _state(m, gen), _state(m, gen)
         for k in shapes[m]["window_apply_top"]:
             w = _unitary(k, rng)
@@ -2048,7 +2080,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                     lambda: getattr(ck, name)(w, gg, x, shape, n, out_dt),
                     lambda: getattr(kn, f"{name}_plain")(w, gg, x, shape, n, out_dt),
                     lib, work_bwd(2**k, n, eg, eo),
-                    tc=work_bwd_tc(2**k, n, eg) if name in TC_KERNELS else None)
+                    tc=work_bwd_tc(2**k, n, eg))
         for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
             if kind != "top":
                 continue
@@ -2058,7 +2090,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                 lambda: ck.window_apply_top_bwd(w, gg, xm, k, m, out_dt),
                 lambda: kn.window_apply_top_bwd_plain(w, gg, xm, k, m, out_dt),
                 lib_window_top_bwd(w, gg, xm, k, m),
-                work_bwd(2**k, m, _esize(g_dt), _esize(out_dt)))
+                work_bwd(2**k, m, _esize(g_dt), _esize(out_dt)),
+                tc=work_bwd_tc(2**k, m, _esize(g_dt)))
         # One 24q gradient through the adjoint executor: the same lambda
         # dtypes, on the step's output state.
         for kind, shape, g_dt, out_dt in backward_calls(shapes[n]["steps"]):
@@ -2088,7 +2121,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
                     lambda: getattr(ck, name)(w, x, gg, shape, n, out_dt),
                     lambda: getattr(kn, f"{name}_plain")(w, x, gg, shape, n, out_dt),
                     lib, work_adjoint(2**k, n, el, eo),
-                    tc=work_adjoint_tc(2**k, n, el) if name in TC_KERNELS else None)
+                    tc=work_adjoint_tc(2**k, n, el))
         for kind, shape, g_dt, out_dt in backward_calls(shapes[m]["steps"]):
             if kind != "top":
                 continue

@@ -1,14 +1,14 @@
-// Shared block tile of the window kernels (window_apply_top_bwd.cu and the
-// fused rotation step rotwin_apply.cu, and the chain kernels' gw; the
-// others, window_apply.cu, rotmat_apply.cu, matrot_apply.cu and
-// window_apply_top.cu (their products on forward_wgmma.cuh's tensor cores),
-// window_apply_bwd.cu, rotmat_apply_bwd.cu, matrot_apply_bwd.cu,
+// Shared block tile of the adjoint steps' gw = G0 W (launch_gram_times_w)
+// and of the chain kernels (chain_block.cuh, adjoint_chain.cu's gw); the
+// window kernels, window_apply.cu, rotmat_apply.cu, rotwin_apply.cu,
+// matrot_apply.cu and window_apply_top.cu (their products on
+// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu,
+// window_apply_top_bwd.cu, rotmat_apply_bwd.cu, matrot_apply_bwd.cu,
 // rotwin_apply_bwd.cu, adjoint_step.cu, adjoint_step_top.cu,
 // adjoint_rotmat.cu and adjoint_matrot.cu (on adjoint_tc.cuh's), take only
-// its maps, split-gram sum and the adjoint steps' gw = G0 W): a complex
-// matrix product C = op(A) * op(B) on real-split planes (each operand
-// is a Re plane followed, `plane` elements later, by an Im plane), with fp32
-// FMA on the CUDA cores.
+// its maps and split-gram sum: a complex matrix product C = op(A) * op(B) on
+// real-split planes (each operand is a Re plane followed, `plane` elements
+// later, by an Im plane), with fp32 FMA on the CUDA cores.
 //
 // The complex product is the 4-multiply form, Cr = Ar Br - Ai Bi and
 // Ci = Ar Bi + Ai Br, accumulated with fmaf in float32: it keeps the plain
@@ -32,9 +32,9 @@
 // partials in a fixed order (reduce_splits below): no atomics, so the result
 // is the same from run to run.
 //
-// Element types: A and B are float or __nv_bfloat16 (a bfloat16 cotangent),
-// C is float or __nv_bfloat16 (rounded to nearest even at the store); the
-// arithmetic is float32 throughout.
+// Element types: A and B are float (or coherent_f32, below), C is float; the
+// arithmetic is float32 throughout.  store_f32 also writes a bfloat16 output
+// (rounded to nearest even) for adjoint_tc.cuh's tile.
 //
 // The maps of the window layouts that several kernels use live at the end of
 // this file.
@@ -56,9 +56,6 @@ constexpr int PAD = 4;   // keeps rows 16-byte aligned for float4 reads
 static_assert(BM == BN, "row and column stages share one shared-memory shape");
 
 __device__ __forceinline__ float load_f32(const float* p, int64_t off) { return p[off]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t off) {
-  return __bfloat162float(p[off]);
-}
 // A float plane that the kernel reading it wrote earlier in the same launch
 // (the chain kernels' ping-pong buffers): loads go to L2 (ld.global.cg),
 // never through the read-only path or a stale L1 line of another block.

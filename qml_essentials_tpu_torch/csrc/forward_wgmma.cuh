@@ -1,5 +1,5 @@
 // Forward window product on Hopper's warpgroup tensor cores (window_apply.cu,
-// rotmat_apply.cu, matrot_apply.cu, window_apply_top.cu):
+// rotmat_apply.cu, rotwin_apply.cu, matrot_apply.cu, window_apply_top.cu):
 // y[i, c] = sum_j W[i, j] x[j, c] for a
 // (2, K, K) window W and the state's columns c, on real-split planes, at
 // float32-grade accuracy.
@@ -36,11 +36,16 @@
 // 128-column state tile, both brought by the Tensor Memory Accelerator in
 // the 128-byte swizzle: W's tile is wgmma's B operand as it lands, and the
 // swizzle keeps the state's fragment reads at most two-way bank-conflicted
-// (the window view: four 32-column boxes; the rotmat view: one box, rows
-// along the columns, conflict-free).  One thread issues a stage's copies
-// against its "full" mbarrier (expect_tx); each warp arrives on the slot's
-// "empty" mbarrier once its wgmma have retired, and the slot is refilled
-// three stages ahead.  With no per-thread copy addresses, the 64
+// (the window view: four 32-column boxes; the depth-contiguous view of
+// rotmat, rotwin and the top window: one box, rows along the columns,
+// conflict-free).  The depth-contiguous view is 4-D, (L, C, K/L, 2): the
+// depth j = a L + l runs contiguously only within an a-group of L (rotwin's
+// L = 2^r < K; L = K, one group, for rotmat and the top window), so a stage
+// is issued at (k0 mod L, c0, k0 / L, 0) and, with L >= 32, lies inside one
+// group and lands byte for byte as it would with L = K.  One thread issues a
+// stage's copies against its "full" mbarrier (expect_tx); each warp arrives
+// on the slot's "empty" mbarrier once its wgmma have retired, and the slot
+// is refilled three stages ahead.  With no per-thread copy addresses, the 64
 // accumulators, 64 partials and two buffers of A fragments fit each
 // thread's registers.  Within a stage the four k8 steps use the two
 // buffers: step t + 1's fragments are read and split while step t's wgmma
@@ -73,8 +78,8 @@
 // or masked at the store) and a contiguous column run of the state >= 32 (B
 // of the window view, a 32-column box within one a-group, and of the matrot
 // step's (K, B) view; X of the rotmat view; A, the rows of the top window's
-// (A, K) view).  Other shapes take
-// adjoint_tc.cuh's tile.
+// (A, K) view; for rotwin the shorter of X and its depth run L, a 32-deep
+// stage within one a-group).  Other shapes take adjoint_tc.cuh's tile.
 #pragma once
 
 #include <cuda.h>
@@ -247,20 +252,21 @@ __device__ __forceinline__ int x_at(int c, int j) {
   return (c >> 5) * X_BOX + j * 128 + ((((b >> 2) ^ j) & 7) << 4) + (b & 3) * 4;
 }
 
-// Map: WindowMap, RotWindowMap, the matrot step's MatrotForwardMap or the
-// top window's TopForwardMap (W is the row-major A operand
-// a_off(i, j) = i K + j, the state the B operand b_off(j, c), the output
-// c_off(i, c), contiguous along i when Map::C_M_CONTIG, else along c).
-// tmw: ws as (K, K, 4) in boxes (32, 64, 4); tmx: the window view
-// (B, K, A, 2) (matrot's (B, K, 1, 2)) in boxes (32, 32, 1, 2), or the
-// depth-contiguous view (K, X, 2) of rotmat (and of the top window, X = A)
-// in boxes (32, 128, 2).  The block takes tiles blockIdx.x, blockIdx.x +
-// gridDim.x, ... of the `tiles` output tiles: one, unless PERSIST.
+// Map: WindowMap, RotWindowMap (rotmat and rotwin), the matrot step's
+// MatrotForwardMap or the top window's TopForwardMap (W is the row-major A
+// operand a_off(i, j) = i K + j, the state the B operand b_off(j, c), the
+// output c_off(i, c), contiguous along i when Map::C_M_CONTIG, else along
+// c).  tmw: ws as (K, K, 4) in boxes (32, 64, 4); tmx: the window view
+// (B, K, A, 2) (matrot's (B, K, 1, 2)) in boxes (32, 32, 1, 2), run = B, or
+// the depth-contiguous view (L, X, K/L, 2) of rotwin (of rotmat L = K, and of
+// the top window L = K, X = A) in boxes (32, 128, 1, 2), run = L.  The block
+// takes tiles blockIdx.x, blockIdx.x + gridDim.x, ... of the `tiles` output
+// tiles: one, unless PERSIST.
 template <class Map, bool PERSIST>
 __global__ void __launch_bounds__(NT, 1)
 forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
                      const __grid_constant__ CUtensorMap tmx, float* __restrict__ y,
-                     int64_t plane, int64_t K, int64_t C, int64_t B, int64_t tiles_m,
+                     int64_t plane, int64_t K, int64_t C, int64_t run, int64_t tiles_m,
                      int64_t tiles, Map map) {
   static_assert(!Map::A_M_CONTIG && !Map::CONJ_A && !Map::CONJ_B, "y = W x, W row-major");
   constexpr bool KC = Map::B_K_CONTIG;
@@ -284,6 +290,10 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
     return PERSIST ? blockIdx.x + (int64_t)(g / nk) * gridDim.x : (int64_t)blockIdx.x;
   };
   auto has_stage = [&](int g) { return PERSIST ? tile_of(g) < tiles : g < nk; };
+  // run is a power of two: the copies' coordinates by mask and shift, not by
+  // a 64-bit division, a long software sequence on the issuing thread's path
+  // (its warpgroup's wgmma wait for it).
+  const int log_run = 63 - __clzll(run);
 
   // Stage g's copies into its slot (thread 0); consecutive blocks share one
   // state tile via L2.
@@ -295,13 +305,14 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
     mbar_expect(&full[slot], W_STAGE + X_STAGE);
     tma_load(Ws + slot * W_STAGE, &tmw, k0, i0, 0, &full[slot]);
     if constexpr (KC) {
-      tma_load(Xs + slot * X_STAGE, &tmx, k0, (int)c0, 0, &full[slot]);
+      tma_load(Xs + slot * X_STAGE, &tmx, k0 & (int)(run - 1), (int)c0, k0 >> log_run, 0,
+               &full[slot]);
     } else {
 #pragma unroll
       for (int box = 0; box < BC / 32; ++box) {
         const int64_t c = c0 + 32 * box;
-        tma_load(Xs + slot * X_STAGE + box * X_BOX, &tmx, (int)(c % B), k0, (int)(c / B), 0,
-                 &full[slot]);
+        tma_load(Xs + slot * X_STAGE + box * X_BOX, &tmx, (int)(c & (run - 1)), k0,
+                 (int)(c >> log_run), 0, &full[slot]);
       }
     }
   };
@@ -428,7 +439,7 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
 // The shape rule of the forward wgmma kernel (the note above): K >= 8 and a
 // state column run >= 32; run is B of the window view (and of the matrot
 // step's (K, B) view), X of the rotmat view, A of the top window's (A, K)
-// view.
+// view, and min(X, L) of rotwin's.
 inline bool forward_wgmma_shape(int64_t K, int64_t run) { return K >= 8 && run >= 32; }
 
 namespace fwd {
@@ -479,8 +490,10 @@ inline int sm_count(int* sms) {
 
 // y = W x over C state columns on the forward wgmma kernel (see the note
 // above); ws: 4*K*K floats, W's split planes, written here first.  run: the
-// state's column run (B of the window view and of matrot's, X of the rotmat
-// view, A of the top window's).  Returns 0 or the first CUDA error.
+// state's contiguous run, a power of two, along the columns of the window
+// view (B, and matrot's B) or along the depth of the depth-contiguous view
+// (L: K for rotmat and the top window, 2^r >= 32 for rotwin).  Returns 0 or
+// the first CUDA error.
 template <class Map>
 inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float* y,
                                 int64_t plane, int64_t K, int64_t C, int64_t run,
@@ -495,11 +508,12 @@ inline int launch_forward_wgmma(const float* x, const float* w, float* ws, float
   const cuuint32_t wbox[3] = {fwd::BK, fwd::BM, 4};
   code = fwd::encode(&tmw, ws, 3, wdims, wstr, wbox);
   if (code != 0) return code;
-  if constexpr (Map::B_K_CONTIG) {  // the rotmat (top) view: x_pre[x, j] (x[a, j]) at x K + j
-    const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)C, 2};
-    const cuuint64_t str[2] = {(cuuint64_t)K * 4, (cuuint64_t)plane * 4};
-    const cuuint32_t box[3] = {fwd::BK, fwd::BC, 2};
-    code = fwd::encode(&tmx, x, 3, dims, str, box);
+  if constexpr (Map::B_K_CONTIG) {  // x_pre[a, x, l] at (a X + x) L + l (rotmat, top: L = K)
+    const cuuint64_t dims[4] = {(cuuint64_t)run, (cuuint64_t)C, (cuuint64_t)(K / run), 2};
+    const cuuint64_t str[3] = {(cuuint64_t)run * 4, (cuuint64_t)C * run * 4,
+                               (cuuint64_t)plane * 4};
+    const cuuint32_t box[4] = {fwd::BK, fwd::BC, 1, 2};
+    code = fwd::encode(&tmx, x, 4, dims, str, box);
   } else {  // the window view: x[a, j, b] at (a K + j) B + b
     const cuuint64_t dims[4] = {(cuuint64_t)run, (cuuint64_t)K, (cuuint64_t)(C / run), 2};
     const cuuint64_t str[3] = {(cuuint64_t)run * 4, (cuuint64_t)K * run * 4,

@@ -30,7 +30,7 @@ extern "C" int qml_rotmat_apply(const float* x, const float* w, float* ws, float
   const int64_t plane = (int64_t)K * X;
   const qml::RotWindowMap map{qml::rot_cols(K, X, K)};
   if (qml::forward_wgmma_shape(K, X))
-    return qml::launch_forward_wgmma(x, w, ws, y, plane, K, X, X, map, (cudaStream_t)stream);
+    return qml::launch_forward_wgmma(x, w, ws, y, plane, K, X, K, map, (cudaStream_t)stream);
   return qml::launch_tc_cgemm(w, K * K, x, plane, y, plane, 0, K, X, K, 1, qml::tc_vec_shape(K, X),
                               map, (cudaStream_t)stream);
 }

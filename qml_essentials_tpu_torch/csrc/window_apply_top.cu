@@ -68,7 +68,7 @@ extern "C" int qml_window_apply_top(const float* x, const float* w, float* ws, f
                                     long long A, long long K, void* stream) {
   const int64_t plane = (int64_t)A * K;
   if (qml::forward_wgmma_shape(K, A))
-    return qml::launch_forward_wgmma(x, w, ws, y, plane, K, A, A, TopForwardMap{K},
+    return qml::launch_forward_wgmma(x, w, ws, y, plane, K, A, K, TopForwardMap{K},
                                      (cudaStream_t)stream);
   return qml_window_apply_top_tile(x, w, y, A, K, stream);
 }

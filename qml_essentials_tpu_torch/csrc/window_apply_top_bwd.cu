@@ -10,34 +10,26 @@
 //
 // g is float32 or bfloat16, gp float32 or bfloat16, gw float32.
 //
-// What bounds it on an H100: arithmetic at K >= 64 (8K flops per amplitude
-// for each product), as the forward.  The pullback is the forward's tiling
-// with conj(W) in place of W^T: a block owns 64 rows x 64 outputs and reads g
-// along its contiguous index i.  The matrix cotangent reduces over the A rows
-// (2^16 at 22 qubits, K = 64): one output tile, so the rows are split across
-// `splits` blocks, each writing its own (2, K, K) partial to a caller-owned
-// workspace, and a second pass sums the partials in a fixed order (no
-// atomics; fp32 throughout).  Both operands of the gram are read along their
-// contiguous index (g^T along i, x along j).  Three launches, where the TPU
-// kernel read (g, x) once for both outputs; fusing them is later work.
-#include "cgemm_tile.cuh"
-
-namespace {
-
-template <class TG, class TP>
-int run(const float* w, const TG* g, const float* x, TP* gp, float* gw, float* ws,
-        int64_t A, int64_t K, int64_t splits, cudaStream_t stream) {
-  const int64_t plane = A * K;
-  int code = qml::launch_cgemm(g, plane, w, K * K, gp, plane, 0, A, K, K, 1,
-                               qml::TopPullbackMap{K}, stream);
-  if (code != 0) return code;
-  code = qml::launch_cgemm(g, plane, x, plane, ws, K * K, 2 * K * K, K, K, A, splits,
-                           qml::TopGramMap{K}, stream);
-  if (code != 0) return code;
-  return qml::launch_reduce(ws, gw, 2 * K * K, splits, stream);
-}
-
-}  // namespace
+// What bounds it on an H100: at the 22q plan's K = 64, bytes and tensor-core
+// arithmetic about equally (g, x and gp moved once; 16K flops per amplitude
+// in split TF32); above K = 64, arithmetic.  So both products run on the
+// split-TF32 tensor-core tile of adjoint_tc.cuh through
+// launch_fused_bwd_tc, with adjoint_step_top.cu's maps: the pullback with
+// conj(W) as the column operand (TopPullbackMap: rows t, depth i, columns
+// j), g read along its contiguous i and gp stored along j; the gram
+// (TopGramMap: rows i, depth t, columns j) split over the A rows
+// (gram_splits) into a caller-owned workspace, each split writing its own
+// (2, K, K) partial, and summed in a fixed order (no atomics: gradients
+// repeat bit for bit).  3 passes a product with a float32 g, 2 with a
+// bfloat16 one.  Three launches, where the TPU kernel read (g, x) once for
+// both outputs.
+//
+// The 16-byte copies (tc_vec_shape(K, K)).  Every operand runs along the
+// window index: the pullback reads g along i and conj(W) along its rows j,
+// the gram g along i and x along j, all in runs of K, never along t.  So
+// the copies need K >= 8 (a bfloat16 g's 16 bytes are 8 elements),
+// whatever A is; K = 2 and 4 take the tile's scalar staging.
+#include "adjoint_tc.cuh"
 
 // w: (2, K, K) float32; g: (2, A*K) float32 (g_bf16 = 0) or bfloat16;
 // x: (2, A*K) float32; gp: (2, A*K) float32 (gp_bf16 = 0) or bfloat16;
@@ -48,6 +40,8 @@ extern "C" int qml_window_apply_top_bwd(const float* w, const void* g, const flo
                                         long long A, long long K, long long splits,
                                         int g_bf16, int gp_bf16, void* stream) {
   return qml::with_cotangent_types(g, gp, g_bf16, gp_bf16, [&](auto gt, auto pt) {
-    return run(w, gt, x, pt, gw, ws, A, K, splits, (cudaStream_t)stream);
+    return qml::launch_fused_bwd_tc(w, gt, x, pt, gw, ws, A * K, K, A, K, A, splits,
+                                    qml::tc_vec_shape(K, K), qml::TopPullbackMap{K},
+                                    qml::TopGramMap{K}, (cudaStream_t)stream);
   });
 }

@@ -27,17 +27,18 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
-Twelve kernels run their products on the tensor cores in split TF32
+Fourteen kernels run their products on the tensor cores in split TF32
 (float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says):
-``window_apply``, ``rotmat_apply``, ``matrot_apply`` and ``window_apply_top``
-on warpgroup ``wgmma`` (``csrc/forward_wgmma.cuh``, W split once a call into
-a workspace the wrapper allocates; shapes under :func:`forward_path` on the
-tile below), ``window_apply_bwd``, ``rotmat_apply_bwd``, ``matrot_apply_bwd``
-and ``rotwin_apply_bwd`` (pullback and gram) and ``adjoint_step``,
+``window_apply``, ``rotmat_apply``, ``rotwin_apply``, ``matrot_apply`` and
+``window_apply_top`` on warpgroup ``wgmma`` (``csrc/forward_wgmma.cuh``, W
+split once a call into a workspace the wrapper allocates; shapes under
+:func:`forward_path` on the tile below), ``window_apply_bwd``,
+``window_apply_top_bwd``, ``rotmat_apply_bwd``, ``matrot_apply_bwd`` and
+``rotwin_apply_bwd`` (pullback and gram) and ``adjoint_step``,
 ``adjoint_step_top``, ``adjoint_rotmat`` and ``adjoint_matrot`` (two
 pullbacks and the gram) on ``mma.sync`` (``csrc/adjoint_tc.cuh``); the
-other kernels multiply in
-float32 on the CUDA cores (``csrc/cgemm_tile.cuh``).
+chain kernels, and the adjoint steps' ``gw = G0 W``, multiply in float32 on
+the CUDA cores (``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
@@ -203,7 +204,7 @@ def _argtypes() -> Dict[str, list]:
         "rotmat_apply_bwd": bwd + [i64] * 3 + flags,
         "matrot_apply": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, K, B, stream
         "matrot_apply_bwd": bwd + [i64] * 3 + flags,
-        "rotwin_apply": [ptr, ptr, ptr, i64, i64, i64, ptr],
+        "rotwin_apply": [ptr] * 4 + [i64] * 3 + [ptr],  # x, w, ws, y, K, X, L, stream
         "rotwin_apply_bwd": bwd + [i64] * 4 + flags,
         "adjoint_step": adj + [i64] * 4 + flags,
         "adjoint_step_top": adj + [i64] * 3 + flags,
@@ -303,12 +304,13 @@ def gram_splits(K: int, C: int) -> int:
 
 
 def forward_path(K: int, run: int) -> bool:
-    """True when ``window_apply`` / ``rotmat_apply`` / ``matrot_apply`` /
-    ``window_apply_top`` with ``K`` rows and a state column run ``run`` (``B``
-    of the window view and of matrot's ``(K, B)`` view, ``X`` of the rotmat
-    view, ``A`` of the top window's ``(A, K)`` view) take
-    the wgmma kernel, False when they take the split-TF32 ``mma.sync`` tile:
-    the C launchers' shape rule, asked of the library."""
+    """True when ``window_apply`` / ``rotmat_apply`` / ``rotwin_apply`` /
+    ``matrot_apply`` / ``window_apply_top`` with ``K`` rows and a state column
+    run ``run`` (``B`` of the window view and of matrot's ``(K, B)`` view,
+    ``X`` of the rotmat view, ``min(X, L)`` of rotwin's, ``A`` of the top
+    window's ``(A, K)`` view) take the wgmma kernel, False when they take the
+    split-TF32 ``mma.sync`` tile: the C launchers' shape rule, asked of the
+    library."""
     return bool(_load().qml_forward_path(K, run))
 
 
@@ -317,7 +319,7 @@ def _launch_window(name, psi2, w2, K, n, geometry, split_w=False):
     stream)`` on a float32 state and ``(2, K, K)`` window; returns the new
     state.  *split_w*: the kernel takes a ``4*K*K`` float32 workspace for
     W's split-TF32 planes (``window_apply``, ``rotmat_apply``,
-    ``matrot_apply``, ``window_apply_top``)."""
+    ``rotwin_apply``, ``matrot_apply``, ``window_apply_top``)."""
     _check(name, "state", psi2, (2, 2**n))
     _check(name, "window", w2, (2, K, K))
     lib = _load()
@@ -385,7 +387,7 @@ def _rotwin_wunperm(wp, r, k):
 def _launch_rotwin_apply(psi2, w2, r, k, n):
     _check_rotwin("rotwin_apply", w2, r, k, n)
     return _launch_window("rotwin_apply", psi2, _rotwin_wperm(w2, r, k), 2**k, n,
-                          (2**k, 2 ** (n - k), 2**r))
+                          (2**k, 2 ** (n - k), 2**r), split_w=True)
 
 
 def _launch_rotate(psi2, r, n):

@@ -128,9 +128,10 @@ def test_matrot_plain_matches_pallas(n):
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("r,k", [(7, 8), (7, 9), (8, 9)])
+@pytest.mark.parametrize("r,k", [(7, 8), (7, 9), (8, 9), (5, 7)])
 def test_rotwin_plain_matches_pallas(r, k):
-    """A rotation by r and a window on [0, k), k > r, at 16 qubits."""
+    """A rotation by r and a window on [0, k), k > r, at 16 qubits ((5, 7):
+    L = 32, the smallest depth run of B10's wgmma rule)."""
     import jax.numpy as jnp
 
     from qml_essentials_tpu.ops import pallas_kernels
@@ -788,9 +789,12 @@ MATROT_EXTRA = [("matrot", 7, 4, 3), ("matrot", 6, 2, 4), ("matrot", 5, 3, 2),
 # rotwin beyond FUSED_CASES, on both sides of B11's 16-byte copy rule
 # (K >= 8, X >= 8 and L >= 8): L = 8, K = 128, X = 32 (copies, each 64-wide
 # column tile across eight a-groups), L = 8 with X = 8 (copies, at the X
-# edge), X = 4 and L = 4 (scalar staging), and the 24q plan's (8, 9).
+# edge), X = 4 and L = 4 (scalar staging), and the 24q plan's (8, 9); and of
+# B10's wgmma rule (K >= 8, X >= 32 and L >= 32): L = 32 with X = 32 (wgmma,
+# at both edges), L = 16 and X = 16 (the tile).
 ROTWIN_EXTRA = [("rotwin", 12, 3, 7), ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5),
-                ("rotwin", 9, 2, 5), ("rotwin", 24, 8, 9)]
+                ("rotwin", 9, 2, 5), ("rotwin", 24, 8, 9), ("rotwin", 12, 5, 7),
+                ("rotwin", 12, 4, 7), ("rotwin", 11, 5, 7)]
 
 
 @pytest.mark.cuda
@@ -874,11 +878,12 @@ def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
 @pytest.mark.parametrize("kind,g_dtype", [("window", "float32"), ("window", "bfloat16"),
                                           ("rotmat", "float32"), ("rotmat", "bfloat16"),
                                           ("matrot", "float32"), ("matrot", "bfloat16"),
-                                          ("rotwin", "float32"), ("rotwin", "bfloat16")])
+                                          ("rotwin", "float32"), ("rotwin", "bfloat16"),
+                                          ("top", "float32"), ("top", "bfloat16")])
 def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
-    """Two launches of B2 / B7 / B9 / B11 on the same inputs give the same
-    bits: the gram's split partials are summed in a fixed order, with no
-    atomics (B11 with L = 16 < K = 256)."""
+    """Two launches of B2 / B4 / B7 / B9 / B11 on the same inputs give the
+    same bits: the gram's split partials are summed in a fixed order, with no
+    atomics (B11 with L = 16 < K = 256; B4 over 16 splits of the A rows)."""
     n, k = 20, 8
     w, g, x = _bwd_inputs(cuda, n, k, 19, getattr(torch, g_dtype))
     if kind == "window":
@@ -888,6 +893,9 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
     elif kind == "rotwin":
         run = lambda: cuda_kernels.rotwin_apply_bwd(  # noqa: E731
             w, g, x, 4, k, n, torch.bfloat16)
+    elif kind == "top":
+        run = lambda: cuda_kernels.window_apply_top_bwd(  # noqa: E731
+            w, g, x, k, n, torch.bfloat16)
     else:
         run = lambda: cuda_kernels.matrot_apply_bwd(  # noqa: E731
             w, g, x, n - k, n, torch.bfloat16)
@@ -900,12 +908,13 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
 @pytest.mark.parametrize("kind,n,geom", [("window", 20, (3, 8)), ("window", 16, (0, 10)),
                                          ("rotmat", 20, (8,)), ("rotmat", 9, (8,)),
                                          ("top", 22, (6,)), ("top", 7, (3,)),
-                                         ("matrot", 20, (12,))])
+                                         ("matrot", 20, (12,)), ("rotwin", 20, (8, 9))])
 def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
-    """Two launches of B1 / B6 / B3 / B8 on the same inputs give the same
-    bits: every output is written once, by one block, with no atomics (the
-    wgmma kernel; rotmat n = 9, r = 8, two columns, and the top window with
-    16 rows of K = 8, on adjoint_tc.cuh's tile; matrot's K = 2^(n - r))."""
+    """Two launches of B1 / B6 / B3 / B8 / B10 on the same inputs give the
+    same bits: every output is written once, by one block, with no atomics
+    (the wgmma kernel; rotmat n = 9, r = 8, two columns, and the top window
+    with 16 rows of K = 8, on adjoint_tc.cuh's tile; matrot's K = 2^(n - r);
+    rotwin's L = 256 < K = 512)."""
     x = torch.from_numpy(_state(n, 23)).to(cuda)
     k = n - geom[0] if kind == "matrot" else geom[-1]
     w = torch.from_numpy(_unitary_pair(k, 29)).to(cuda)

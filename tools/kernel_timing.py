@@ -3,39 +3,40 @@
 
     python3 tools/kernel_timing.py [--root DIR] [--n 24] [--kernels a,b] [--max-k K]
 
-``--kernels`` picks from B1 ``window_apply``, B6 ``rotmat_apply``, B8
-``matrot_apply``, B3 ``window_apply_top``, B15 ``adjoint_matrot``, B9
-``matrot_apply_bwd``, B11 ``rotwin_apply_bwd`` and B13 ``adjoint_step_top``
-(default: the first two); each runs at every call of its kind in the
-n-qubit Circuit_19 plan (``chip_smoke.plan_shapes``; B9, B11, B13 and B15
-with the cotangent dtypes of one gradient, ``chip_smoke.backward_calls``),
-calls whose K = 2^k is above ``--max-k`` left out.  B3 and B13 need a plan
-with a top window (``--n 22``), B8, B9 and B15 one with matrot steps
-(``--n 24``), B11 one with rotwin steps (24: K = 512, L = 256; 22: K = 256,
-512 and 1024).  The kernels come from the package under ``--root`` (by
+``--kernels`` picks from B1 ``window_apply``, B6 ``rotmat_apply``, B10
+``rotwin_apply``, B8 ``matrot_apply``, B3 ``window_apply_top``, B15
+``adjoint_matrot``, B9 ``matrot_apply_bwd``, B11 ``rotwin_apply_bwd``, B4
+``window_apply_top_bwd`` and B13 ``adjoint_step_top`` (default: the first
+two); each runs at every call of its kind in the n-qubit Circuit_19 plan
+(``chip_smoke.plan_shapes``; B4, B9, B11, B13 and B15 with the cotangent
+dtypes of one gradient, ``chip_smoke.backward_calls``), calls whose
+K = 2^k is above ``--max-k`` left out.  B3, B4 and B13 need a plan with a
+top window (``--n 22``), B8, B9 and B15 one with matrot steps (``--n 24``),
+B10 and B11 one with rotwin steps (24: K = 512, L = 256; 22: K = 256, 512
+and 1024).  The kernels come from the package under ``--root`` (by
 default this checkout); the shapes, the library products and the timing come
 from this checkout's ``chip_smoke.py``, so that pointing ``--root`` at a
 second tree compares two versions of the kernels by one method in one call
 on one card.  It builds the kernels, prints ptxas's lines for the forward
 wgmma kernel and the top-window, matrot and rotation-layout kernels, then
 for every call: the kernel against its plain version in float64 (max|err|
-/ max|ref|: 1e-5; for B9, B11, B13 and B15 the rebuilt state 1e-5, a
+/ max|ref|: 1e-5; for B4, B9, B11, B13 and B15 the rebuilt state 1e-5, a
 float32 cotangent 1e-5, a bfloat16 one one ulp, gw 1e-4), its time and the
 cuBLAS complex64 products' of the same shapes (``torch.matmul``, TF32 off),
 and for the forward kernels the TFLOP/s issued in split TF32 (3 passes x
 8K flops an amplitude).  B3 is also timed on the split-TF32 tile
-(``qml_window_apply_top_tile``, where the tree has it), B8 beside B6
-``rotmat_apply`` at the same K and column count, B15 beside B14
-``adjoint_rotmat``, B9 and B11 beside B7 ``rotmat_apply_bwd`` and B13
-beside B12 ``adjoint_step`` (the window on ``[0, k)``) likewise.
+(``qml_window_apply_top_tile``, where the tree has it), B8 and B10 beside
+B6 ``rotmat_apply`` at the same K and column count, B15 beside B14
+``adjoint_rotmat``, B9 and B11 beside B7 ``rotmat_apply_bwd``, B13 beside
+B12 ``adjoint_step`` (the window on ``[0, k)``) and B4 beside B13 likewise.
 Times are ``chip_smoke._events_ms`` (CUDA events, best of 3 means of 10
 after a warm-up, as phase 6 takes them), each also "held": the calls queued
 behind a spinning kernel, device time without the host's launch gaps; and
 "host": the host's time to issue one call while the stream is held (best of
-3 means of 10), which bounds the unheld time from below.  For B9, B13 and
-B15 the device time of each CUDA kernel a call launches (the products, the
-split gram's ordered sum, G0 W) follows, from ``torch.profiler`` over 10
-calls; B11's too.
+3 means of 10), which bounds the unheld time from below.  For B4, B9, B11,
+B13 and B15 the device time of each CUDA kernel a call launches (the
+products, the split gram's ordered sum, G0 W) follows, from
+``torch.profiler`` over 10 calls.
 Exits non-zero without CUDA or on a failed check.
 """
 
@@ -52,8 +53,9 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-KINDS = ("window_apply", "rotmat_apply", "matrot_apply", "window_apply_top", "adjoint_matrot",
-         "matrot_apply_bwd", "rotwin_apply_bwd", "adjoint_step_top")
+KINDS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
+         "adjoint_matrot", "matrot_apply_bwd", "rotwin_apply_bwd", "window_apply_top_bwd",
+         "adjoint_step_top")
 TOL = 1e-5
 TOL_GW = 1e-4
 
@@ -172,6 +174,8 @@ def main() -> int:
         calls += [("window_apply", (a, k)) for a, k in shapes["window_apply"]]
     if "rotmat_apply" in kinds:
         calls += [("rotmat_apply", (r,)) for r in shapes["rotmat_apply"]]
+    if "rotwin_apply" in kinds:
+        calls += [("rotwin_apply", (r, k)) for r, k in shapes["rotwin_apply"]]
     if "matrot_apply" in kinds:
         calls += [("matrot_apply", (r,)) for r in shapes["matrot_apply"]]
     if "window_apply_top" in kinds:
@@ -182,13 +186,13 @@ def main() -> int:
         if 2**k > args.max_k:
             continue
         K = 2**k
-        run = {"window_apply_top": 2 ** (n - k), "matrot_apply": 2 ** geom[0]}.get(
-            name, 2 ** (n - sum(geom)))
+        run = {"window_apply_top": 2 ** (n - k), "matrot_apply": 2 ** geom[0],
+               "rotwin_apply": min(2 ** (n - k), 2 ** geom[0])}.get(name, 2 ** (n - sum(geom)))
         w = cs._unitary(k, rng)
         kern = lambda: getattr(ck, name)(x, w, *geom, n)  # noqa: E731
         lib_fn = {"window_apply": cs.lib_window, "rotmat_apply": cs.lib_rotmat,
-                  "matrot_apply": cs.lib_matrot,
-                  "window_apply_top": cs.lib_window_top}[name](x, w, *geom, n)
+                  "matrot_apply": cs.lib_matrot, "window_apply_top": cs.lib_window_top,
+                  "rotwin_apply": lambda *a: cs.lib_rotwin(ck, *a)}[name](x, w, *geom, n)
         ref = getattr(kn, f"{name}_plain")(x.double(), w.double(), *geom, n)
         rel = _rel(kern(), ref)
         ok &= rel <= TOL
@@ -199,10 +203,12 @@ def main() -> int:
             route = "fma"  # a tree whose B3 is still the float32-FMA tile
         if name == "matrot_apply" and len(ck._argtypes()["matrot_apply"]) == 6:
             route = "fma"  # a tree whose B8 takes no split-W workspace: the float32-FMA tile
+        if name == "rotwin_apply" and len(ck._argtypes()["rotwin_apply"]) == 7:
+            route = "fma"  # a tree whose B10 takes no split-W workspace: the float32-FMA tile
         tflops = 3 * 8 * K * 2**n / t_k[0] / 1e9
         print(f"  {name:16s} {str(geom):8s} K={K:5d} run={run:6d} {route:5s} rel {rel:.2e}  "
               f"kernel {us(t_k)}  cuBLAS {us(t_l)}  {tflops:6.1f} TFLOP/s issued", flush=True)
-        if name == "matrot_apply":
+        if name in ("matrot_apply", "rotwin_apply"):
             print(f"  {name:16s} {str(geom):8s} rotmat_apply (same K, columns) "
                   f"{us(times(lambda: ck.rotmat_apply(x, w, k, n)))}", flush=True)
         if name == "window_apply_top" and hasattr(lib, "qml_window_apply_top_tile"):
@@ -271,6 +277,18 @@ def main() -> int:
                 cs.lib_rotwin_bwd(ck, w, lam, x, r, k, n), out_dt,
                 "rotmat_apply_bwd (same K, columns)",
                 lambda: ck.rotmat_apply_bwd(w, lam, x, k, n, out_dt))
+            del ref
+        if kind == "top" and "window_apply_top_bwd" in kinds and 2 ** shape[1] <= args.max_k:
+            k = shape[1]
+            w = cs._unitary(k, rng)
+            ref = kn.window_apply_top_bwd_plain(w.double(), lam.double(), x.double(), k, n,
+                                                torch.float64)
+            ok &= backward_row(
+                "window_apply_top_bwd", f"k={k} g={tag}",
+                lambda: ck.window_apply_top_bwd(w, lam, x, k, n, out_dt), ref,
+                cs.lib_window_top_bwd(w, lam, x, k, n), out_dt,
+                "adjoint_step_top (same K, rows)",
+                lambda: ck.adjoint_step_top(w, x, lam, k, n, out_dt))
             del ref
         if kind == "top" and "adjoint_step_top" in kinds and 2 ** shape[1] <= args.max_k:
             k = shape[1]
