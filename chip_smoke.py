@@ -30,8 +30,14 @@ phase:
    matrot_apply and window_apply_top) warpgroup HGMMA instructions in every
    instantiation, under each of its maps the same way (WindowMap,
    RotWindowMap in rotmat_apply's and rotwin_apply's objects,
-   MatrotForwardMap, TopForwardMap); the 22q/24q/26q plans are printed (24q:
-   14 steps);
+   MatrotForwardMap, TopForwardMap); the chain kernels
+   (``chain_apply_kernel``, ``adjoint_chain_kernel``,
+   ``csrc/chain_block.cuh``) HGMMA in every instantiation (B17's window
+   products, B18's grams and pullbacks) and HMMA (their products under the
+   wgmma rule) in one of each; the clusters of each chain kernel (8 CTAs
+   for chain_apply, 4 for adjoint_chain) the card holds at once
+   (``cudaOccupancyMaxActiveClusters``) are printed; the 22q/24q/26q
+   plans are printed (24q: 14 steps);
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -103,6 +109,8 @@ phase:
 5d. the chain route (``simulation.USE_CHAINS = True``, B17 chain_apply and
    B18 adjoint_chain): the 22q and 24q chain plans are printed (24q: the 9
    steps of ``CHAIN_PLAN_24``), 26q has none and keeps its scheduled plan;
+   every window of both plans takes the wgmma product by the library's rule
+   (``cuda_kernels.forward_path`` on the descriptor table's K and run);
    both kernels against their plain versions in float64 at every step of
    both plans (states 1e-5, each descriptor's cotangent 1e-4, relative);
    then, with launch counts reset before and read after each request, a
@@ -140,7 +148,10 @@ phase:
    call with a float32 lambda, 7 with bfloat16; window_apply_bwd,
    window_apply_top_bwd, rotmat_apply_bwd, matrot_apply_bwd and
    rotwin_apply_bwd (two products) 6 a call with a float32 g, 4 with
-   bfloat16.  The float32-core figure is printed beside it.
+   bfloat16; chain_apply 3 a window (its diagonals' 6 flops an amplitude on
+   the CUDA cores) and adjoint_chain 9 a window (float32 lambda; the
+   diagonals' 20 flops an amplitude and the 8K^3 of G0 W on the CUDA
+   cores).  The float32-core figure is printed beside it.
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -182,12 +193,12 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
-# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first five) and
-# csrc/adjoint_tc.cuh.
+# Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first five),
+# csrc/adjoint_tc.cuh, and csrc/chain_block.cuh (the last two).
 TC_KERNELS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
               "window_apply_bwd", "window_apply_top_bwd", "rotmat_apply_bwd", "matrot_apply_bwd",
               "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
-              "adjoint_matrot")
+              "adjoint_matrot", "chain_apply", "adjoint_chain")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 KERNELS = {
@@ -505,13 +516,22 @@ def _check_maps(rows: list, kernel: str, maps: dict, col: int, what: str) -> Non
     _check(bool(fns) and all(r[col] for r in fns), f"a {kernel} without {what}")
 
 
+# The chain kernels: their window products, B18's grams and pullbacks on
+# wgmma (HGMMA) and the products of windows under the wgmma rule on
+# mma.sync (HMMA) in chain_apply_kernel<true> (a step with such a window)
+# and adjoint_chain_kernel (cuobjdump lists a kernel's callees under it).
+CHAIN_FUNCTIONS = ("chain_apply_kernel", "adjoint_chain_kernel")
+
+
 def check_sass(path: Path) -> None:
     """Every instantiation of the split-TF32 tile (``tc_cgemm_kernel``, under
     TC_KERNELS) issues tensor-core HMMA instructions, and each map of TC_MAPS
     has one in as many sources as it names; every instantiation of the
     forward wgmma kernel (``forward_wgmma_kernel``) issues warpgroup HGMMA
-    instructions, and each map of WGMMA_MAPS has one the same way; counted in
-    the library's SASS with cuobjdump, beside nvcc."""
+    instructions, and each map of WGMMA_MAPS has one the same way; every
+    instantiation of each chain kernel (CHAIN_FUNCTIONS) issues HGMMA, and
+    one of each also HMMA; counted in the library's SASS with
+    cuobjdump, beside nvcc."""
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
     tool = Path(ck._nvcc()).with_name("cuobjdump")
@@ -525,6 +545,12 @@ def check_sass(path: Path) -> None:
         f"forward_wgmma_kernel")
     _check_maps(rows, "tc_cgemm_kernel", TC_MAPS, 2, "HMMA")
     _check_maps(rows, "forward_wgmma_kernel", WGMMA_MAPS, 3, "HGMMA")
+    for kernel in CHAIN_FUNCTIONS:
+        fns = [r for r in rows if kernel in r[1]]
+        log(f"  SASS: {len(fns)} {kernel} instantiations, HGMMA {[r[3] for r in fns]}, "
+            f"HMMA {[r[2] for r in fns]}")
+        _check(bool(fns) and all(r[3] for r in fns) and any(r[2] for r in fns),
+               f"{kernel}: an instantiation without HGMMA, or no HMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -1403,6 +1429,12 @@ def phase_chains(models: dict, shapes: dict, refs: dict, g64: torch.Tensor) -> t
     n24 = WIDTHS[-1]
     _check([(g, d) for g, d, _ in plans[n24]] == CHAIN_PLAN_24,
            f"{n24}q chain plan differs from the JAX package's 9 steps")
+    for n in WIDTHS:  # (K, run) of every window, by the descriptor table the kernels read
+        wins = sorted({(2 ** row[2], row[7]) for geom, descs, _ in plans[n]
+                       for row in ck._chain_table("chain", geom, descs, n)[0] if row[0] != 2})
+        off = [w for w in wins if not ck.forward_path(*w)]
+        log(f"  {n}q chain windows (K, run): {wins}; off the wgmma product: {off}")
+        _check(not off, f"{n}q chain windows off the wgmma product: {off}")
     _check(plans[WIDE] is None, f"{WIDE}q has a chain plan")
     with chain_route(True):
         wide = plan_shapes(WIDE)  # raises on a chain step
@@ -1931,6 +1963,23 @@ def work_rotate_pair(n, el):
     return 0, 4 * 2**n * (4 + el)
 
 
+def work_chain_tc(descs, n, adjoint: bool):
+    """The split-TF32 chain kernel's work: (tensor-core flops, CUDA-core
+    flops).  Per window 3 passes x 8K flops an amplitude (B17's product) or
+    9 (B18's gram and two pullbacks, float32 lambda); on the CUDA cores the
+    diagonals (6 flops an amplitude, 20 for the adjoint) and B18's G0 W
+    (8K^3)."""
+    tc = cuda = 0
+    for d in descs:
+        if d[0] == "win":
+            K = 2 ** (d[2] - d[1])
+            tc += (9 if adjoint else 3) * 8 * K * 2**n
+            cuda += 8 * K**3 if adjoint else 0
+        else:
+            cuda += (20 if adjoint else 6) * 2**n
+    return tc, cuda
+
+
 def work_chain(descs, n, adjoint: bool):
     """A chain step: per window 8K flops an amplitude (24K and the K^3
     product G0 W for the adjoint), per diagonal 6 (20: the masked sum and
@@ -2138,10 +2187,12 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
             label = f"n={n} {geom[0]} {len(descs)} descriptors"
             add("chain_apply", label, lambda: ck.chain_apply(x, pairs, geom, descs, n),
                 lambda: kn.chain_apply_plain(x, pairs, geom, descs, n),
-                _chain_lib(x, None, pairs, descs, n), work_chain(descs, n, False))
+                _chain_lib(x, None, pairs, descs, n), work_chain(descs, n, False),
+                tc=work_chain_tc(descs, n, False))
             add("adjoint_chain", label, lambda: ck.adjoint_chain(x, g, pairs, geom, descs, n),
                 lambda: kn.adjoint_chain_plain(x, g, pairs, geom, descs, n),
-                _chain_lib(x, g, pairs, descs, n), work_chain(descs, n, True))
+                _chain_lib(x, g, pairs, descs, n), work_chain(descs, n, True),
+                tc=work_chain_tc(descs, n, True))
     log(f"  (per kernel, summed over one request's calls: the forward kernels per {n}q "
         f"forward, the *_bwd kernels per {n}q saved gradient, the adjoint kernels and "
         f"rotate_pair per {n}q adjoint gradient, rotate per {n}q forward + saved gradient, "
@@ -2149,7 +2200,8 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
         f"gradient, chain_apply / adjoint_chain per {n}q chain forward / adjoint gradient; "
         f"bound = max(flops / 67 TFLOP/s, bytes / 3.35 TB/s) per call, for "
         f"{', '.join(TC_KERNELS)} max(split-TF32 passes x 8K flops / 495 TFLOP/s + "
-        f"CUDA-core flops (8K^3 of gw = G0 W for the adjoint steps) / 67 TFLOP/s, "
+        f"CUDA-core flops (8K^3 of gw = G0 W for the adjoint steps and B18, the "
+        f"chain diagonals) / 67 TFLOP/s, "
         f"bytes / 3.35 TB/s))")
     for name, t in totals.items():
         extra = f" (fp32-core bound {t['fp32_bound_ms']:.3f} ms)" if name in TC_KERNELS else ""
@@ -2194,6 +2246,9 @@ def main() -> int:
         if "Compiling entry function" in line or "Used" in line or "wgmma" in line.lower():
             log(f"  {line.strip()}")
     check_sass(path)
+    for name in CHAIN_KERNELS:
+        log(f"  {name}: {ck.chain_active_clusters(name, torch.device(DEVICE))} clusters of "
+            f"{ck._CHAIN_RANKS[name]} CTAs at once on the card (cudaOccupancyMaxActiveClusters)")
 
     shapes = {n: plan_shapes(n) for n in (*WIDTHS, WIDE)}
     for n in (*WIDTHS, WIDE):

@@ -368,7 +368,9 @@ inline int launch_tc_cgemm(const TA* a, int64_t a_plane, const TB* b, int64_t b_
 }
 
 // The shape rule of the 16-byte copies: K >= 8 and column runs of >= 8.
-inline bool tc_vec_shape(int64_t K, int64_t run) { return K >= 8 && run >= 8; }
+__host__ __device__ inline bool tc_vec_shape(int64_t K, int64_t run) {
+  return K >= 8 && run >= 8;
+}
 
 // An adjoint step on the tensor cores: the two pullbacks psi_prev = op(W) psi
 // and lam_prev = op(W) lam through the pullback map P (W is the conjugated

@@ -1,8 +1,7 @@
 // Shared block tile of the adjoint steps' gw = G0 W (launch_gram_times_w)
-// and of the chain kernels (chain_block.cuh, adjoint_chain.cu's gw); the
-// window kernels, window_apply.cu, rotmat_apply.cu, rotwin_apply.cu,
-// matrot_apply.cu and window_apply_top.cu (their products on
-// forward_wgmma.cuh's tensor cores), window_apply_bwd.cu,
+// and of adjoint_chain.cu's; the window kernels, window_apply.cu,
+// rotmat_apply.cu, rotwin_apply.cu, matrot_apply.cu and window_apply_top.cu
+// (their products on forward_wgmma.cuh's tensor cores), window_apply_bwd.cu,
 // window_apply_top_bwd.cu, rotmat_apply_bwd.cu, matrot_apply_bwd.cu,
 // rotwin_apply_bwd.cu, adjoint_step.cu, adjoint_step_top.cu,
 // adjoint_rotmat.cu and adjoint_matrot.cu (on adjoint_tc.cuh's), take only
@@ -32,8 +31,8 @@
 // partials in a fixed order (reduce_splits below): no atomics, so the result
 // is the same from run to run.
 //
-// Element types: A and B are float (or coherent_f32, below), C is float; the
-// arithmetic is float32 throughout.  store_f32 also writes a bfloat16 output
+// Element types: A, B and C are float; the arithmetic is float32
+// throughout.  store_f32 also writes a bfloat16 output
 // (rounded to nearest even) for adjoint_tc.cuh's tile.
 //
 // The maps of the window layouts that several kernels use live at the end of
@@ -56,15 +55,6 @@ constexpr int PAD = 4;   // keeps rows 16-byte aligned for float4 reads
 static_assert(BM == BN, "row and column stages share one shared-memory shape");
 
 __device__ __forceinline__ float load_f32(const float* p, int64_t off) { return p[off]; }
-// A float plane that the kernel reading it wrote earlier in the same launch
-// (the chain kernels' ping-pong buffers): loads go to L2 (ld.global.cg),
-// never through the read-only path or a stale L1 line of another block.
-struct coherent_f32 {
-  float v;
-};
-__device__ __forceinline__ float load_f32(const coherent_f32* p, int64_t off) {
-  return __ldcg(&p[off].v);
-}
 __device__ __forceinline__ void store_f32(float* p, int64_t off, float v) { p[off] = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t off, float v) {
   p[off] = __float2bfloat16(v);

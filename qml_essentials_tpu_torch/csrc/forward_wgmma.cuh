@@ -440,7 +440,9 @@ forward_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
 // state column run >= 32; run is B of the window view (and of the matrot
 // step's (K, B) view), X of the rotmat view, A of the top window's (A, K)
 // view, and min(X, L) of rotwin's.
-inline bool forward_wgmma_shape(int64_t K, int64_t run) { return K >= 8 && run >= 32; }
+__host__ __device__ inline bool forward_wgmma_shape(int64_t K, int64_t run) {
+  return K >= 8 && run >= 32;
+}
 
 namespace fwd {
 

@@ -27,7 +27,7 @@ chain_apply            csrc/chain_apply.cu           pallas_kernels.chain_apply_
 adjoint_chain          csrc/adjoint_chain.cu         pallas_kernels.adjoint_chain_ri
 =====================  ============================  ======================================
 
-Fourteen kernels run their products on the tensor cores in split TF32
+Sixteen kernels run their products on the tensor cores in split TF32
 (float32-grade, whatever ``torch.backends.cuda.matmul.allow_tf32`` says):
 ``window_apply``, ``rotmat_apply``, ``rotwin_apply``, ``matrot_apply`` and
 ``window_apply_top`` on warpgroup ``wgmma`` (``csrc/forward_wgmma.cuh``, W
@@ -36,9 +36,13 @@ split once a call into a workspace the wrapper allocates; shapes under
 ``window_apply_top_bwd``, ``rotmat_apply_bwd``, ``matrot_apply_bwd`` and
 ``rotwin_apply_bwd`` (pullback and gram) and ``adjoint_step``,
 ``adjoint_step_top``, ``adjoint_rotmat`` and ``adjoint_matrot`` (two
-pullbacks and the gram) on ``mma.sync`` (``csrc/adjoint_tc.cuh``); the
-chain kernels, and the adjoint steps' ``gw = G0 W``, multiply in float32 on
-the CUDA cores (``csrc/cgemm_tile.cuh``).
+pullbacks and the gram) on ``mma.sync`` (``csrc/adjoint_tc.cuh``), and the
+chain kernels ``chain_apply`` and ``adjoint_chain`` (``csrc/chain_block.cuh``:
+their window products, pullbacks and grams on ``wgmma``, W split once a
+launch into a workspace the wrapper allocates; ``mma.sync`` for windows
+under the wgmma shape rule); the adjoint
+steps' ``gw = G0 W`` multiplies in float32 on the CUDA cores
+(``csrc/cgemm_tile.cuh``).
 
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
@@ -77,7 +81,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -212,12 +216,15 @@ def _argtypes() -> Dict[str, list]:
         "adjoint_matrot": adj + [i64] * 3 + flags,
         "rotate_pair": [ptr, ptr, ptr, ptr, i64, i64, i32, ptr],
         "forward_path": [i64, i64],
-        # x, y, ws, payloads, descriptors, nd, plane, the blocks (5), ranks, stream
-        "chain_apply": [ptr] * 5 + [i64] * 8 + [ptr],
-        # psi, lam, psi_out, lam_out, ws_psi, ws_lam, payloads, grads,
-        # descriptors (device, host), nd, plane, the blocks (5), ranks,
-        # clusters, slots, red, slot size, stream
-        "adjoint_chain": [ptr] * 10 + [i64] * 9 + [ptr, ptr, i64, ptr],
+        # x, y, ws, payloads, split workspace, descriptors (device, host),
+        # nd, plane, the blocks (5), ranks, largest K^2, stream
+        "chain_apply": [ptr] * 7 + [i64] * 9 + [ptr],
+        # psi, lam, psi_out, lam_out, ws_psi, ws_lam, payloads, split
+        # workspace, grads, descriptors (device, host), nd, plane, the blocks
+        # (5), ranks, clusters, slots, red, slot size, largest K^2, stream
+        "adjoint_chain": [ptr] * 11 + [i64] * 9 + [ptr, ptr, i64, i64, ptr],
+        "chain_apply_clusters": [i64],  # ranks
+        "adjoint_chain_clusters": [i64],
     }
 
 
@@ -707,8 +714,12 @@ def rotate_pair(
 # Chain steps (``ops/chains.py``): one launch per step, B17 and B18
 # ---------------------------------------------------------------------------
 
-# CTAs in the thread-block cluster that takes one block of a chain step.
-_CHAIN_RANKS = 8
+# CTAs in the thread-block cluster that takes one block of a chain step, by
+# kernel.  One CTA an SM (~205 KB of shared memory): an H100 holds 15
+# clusters of 8 or 30 of 4.  On the 24q chain plan B17, one cluster a block,
+# ran 3-5 % faster with 8; B18, whose clusters each walk their set of
+# blocks, 3-5 % faster with 4 (a CTA takes twice a descriptor's tiles).
+_CHAIN_RANKS = {"chain_apply": 8, "adjoint_chain": 4}
 
 # Columns of an H-geometry block (its rows are the 256 values of state bits
 # [n-8, n)): 2^16 amplitudes, as many as 16 tiles of a K = 256 window.
@@ -718,8 +729,39 @@ _CHAIN_COLS = 256
 _CHAIN_DESC = 8
 _ROWS, _MINOR, _DIAG = 0, 1, 2
 
+
+class _ChainTable(NamedTuple):
+    """A step's descriptor table on the device and the host, the floats of a
+    cluster's gram slot and of the split workspace, and the largest K^2."""
+    dev: torch.Tensor
+    host: torch.Tensor
+    slot: int
+    split: int
+    max_kk: int
+
+
 # Descriptor tables already on a device, by (geom, descs, n, device).
-_chain_tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+_chain_tables: Dict[tuple, _ChainTable] = {}
+
+# Clusters of each chain kernel the card holds at once, by (kernel, device).
+_chain_active: Dict[tuple, int] = {}
+
+
+def chain_active_clusters(name: str, device: torch.device) -> int:
+    """Clusters of ``_CHAIN_RANKS[name]`` CTAs of the chain kernel *name*
+    (``chain_apply`` or ``adjoint_chain``) that the card holds at once, at
+    the kernel's shared memory (``cudaOccupancyMaxActiveClusters``); raises
+    when the card holds none."""
+    key = (name, torch.device(device))
+    ranks = _CHAIN_RANKS[name]
+    if key not in _chain_active:
+        with torch.cuda.device(key[1]):
+            count = getattr(_load(), f"qml_{name}_clusters")(ranks)
+        if count <= 0:
+            raise RuntimeError(f"{name}: the card holds no cluster of {ranks} CTAs at the "
+                               f"kernel's shared memory (code {count})")
+        _chain_active[key] = count
+    return _chain_active[key]
 
 
 def chain_geometry_fits(geom: tuple, n: int) -> bool:
@@ -746,14 +788,17 @@ def _chain_blocks(name: str, geom: tuple, n: int) -> Tuple[int, int, int, int, i
     return 2 ** (n - span) // cols, 2**span * cols, cols, 2 ** (n - span), split
 
 
-def _chain_table(name: str, geom: tuple, descs: tuple, n: int) -> Tuple[list, int]:
-    """The descriptor table rows (``csrc/chain_block.cuh``) and the size of a
-    cluster's gram slot in floats; raises on a descriptor the kernels do not
-    take."""
+def _chain_table(name: str, geom: tuple, descs: tuple, n: int) -> Tuple[list, int, int, int]:
+    """The descriptor table rows (``csrc/chain_block.cuh``), the size of a
+    cluster's gram slot and of the split workspace in floats, and the
+    largest window's K^2; raises on a descriptor the kernels do not take.  A
+    window's RUN is the state's contiguous run along its columns (along its
+    depth for a minor window, llo = 0), which picks its product by the
+    kernels' shape rule."""
     count, size, stride, hi_stride, split = _chain_blocks(name, geom, n)
     low = 0 if geom[0] == "L" else n - geom[1]  # the state bit at the block's local bit `split`
     top = geom[1] if geom[0] == "L" else n
-    rows, poff, goff = [], 0, 0
+    rows, poff, goff, soff, max_kk = [], 0, 0, 0, 0
     for d in descs:
         if d[0] == "win":
             lo, hi = int(d[1]), int(d[2])
@@ -761,9 +806,12 @@ def _chain_table(name: str, geom: tuple, descs: tuple, n: int) -> Tuple[list, in
                 raise ValueError(f"{name}: window on bits [{lo}, {hi}) outside geometry {geom}")
             llo = lo if geom[0] == "L" else lo - low + split
             K = 2 ** (hi - lo)
-            rows.append([_MINOR if llo == 0 else _ROWS, llo, hi - lo, 0, poff, goff, 0, 0])
+            run = 2 ** min(hi - lo if llo == 0 else llo, split)
+            rows.append([_MINOR if llo == 0 else _ROWS, llo, hi - lo, 0, poff, goff, soff, run])
             poff += 2 * K * K
             goff += 2 * K * K
+            soff += 4 * K * K
+            max_kk = max(max_kk, K * K)
         elif d[0] == "diag":
             bits = [int(b) for b in d[1]]
             if not (1 <= len(bits) <= 2 and all(0 <= b < n for b in bits)
@@ -772,17 +820,17 @@ def _chain_table(name: str, geom: tuple, descs: tuple, n: int) -> Tuple[list, in
             V = 2 ** len(bits)
             rows.append([_DIAG, len(bits), bits[0], bits[-1], poff, goff, 0, 0])
             poff += 2 * V
-            goff += _CHAIN_RANKS * 2 * V
+            goff += _CHAIN_RANKS["adjoint_chain"] * 2 * V
         else:
             raise ValueError(f"{name}: unknown descriptor {d!r}")
     if not rows:
         raise ValueError(f"{name}: a chain step needs at least one descriptor")
-    return rows, goff
+    return rows, goff, soff, max_kk
 
 
 def _chain_operands(name, psi2, payloads, geom, descs, n):
-    """Checks the state and payloads; returns (device table, host table, slot
-    size, packed payloads, blocks)."""
+    """Checks the state and payloads; returns (table, packed payloads,
+    blocks)."""
     _check(name, "state", psi2, (2, 2**n))
     if len(payloads) != len(descs):
         raise ValueError(f"{name}: {len(payloads)} payloads for {len(descs)} descriptors")
@@ -794,12 +842,11 @@ def _chain_operands(name, psi2, payloads, geom, descs, n):
             raise ValueError(f"{name}: payload of {d} on {p.device}, state on {psi2.device}")
     key = (geom, descs, n, psi2.device)
     if key not in _chain_tables:
-        rows, slot = _chain_table(name, geom, descs, n)
+        rows, slot, split, max_kk = _chain_table(name, geom, descs, n)
         host = torch.tensor(rows, dtype=torch.int64)
-        _chain_tables[key] = (host.to(psi2.device), host, slot)
-    dev, host, slot = _chain_tables[key]
+        _chain_tables[key] = _ChainTable(host.to(psi2.device), host, slot, split, max_kk)
     packed = torch.cat([p.reshape(-1) for p in payloads])
-    return dev, host, slot, packed, _chain_blocks(name, geom, n)
+    return _chain_tables[key], packed, _chain_blocks(name, geom, n)
 
 
 def _refuse_gradient(name: str, *tensors: torch.Tensor) -> None:
@@ -818,23 +865,30 @@ def chain_apply(
     if _on_cpu(psi2, *payloads):
         return kernels.chain_apply_plain(psi2, payloads, geom, descs, n)
     _refuse_gradient("chain_apply", psi2, *payloads)
-    dev, _, _, packed, blocks = _chain_operands("chain_apply", psi2, payloads, geom, descs, n)
+    tab, packed, blocks = _chain_operands("chain_apply", psi2, payloads, geom, descs, n)
     lib = _load()
     y = torch.empty_like(psi2)
     ws = torch.empty_like(psi2) if len(descs) > 1 else y
+    vs = torch.empty(max(tab.split, 1), dtype=torch.float32, device=psi2.device)
     with torch.cuda.device(psi2.device):
         code = lib.qml_chain_apply(
-            psi2.data_ptr(), y.data_ptr(), ws.data_ptr(), packed.data_ptr(), dev.data_ptr(),
-            len(descs), 2**n, *blocks, _CHAIN_RANKS, _stream(psi2))
+            psi2.data_ptr(), y.data_ptr(), ws.data_ptr(), packed.data_ptr(), vs.data_ptr(),
+            tab.dev.data_ptr(), tab.host.data_ptr(), len(descs), 2**n, *blocks,
+            _CHAIN_RANKS["chain_apply"], tab.max_kk, _stream(psi2))
     _raise_on("chain_apply", code)
     LAUNCHES["chain_apply"] += 1
     return y
 
 
-def chain_clusters(blocks: int, slot_floats: int) -> int:
-    """Clusters of the chain adjoint: one per block, at most as many as keep
-    their gram slots within ``_GRAM_MAX_WS`` bytes."""
-    return max(1, min(blocks, _GRAM_MAX_WS // (4 * slot_floats)))
+def chain_clusters(blocks: int, slot_floats: int, active: int) -> int:
+    """Clusters of the chain adjoint: as many as the card holds at once
+    (*active*), within ``_GRAM_MAX_WS`` bytes of gram slots and at most one
+    a block.  Cluster c walks blocks c, c + clusters, ...: a count that
+    divided the blocks would leave up to half the card idle (an H100 holds
+    30 clusters of 4 CTAs at the kernel's shared memory, 16 of which divide
+    128 and 256 blocks), so some clusters walk one block more.  The gram's
+    order of sums follows from the count: fixed for a card."""
+    return max(1, min(blocks, active, _GRAM_MAX_WS // (4 * slot_floats)))
 
 
 def adjoint_chain(
@@ -848,23 +902,26 @@ def adjoint_chain(
     if _on_cpu(psi2, lam2, *payloads):
         return kernels.adjoint_chain_plain(psi2, lam2, payloads, geom, descs, n)
     _check("adjoint_chain", "cotangent", lam2, (2, 2**n))
-    dev, host, slot, packed, blocks = _chain_operands(
-        "adjoint_chain", psi2, payloads, geom, descs, n)
-    clusters = chain_clusters(blocks[0], slot)
+    tab, packed, blocks = _chain_operands("adjoint_chain", psi2, payloads, geom, descs, n)
+    clusters = chain_clusters(blocks[0], tab.slot,
+                              chain_active_clusters("adjoint_chain", psi2.device))
     lib = _load()
     psi_out, lam_out = torch.empty_like(psi2), torch.empty_like(psi2)
     two = len(descs) > 1
     ws_psi = torch.empty_like(psi2) if two else psi_out
     ws_lam = torch.empty_like(psi2) if two else lam_out
     grads = torch.empty_like(packed)
-    slots = torch.empty(clusters * slot, dtype=torch.float32, device=psi2.device)
-    red = torch.empty(slot, dtype=torch.float32, device=psi2.device)
+    vs = torch.empty(max(tab.split, 1), dtype=torch.float32, device=psi2.device)
+    slots = torch.empty(clusters * tab.slot, dtype=torch.float32, device=psi2.device)
+    red = torch.empty(tab.slot, dtype=torch.float32, device=psi2.device)
     with torch.cuda.device(psi2.device):
         code = lib.qml_adjoint_chain(
             psi2.data_ptr(), lam2.data_ptr(), psi_out.data_ptr(), lam_out.data_ptr(),
-            ws_psi.data_ptr(), ws_lam.data_ptr(), packed.data_ptr(), grads.data_ptr(),
-            dev.data_ptr(), host.data_ptr(), len(descs), 2**n, *blocks, _CHAIN_RANKS, clusters,
-            slots.data_ptr(), red.data_ptr(), slot, _stream(psi2))
+            ws_psi.data_ptr(), ws_lam.data_ptr(), packed.data_ptr(), vs.data_ptr(),
+            grads.data_ptr(), tab.dev.data_ptr(), tab.host.data_ptr(), len(descs), 2**n,
+            *blocks, _CHAIN_RANKS["adjoint_chain"], clusters, slots.data_ptr(), red.data_ptr(),
+            tab.slot,
+            tab.max_kk, _stream(psi2))
     _raise_on("adjoint_chain", code)
     LAUNCHES["adjoint_chain"] += 1
     parts = torch.split(grads, [p.numel() for p in payloads])

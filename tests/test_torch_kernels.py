@@ -411,12 +411,30 @@ def _wgmma_forward(w: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tenso
     return acc
 
 
+def _chain_view(t: torch.Tensor, lo: int, hi: int, span: int = 17) -> torch.Tensor:
+    """One L block (2, 2**span) as a window's (2, K, C) view: the columns
+    c = a 2**lo + b of the (A, K, 2**lo) layout; for a minor window (lo = 0)
+    the transpose of the row-major (C, K) block, as the chain kernels'
+    wgmma product holds it (y^T = x^T W^T, the state's rows its columns)."""
+    K = 2 ** (hi - lo)
+    v = t.reshape(2, 2 ** (span - hi), K, 2**lo)
+    return v.permute(0, 2, 1, 3).reshape(2, K, -1)
+
+
+def _chain_unview(v: torch.Tensor, lo: int, hi: int, span: int = 17) -> torch.Tensor:
+    K = 2 ** (hi - lo)
+    return v.reshape(2, K, 2 ** (span - hi), 2**lo).permute(0, 2, 1, 3).reshape(2, -1)
+
+
 @pytest.mark.unittest
 @pytest.mark.parametrize("view,passes,within",
                          [("window", 3, True), ("window", 1, False), ("top", 3, True),
-                          ("top", 1, False), ("matrot", 3, True), ("matrot", 1, False)],
+                          ("top", 1, False), ("matrot", 3, True), ("matrot", 1, False),
+                          ("chain-rows", 3, True), ("chain-rows", 1, False),
+                          ("chain-minor", 3, True), ("chain-minor", 1, False)],
                          ids=["3-True", "1-False", "top-3-True", "top-1-False", "matrot-3-True",
-                              "matrot-1-False"])
+                              "matrot-1-False", "chain-rows-3-True", "chain-rows-1-False",
+                              "chain-minor-3-True", "chain-minor-1-False"])
 def test_split_tf32_forward_is_float32_grade(view, passes, within):
     """The forward windows' split-TF32 wgmma scheme, in the kernel's pass
     order, truncating sums and 32-deep promotion interval, is within
@@ -426,7 +444,20 @@ def test_split_tf32_forward_is_float32_grade(view, passes, within):
     two stages, on 1024 rows of X, and matrot_apply (y = (W x)^T on the
     (K, B) view, W x formed on the window view and stored along its rows)
     at the 24q plan's K = 256, eight stages, on 256 columns, against the
-    plain version in float64."""
+    plain version in float64; and chain_apply's window product (one
+    2**17-amplitude L block of the 24q chain plan) on a row window (7, 15),
+    K = 256 on the (4, 256, 128) view's 512 columns, and on the minor
+    window (0, 8), Y = X W^T on the (512, 256) block formed as
+    Y^T = W X^T, against chain_apply_plain in float64."""
+    if view.startswith("chain"):
+        lo, hi = (7, 15) if view == "chain-rows" else (0, 8)
+        w = torch.from_numpy(_unitary_pair(hi - lo, 8))
+        x = torch.from_numpy(_state(17, 9))
+        got = _chain_unview(_wgmma_forward(w, _chain_view(x, lo, hi), passes), lo, hi)
+        ref = kernels.chain_apply_plain(x.double(), [w.double()], ("L", 17),
+                                        (("win", lo, hi),), 17)
+        assert (_rel(got.double(), ref) <= CUDA_TOL) == within
+        return
     k = {"window": 10, "top": 6, "matrot": 8}[view]
     K = 2**k
     w = torch.from_numpy(_unitary_pair(k, 8))
@@ -442,6 +473,56 @@ def test_split_tf32_forward_is_float32_grade(view, passes, within):
         ref = torch.stack([w64[0] @ x64[0] - w64[1] @ x64[1],
                            w64[0] @ x64[1] + w64[1] @ x64[0]])
     assert (_rel(got.double(), ref) <= CUDA_TOL) == within
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("part,passes,within",
+                         [("rows-gram", 3, True), ("rows-gram", 1, False),
+                          ("minor-gram", 3, True), ("minor-gram", 1, False),
+                          ("rows-pull", 3, True), ("rows-pull", 1, False),
+                          ("minor-pull", 3, True), ("minor-pull", 1, False)])
+def test_split_tf32_chain_adjoint_is_float32_grade(part, passes, within):
+    """adjoint_chain's arithmetic on an 18-qubit state of two L blocks (the
+    24q chain plan's geometry), float32 lam, against adjoint_chain_plain in
+    float64: the gram G0 on the wgmma gram (k8 steps summed exactly and
+    truncated, each term's passes small ones first, the same order as the
+    mma.sync stage's), each block's K x K partial summed in 32-deep stages
+    (3 passes: lam split too) and the blocks' partials added in order (two
+    clusters, one block each), then gw = G0 W in float32, for a row window
+    (7, 14) (both along the columns, K = 128 over 1024 columns a block) and
+    a minor window (0, 7) (the (1024, 128) block's rows the depth); and the
+    pullback psi_prev =
+    W^dagger psi on the wgmma product through conj(W)^T's split planes
+    (split_windows), a row window (7, 15) and a minor window (0, 8), K =
+    256.  Each within its bound with all its passes (gw CUDA_GRAM_TOL, the
+    state CUDA_TOL), and not with one."""
+    n, span = 18, 17
+    rows = part.startswith("rows")
+    if part.endswith("gram"):
+        lo, hi = (7, 14) if rows else (0, 7)
+    else:
+        lo, hi = (7, 15) if rows else (0, 8)
+    K = 2 ** (hi - lo)
+    w = torch.from_numpy(_unitary_pair(hi - lo, 11))
+    psi, lam = torch.from_numpy(_state(n, 12)), torch.from_numpy(_state(n, 13))
+    ref = kernels.adjoint_chain_plain(psi.double(), lam.double(), [w.double()], ("L", span),
+                                      (("win", lo, hi),), n)
+    blocks = [(psi[:, b * 2**span:(b + 1) * 2**span], lam[:, b * 2**span:(b + 1) * 2**span])
+              for b in range(2 ** (n - span))]
+    if part.endswith("pull"):
+        wct = torch.stack([w[0].T, -w[1].T]).contiguous()  # conj(W)^T, split by the prologue
+        got = torch.cat([_chain_unview(_wgmma_forward(wct, _chain_view(p, lo, hi), passes),
+                                       lo, hi) for p, _ in blocks], dim=1)
+        assert (_rel(got.double(), ref[0]) <= CUDA_TOL) == within
+        return
+    g0 = torch.zeros((2, K, K), dtype=torch.float32)
+    for p, lm in blocks:  # each block's partial added to the slot, the slots in order
+        if rows:
+            g0 += _tc_gram(_chain_view(lm, lo, hi), _chain_view(p, lo, hi), 1, passes, True)
+        else:
+            g0 += _tc_gram(lm.reshape(2, -1, K), p.reshape(2, -1, K), 1, passes, True, True)
+    gw = torch.stack([g0[0] @ w[0] - g0[1] @ w[1], g0[0] @ w[1] + g0[1] @ w[0]])
+    assert (_rel(gw.double(), ref[2][0]) <= CUDA_GRAM_TOL) == within
 
 
 @pytest.mark.unittest
@@ -848,17 +929,41 @@ def test_cuda_fused_adjoint_matches_plain(cuda, kind, n, r, k, lam_dtype, out_dt
     _assert_adjoint_close(got, ref, out_dtype)
 
 
+# A chain step of each geometry on a 20-qubit state (B17, B18): minor and row
+# windows and a two-bit diagonal on L blocks, row windows and a diagonal
+# across the rows and columns on H blocks.
+CHAIN_STEPS_20 = {
+    "chain-L": (("L", 17), (("win", 0, 8), ("win", 7, 15), ("diag", (16, 3)), ("win", 9, 17))),
+    "chain-H": (("H", 8), (("win", 12, 20), ("diag", (19, 0)), ("win", 13, 20))),
+}
+
+
+def _chain_payloads(cuda, descs):
+    return [torch.from_numpy(_unitary_pair(d[2] - d[1], i) if d[0] == "win"
+                             else _diag_pair(d[1], i)).to(cuda) for i, d in enumerate(descs)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,lam_dtype", [("step", "float32"), ("step", "bfloat16"),
                                             ("rotmat", "float32"), ("rotmat", "bfloat16"),
                                             ("matrot", "float32"), ("matrot", "bfloat16"),
-                                            ("top", "float32"), ("top", "bfloat16")])
+                                            ("top", "float32"), ("top", "bfloat16"),
+                                            ("chain-L", "float32"), ("chain-H", "float32")])
 def test_cuda_adjoint_gradients_repeat_bit_for_bit(cuda, kind, lam_dtype):
-    """Two launches of B12 / B13 / B14 / B15 on the same inputs give the same
-    bits: the gram's split partials are summed in a fixed order, with no
-    atomics."""
+    """Two launches of B12 / B13 / B14 / B15 / B18 on the same inputs give the
+    same bits: the gram's split partials (B18: the clusters' slots) are
+    summed in a fixed order, with no atomics."""
     n, k = 20, 8
     w, lam, psi = _bwd_inputs(cuda, n, k, 17, getattr(torch, lam_dtype))
+    if kind in CHAIN_STEPS_20:
+        geom, descs = CHAIN_STEPS_20[kind]
+        pays = _chain_payloads(cuda, descs)
+        first, second = (cuda_kernels.adjoint_chain(psi, lam, pays, geom, descs, n)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        assert all(torch.equal(a, b) for a, b in zip(first[2], second[2]))
+        return
     if kind == "step":
         run = lambda: cuda_kernels.adjoint_step(w, psi, lam, 3, k, n, torch.bfloat16)  # noqa: E731
     elif kind == "top":
@@ -908,14 +1013,24 @@ def test_cuda_saved_gradients_repeat_bit_for_bit(cuda, kind, g_dtype):
 @pytest.mark.parametrize("kind,n,geom", [("window", 20, (3, 8)), ("window", 16, (0, 10)),
                                          ("rotmat", 20, (8,)), ("rotmat", 9, (8,)),
                                          ("top", 22, (6,)), ("top", 7, (3,)),
-                                         ("matrot", 20, (12,)), ("rotwin", 20, (8, 9))])
+                                         ("matrot", 20, (12,)), ("rotwin", 20, (8, 9)),
+                                         ("chain-L", 20, ()), ("chain-H", 20, ())])
 def test_cuda_forward_windows_repeat_bit_for_bit(cuda, kind, n, geom):
-    """Two launches of B1 / B6 / B3 / B8 / B10 on the same inputs give the
-    same bits: every output is written once, by one block, with no atomics
-    (the wgmma kernel; rotmat n = 9, r = 8, two columns, and the top window
-    with 16 rows of K = 8, on adjoint_tc.cuh's tile; matrot's K = 2^(n - r);
-    rotwin's L = 256 < K = 512)."""
+    """Two launches of B1 / B6 / B3 / B8 / B10 / B17 on the same inputs give
+    the same bits: every output is written once, by one block, with no
+    atomics (the wgmma kernel; rotmat n = 9, r = 8, two columns, and the top
+    window with 16 rows of K = 8, on adjoint_tc.cuh's tile; matrot's
+    K = 2^(n - r); rotwin's L = 256 < K = 512; a chain step of each
+    geometry)."""
     x = torch.from_numpy(_state(n, 23)).to(cuda)
+    if kind in CHAIN_STEPS_20:
+        chain_geom, descs = CHAIN_STEPS_20[kind]
+        pays = _chain_payloads(cuda, descs)
+        first, second = (cuda_kernels.chain_apply(x, pays, chain_geom, descs, n)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        return
     k = n - geom[0] if kind == "matrot" else geom[-1]
     w = torch.from_numpy(_unitary_pair(k, 29)).to(cuda)
     name = "window_apply_top" if kind == "top" else f"{kind}_apply"
@@ -1030,18 +1145,28 @@ def test_cuda_chain_kernels_match_plain_on_the_plan(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom,descs", [
-    (("L", 17), (("diag", (17,)), ("win", 0, 9), ("win", 9, 17), ("diag", (5, 2)))),
-    (("L", 17), (("win", 7, 14),)),
-    (("H", 8), (("win", 10, 18), ("diag", (17, 3)), ("win", 11, 18))),
-    (("H", 8), (("diag", (12,)),)),
-], ids=["L-K512-diags", "L-one-window", "H-wrap-diag", "H-one-diag"])
-def test_cuda_chain_kernels_match_plain_on_edges(cuda, geom, descs):
+@pytest.mark.parametrize("n,geom,descs", [
+    (18, ("L", 17), (("diag", (17,)), ("win", 0, 9), ("win", 9, 17), ("diag", (5, 2)))),
+    (18, ("L", 17), (("win", 7, 14),)),
+    (18, ("H", 8), (("win", 10, 18), ("diag", (17, 3)), ("win", 11, 18))),
+    (18, ("H", 8), (("diag", (12,)),)),
+    (12, ("L", 10), (("win", 7, 9), ("diag", (8, 1)))),
+    (18, ("L", 17), (("win", 0, 1), ("win", 3, 4), ("win", 0, 2), ("win", 2, 5), ("win", 4, 9),
+                     ("win", 5, 8))),
+    (15, ("H", 8), (("win", 7, 15), ("win", 13, 15), ("diag", (14, 6)))),
+], ids=["L-K512-diags", "L-one-window", "H-wrap-diag", "H-one-diag", "L10-K4-diag",
+        "L-sub-rule", "H-128-columns"])
+def test_cuda_chain_kernels_match_plain_on_edges(cuda, n, geom, descs):
     """18 qubits: the K = 512 minor window, one-bit diagonals, a step of one
-    descriptor (no workspace), H windows at the register's top."""
+    descriptor (no workspace), H windows at the register's top; and the
+    windows under the wgmma rule on the mma.sync product: a K = 4 window on
+    a 10-bit L block, K = 2 and 4 (minor and row windows), K = 8 with a
+    4-column run (its gram without 16-byte copies), K = 32 with a 16-column
+    run and K = 8 with 32 (on wgmma, K < 32 deep); H blocks of 128 columns
+    at 15 qubits with a K = 4 window."""
     pays = [torch.from_numpy(_unitary_pair(d[2] - d[1], i) if d[0] == "win"
                              else _diag_pair(d[1], i)) for i, d in enumerate(descs)]
-    _check_cuda_chain(cuda, 18, geom, descs, pays, 3)
+    _check_cuda_chain(cuda, n, geom, descs, pays, 3)
 
 
 @pytest.mark.cuda

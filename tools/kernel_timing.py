@@ -6,8 +6,10 @@
 ``--kernels`` picks from B1 ``window_apply``, B6 ``rotmat_apply``, B10
 ``rotwin_apply``, B8 ``matrot_apply``, B3 ``window_apply_top``, B15
 ``adjoint_matrot``, B9 ``matrot_apply_bwd``, B11 ``rotwin_apply_bwd``, B4
-``window_apply_top_bwd`` and B13 ``adjoint_step_top`` (default: the first
-two); each runs at every call of its kind in the n-qubit Circuit_19 plan
+``window_apply_top_bwd``, B13 ``adjoint_step_top``, B17 ``chain_apply``
+and B18 ``adjoint_chain`` (default: the first two); each runs at every call
+of its kind in the n-qubit Circuit_19 plan (B17 and B18 at every step of its
+chain plan, ``chip_smoke.chain_plan``: at 24 qubits ``CHAIN_PLAN_24``)
 (``chip_smoke.plan_shapes``; B4, B9, B11, B13 and B15 with the cotangent
 dtypes of one gradient, ``chip_smoke.backward_calls``), calls whose
 K = 2^k is above ``--max-k`` left out.  B3, B4 and B13 need a plan with a
@@ -29,12 +31,18 @@ and for the forward kernels the TFLOP/s issued in split TF32 (3 passes x
 B6 ``rotmat_apply`` at the same K and column count, B15 beside B14
 ``adjoint_rotmat``, B9 and B11 beside B7 ``rotmat_apply_bwd``, B13 beside
 B12 ``adjoint_step`` (the window on ``[0, k)``) and B4 beside B13 likewise.
+B17 and B18 are held to float64 as ``chip_smoke.check_chain`` holds them
+(states 1e-5, each descriptor's cotangent 1e-4), timed beside their
+library yardstick (``chip_smoke._chain_lib``: the step's window products
+and diagonal multiplies), with the TFLOP/s issued in split TF32 (3 passes x
+8K flops an amplitude a window for B17, 9 for B18), and summed per step
+kind (H, L): one launch is one step.
 Times are ``chip_smoke._events_ms`` (CUDA events, best of 3 means of 10
 after a warm-up, as phase 6 takes them), each also "held": the calls queued
 behind a spinning kernel, device time without the host's launch gaps; and
 "host": the host's time to issue one call while the stream is held (best of
 3 means of 10), which bounds the unheld time from below.  For B4, B9, B11,
-B13 and B15 the device time of each CUDA kernel a call launches (the
+B13, B15 and B18 the device time of each CUDA kernel a call launches (the
 products, the split gram's ordered sum, G0 W) follows, from
 ``torch.profiler`` over 10 calls.
 Exits non-zero without CUDA or on a failed check.
@@ -55,7 +63,7 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 KINDS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
          "adjoint_matrot", "matrot_apply_bwd", "rotwin_apply_bwd", "window_apply_top_bwd",
-         "adjoint_step_top")
+         "adjoint_step_top", "chain_apply", "adjoint_chain")
 TOL = 1e-5
 TOL_GW = 1e-4
 
@@ -94,6 +102,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=24)
     ap.add_argument("--kernels", default="window_apply,rotmat_apply")
     ap.add_argument("--max-k", type=int, default=2**30, help="largest K (2^k) timed")
+    ap.add_argument("--chain-ranks", default="",
+                    help="CTAs a chain cluster, one pass of B17/B18 each (e.g. 8,4); "
+                         "default: the package's")
     args = ap.parse_args()
     kinds = args.kernels.split(",")
     if set(kinds) - set(KINDS):
@@ -114,7 +125,8 @@ def main() -> int:
     for line in ck.BUILD_LOG.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             entry = line if any(k in line for k in ("forward_wgmma", "WindowMap", "Top",
-                                                    "Matrot", "RotPullback", "RotGram")) else None
+                                                    "Matrot", "RotPullback", "RotGram",
+                                                    "chain")) else None
             if entry:
                 print(f"  {line.strip()}")
         elif entry and ("Used" in line or "spill" in line):
@@ -302,6 +314,60 @@ def main() -> int:
                 "adjoint_step a=0 (same K, columns)",
                 lambda: ck.adjoint_step(w, x, lam, 0, k, n, out_dt))
             del ref
+    chain = [k for k in ("chain_apply", "adjoint_chain") if k in kinds]
+    plan = cs.chain_plan(n) if chain else None
+    if chain and plan is None:
+        print(f"kernel_timing: the {n}q model has no chain plan", file=sys.stderr)
+        return 1
+    by_kind = {}
+    ranks = [int(r) for r in args.chain_ranks.split(",") if r] or [0]  # 0: the package's
+    by_kernel = isinstance(ck._CHAIN_RANKS, dict)  # a tree from before the tensor-core kernels: no
+    package_ranks = dict(ck._CHAIN_RANKS) if by_kernel else {}
+    for geom, descs, pairs, r in [(*step, r) for r in ranks for step in plan or []]:
+        want = {k: r or package_ranks[k] for k in package_ranks}
+        if by_kernel and ck._CHAIN_RANKS != want:  # tables and counts are built for one size
+            ck._CHAIN_RANKS.update(want)
+            ck._chain_tables.clear()
+            ck._chain_active.clear()
+        if by_kernel and (geom, descs) == plan[0][:2]:
+            print("  chain clusters: " + ", ".join(
+                f"{k} {ck.chain_active_clusters(k, x.device)} of {ck._CHAIN_RANKS[k]} CTAs at once"
+                for k in chain), flush=True)
+        wins = [2 ** (d[2] - d[1]) for d in descs if d[0] == "win"]
+        label = f"{geom[0]} {len(descs)} desc K={wins}" + (f" r{r}" if len(ranks) > 1 else "")
+        p64 = [p.double() for p in pairs]
+        for name in chain:
+            adj = name == "adjoint_chain"
+            if adj:
+                kern = lambda: ck.adjoint_chain(x, g, pairs, geom, descs, n)  # noqa: E731
+                ref = kn.adjoint_chain_plain(x.double(), g.double(), p64, geom, descs, n)
+                got = kern()
+                rels = [_rel(a, b) for a, b in zip((got[0], got[1], *got[2]),
+                                                   (ref[0], ref[1], *ref[2]))]
+                ok &= max(rels[:2]) <= TOL and max(rels[2:]) <= TOL_GW
+            else:
+                kern = lambda: ck.chain_apply(x, pairs, geom, descs, n)  # noqa: E731
+                ref = kn.chain_apply_plain(x.double(), p64, geom, descs, n)
+                got = kern()
+                rels = [_rel(got, ref)]
+                ok &= rels[0] <= TOL
+            del got, ref
+            t_k, t_l = times(kern), times(cs._chain_lib(x, g if adj else None, pairs, descs, n))
+            tflops = (9 if adj else 3) * 8 * sum(wins) * 2**n / t_k[0] / 1e9
+            print(f"  {name:13s} {label:28s} rel {'/'.join(f'{r:.1e}' for r in rels)}  "
+                  f"kernel {us(t_k)}  library {us(t_l)}  {tflops:6.1f} TFLOP/s issued",
+                  flush=True)
+            if adj:
+                print(parts(kern), flush=True)
+            tot = totals.setdefault(name if len(ranks) == 1 else f"{name}/{r}", [0.0, 0.0])
+            tot[0] += t_k[0]
+            tot[1] += t_l[0]
+            kind = by_kind.setdefault((name, r, geom[0]), [0, 0.0])
+            kind[0] += 1
+            kind[1] += t_k[0]
+    for (name, r, kind), (steps, ms) in sorted(by_kind.items()):
+        print(f"  {name:13s} ranks {r} {kind} steps: {steps}, {ms:.4f} ms "
+              f"({ms / steps:.4f} ms a step)")
     for name, (t_k, t_l) in totals.items():
         print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms per {n}q request")
     print(f"card: {smi}")
