@@ -8,8 +8,10 @@ circuit_type="Circuit_19", device="cuda")`` answering forward requests and
 computing the gradient of the mean <Z> with respect to ``params`` at 22 and
 24 qubits through the saved-residual executor, and through the adjoint-state
 executor at 22, 24 and 26 qubits, all on the reference's default plan
-(``FUSE_LAYOUT_ROT`` on: fused rotation steps), and the same 22 and 24 qubit
-models through the chain route (``USE_CHAINS`` on) — and checks it phase by
+(``FUSE_LAYOUT_ROT`` on: fused rotation steps), the same 22 and 24 qubit
+models through the chain route (``USE_CHAINS`` on), and the reference
+bench's 13-qubit noisy Circuit_19 (``{"Depolarizing": 0.01}``) as a density
+matrix on the 26-wire interleaved doubled register — and checks it phase by
 phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
@@ -37,7 +39,9 @@ phase:
    wgmma rule) in one of each; the clusters of each chain kernel (8 CTAs
    for chain_apply, 4 for adjoint_chain) the card holds at once
    (``cudaOccupancyMaxActiveClusters``) are printed; the 22q/24q/26q
-   plans are printed (24q: 14 steps);
+   plans are printed (24q: 14 steps), and the 13q density plans (noisy,
+   every noise knob, noise-free; 26 wires, the noisy one 16 steps) with
+   their residual estimates;
 3. kernel parity: each kernel against its plain PyTorch version run in
    float64 on the card, at the main path's shapes and at edge shapes
    (window kernels, fused or not: max|err| / max|ref| <= 1e-5; the backward
@@ -53,7 +57,10 @@ phase:
    L = 4) and of its forward's wgmma rule (L = 32 with X = 32; L = 16,
    X = 16); adjoint_step_top
    at the 22q plan's top window, K = 64 on 24q and 26q planes and K = 8 with
-   A = 16.
+   A = 16.  Every window, top-window, rotation (forward and backward amount)
+   and fused shape of the 13q density plans runs the same way on 26 wires
+   (the forward, backward and fused kernels; the density path runs no
+   adjoint kernel).
    window_apply runs at the 22q and 24q plans' windows and at K = 8 and 16
    on both sides of the wgmma kernel's shape rule (B = 2 and 64),
    window_apply_top at K = 8 and 16 on both sides of it (A = 16; 512 and
@@ -123,6 +130,23 @@ phase:
    the per-step loop over the steps' expansion (one forward and one backward
    window kernel per window, no chain kernel; the same tolerance), and three
    SGD steps on the adjoint route;
+5e. the noisy density slice: the 13q model's forward requests (three
+   expval, a probs, a density and the density of qubits [0, 1]) launch one
+   kernel per plan step; <Z> within 1e-5 of the same plan through the plain
+   versions in float64 on the card and of the ket-then-bra engine
+   (``simulate_mixed_ri``) on the card; the noise-free lowered tape's
+   diagonal within 1e-5 of |psi|^2 of the 13q pure path; density answers of
+   trace 1 +- 1e-5, Hermitian to 1e-6, their diagonal equal to the probs;
+   a 13q model with every noise knob (ThermalRelaxation t2 > t1) answers,
+   its tape within 1e-5 of float64; the gradient of the mean <Z> through
+   the saved executor (f32 lambda) within 1e-4 max|g| + 1e-6 of float64
+   autograd through the plain versions (each step checkpointed), bf16
+   lambda within 5e-4, a central finite difference, the same launches and
+   gradient with ``BACKWARD_MODE = "adjoint"`` and ``USE_CHAINS`` on (the
+   plan unchanged; B12-B18 launch zero times over the phase), the peak
+   memory beside the residual estimate; ``shots=10000`` within 5 standard
+   errors of the exact <Z>, the same seed giving the same estimate, and
+   ``density`` with shots raising ``ValueError``;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
@@ -131,7 +155,10 @@ phase:
    with the flag off and on in turns (off, on, on, off; medians of 10) and
    the forward plan's device time; the 24q forward and forced-adjoint
    fwd+grad with ``USE_CHAINS`` off and on, in turns the same way, and the
-   chain plan's device time; and each kernel's time on one request's shapes
+   chain plan's device time; the 13q density forward and saved fwd+grad
+   (best of 3, median of 10, peak memory), where their time goes, their
+   plan's device time and its kernels' device time per forward and per
+   gradient; and each kernel's time on one request's shapes
    beside its plain version's, its library yardstick's (the cuBLAS complex64
    products of the same shapes through ``torch.matmul``, a transpose copy,
    or for the chain kernels the products of the step's windows and its
@@ -200,6 +227,21 @@ TC_KERNELS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "w
               "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
               "adjoint_matrot", "chain_apply", "adjoint_chain")
 PEAK_HBM = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
+# The noisy density slice: the reference bench's 13-qubit noisy Circuit_19
+# (bench.py:47, :140), simulated on the 26-wire interleaved doubled register.
+DENSITY_N = 13
+DENSITY_NOISE = {"Depolarizing": 0.01}
+# Every noise knob at once; ThermalRelaxation with t2 > t1 (the Choi branch).
+DENSITY_ALL_NOISE = {
+    "BitFlip": 0.01, "PhaseFlip": 0.01, "Depolarizing": 0.01, "MultiQubitDepolarizing": 0.01,
+    "AmplitudeDamping": 0.01, "PhaseDamping": 0.01, "GateError": 0.01,
+    "StatePreparation": 0.01, "Measurement": 0.01,
+    "ThermalRelaxation": {"t1": 100.0, "t2": 150.0, "t_factor": 0.1},
+}
+TOL_DENSITY = 1e-5  # <Z> / probabilities: card fp32 vs fp64 plain versions, other engines
+TOL_HERMITIAN = 1e-6  # max|rho - rho^dag| of a density answer
+SHOTS = 10000
+SHOT_SIGMAS = 5  # a shot estimate lies within 5 standard errors of the exact value
 
 KERNELS = {
     "window_apply": dict(
@@ -361,13 +403,18 @@ def chain_plan(n: int):
 
 def plan_shapes(n: int, fused: bool = True) -> dict:
     """Kernel calls of one forward of the n-qubit Circuit_19 model, read off
-    the port's scheduled plan: window (a, k), top-window k, rotation r, the
-    fused steps (rotmat r, matrot r, rotwin (r, k)), and the steps in plan
-    order (the backward walks them in reverse)."""
+    the port's scheduled plan (:func:`shapes_of`)."""
     from qml_essentials_tpu_torch.ops import simulation
 
     with fusion(fused):
         plan, _ = simulation.scheduled_plan(model_tape(n), n)
+    return shapes_of(plan, n)
+
+
+def shapes_of(plan: list, n: int) -> dict:
+    """Kernel calls of a scheduled plan on n wires: window (a, k), top-window
+    k, rotation r, the fused steps (rotmat r, matrot r, rotwin (r, k)), and
+    the steps in plan order (the backward walks them in reverse)."""
     shapes = {name: [] for name in FWD_KERNELS}
     shapes["steps"] = []
     for kind, payload, wires in plan:
@@ -454,6 +501,52 @@ def adjoint_counts(shape: dict, requests: int = 1) -> dict:
     want["adjoint_matrot"] = requests * len(shape["matrot_apply"])
     want["rotate_pair"] = requests * (len(shape["rotate"]) + len(shape["rotwin_apply"]))
     return want
+
+
+def density_model(noise, device=None, dtype=torch.float32, shots=None):
+    """The 13-qubit Circuit_19 model of the density slice with *noise*, on
+    the card unless *device* says otherwise."""
+    from qml_essentials_tpu_torch.models.model import Model
+
+    model = Model(n_qubits=DENSITY_N, n_layers=N_LAYERS, circuit_type="Circuit_19",
+                  random_seed=SEED, device=device or DEVICE, dtype=dtype, shots=shots)
+    model.noise_params = noise
+    return model
+
+
+def density_tape(model, x: float, seed: int = SEED) -> list:
+    """The tape of one forward of a density model on input x, its noise
+    (GateError) drawn from a generator seeded *seed*."""
+    from qml_essentials_tpu_torch.ops.tape import recording
+
+    inputs = torch.tensor([x], dtype=model.dtype, device=model.device)
+    with recording() as tape:
+        model._variational(model.params[0], inputs, random_key=torch.Generator().manual_seed(seed),
+                           noise_params=model.noise_params)
+    return tape
+
+
+def density_plan(tape: list, dtype=torch.float32, device=None) -> tuple:
+    """The interleaved plan of a 13q tape on 26 doubled wires (composed on
+    the card unless *device* says otherwise), and its start."""
+    from qml_essentials_tpu_torch.ops import simulation
+
+    dtape = simulation._lower_interleaved_tape(tape, DENSITY_N)
+    _check(dtape is not None, "the 13q tape has no interleaved form")
+    return simulation.interleaved_plan(dtape, 2 * DENSITY_N, dtype, device or DEVICE)
+
+
+def density_shapes(noise) -> dict:
+    """Kernel calls of one forward of the 13q model with *noise* (None: the
+    noise-free tape, lowered all the same), planned on the card."""
+    model = density_model(noise)
+    with torch.no_grad():
+        plan, _ = density_plan(density_tape(model, REQUESTS[0]))
+    return shapes_of(plan, 2 * DENSITY_N)
+
+
+def describe_steps(shape: dict) -> str:
+    return ", ".join(f"{kind} {val}" for kind, val in shape["steps"])
 
 
 # The maps the split-TF32 tile is instantiated with, each with the number of
@@ -702,13 +795,13 @@ def _fused_geom(kind: str, r: int, k: int) -> tuple:
     return (r, k) if kind == "rotwin" else (r,)
 
 
-def check_fused(ck, kn, cases, gen, rng) -> dict:
+def check_fused(ck, kn, cases, gen, rng, adjoint: bool = True) -> dict:
     """The fused (rotation, window) kernels against their plain versions in
     float64: (kind, n, r, k) with k == r for rotmat, k == n - r for matrot and
     r < k for rotwin.  Each case runs the forward kernel, the backward kernel
     with float32 and bfloat16 cotangents in and out, and, for rotmat and
-    matrot, the adjoint step the same way.  Returns the max abs error per
-    kernel."""
+    matrot with *adjoint*, the adjoint step the same way.  Returns the max
+    abs error per kernel."""
     errs = {}
     for kind, n, r, k in cases:
         geom = _fused_geom(kind, r, k)
@@ -734,7 +827,7 @@ def check_fused(ck, kn, cases, gen, rng) -> dict:
             label = f"{bwd:20s} n={n:2d} r={r:2d} k={k:2d} g={_dt(g_dt):8s} out={_dt(out_dt):8s}"
             errs[bwd] = max(errs.get(bwd, 0.0), _cmp_bwd(label, got, ref, out_dt))
             del got, ref
-            if kind == "rotwin":
+            if kind == "rotwin" or not adjoint:
                 continue
             adj = f"adjoint_{kind}"
             got = getattr(ck, adj)(w, x, g, r, n, out_dt)
@@ -810,26 +903,36 @@ def check_chain(ck, kn, n: int, steps: list, gen) -> dict:
     return errs
 
 
-def check_forward_path(ck, shapes: dict) -> None:
+def forward_calls(plans: list) -> tuple:
+    """(K, column run) of the forward kernel calls of (width, shape) plans:
+    (all, matrot, top-window, rotwin) sets (rotwin's run: the shorter of X
+    and L)."""
+    calls = {(2**k, 2 ** (w - a - k)) for w, sh in plans for a, k in sh["window_apply"]}
+    calls |= {(2**r, 2 ** (w - r)) for w, sh in plans for r in sh["rotmat_apply"]}
+    matrots = {(2 ** (w - r), 2**r) for w, sh in plans for r in sh["matrot_apply"]}
+    tops = {(2**k, 2 ** (w - k)) for w, sh in plans for k in sh["window_apply_top"]}
+    rotwins = {(2**k, min(2 ** (w - k), 2**r)) for w, sh in plans for r, k in sh["rotwin_apply"]}
+    return calls | matrots | tops | rotwins, matrots, tops, rotwins
+
+
+def check_forward_path(ck, shapes: dict, dshapes: list) -> None:
     """Every window, rotmat, rotwin, matrot and top-window shape of the 22q,
     24q and 26q plans takes the forward wgmma kernel, by the library's own
-    shape rule (rotwin's run: the shorter of X and L)."""
-    calls = {(2**k, 2 ** (w - a - k)) for w in shapes for a, k in shapes[w]["window_apply"]}
-    calls |= {(2**r, 2 ** (w - r)) for w in shapes for r in shapes[w]["rotmat_apply"]}
-    matrots = {(2 ** (w - r), 2**r) for w in shapes for r in shapes[w]["matrot_apply"]}
-    tops = {(2**k, 2 ** (w - k)) for w in shapes for k in shapes[w]["window_apply_top"]}
-    rotwins = {(2**k, min(2 ** (w - k), 2**r)) for w in shapes
-               for r, k in shapes[w]["rotwin_apply"]}
+    shape rule; the 13q density plans' shapes (26 wires) are listed with the
+    route the rule gives them."""
+    calls, matrots, tops, rotwins = forward_calls(list(shapes.items()))
     _check(bool(tops), "no top window in the plans")
     _check(bool(matrots), "no matrot step in the plans")
     _check(bool(rotwins), "no rotwin step in the plans")
-    calls |= matrots | tops | rotwins
     off = sorted((K, run) for K, run in calls if not ck.forward_path(K, run))
     log(f"  forward wgmma path: {len(calls) - len(off)} of {len(calls)} (K, column run) shapes "
         f"of the {'/'.join(f'{w}q' for w in shapes)} plans' windows, rotmat, rotwin and "
         f"matrot steps and top windows ({len(rotwins)} rotwin, {len(matrots)} matrot and "
         f"{len(tops)} top-window shapes)")
     _check(not off, f"plan shapes (K, run) off the forward wgmma kernel: {off}")
+    dcalls = forward_calls([(2 * DENSITY_N, sh) for sh in dshapes])[0]
+    log(f"  13q density plans' forward (K, column run) shapes: "
+        f"{[(K, run, 'wgmma' if ck.forward_path(K, run) else 'tile') for K, run in sorted(dcalls)]}")
 
 
 def _top_tile(ck, x, w, k, n):
@@ -863,7 +966,21 @@ def time_top_datum(ck, kn, shapes: dict, gen, rng) -> None:
             f"(rel err {rel:.3e}), cuBLAS {t_l}")
 
 
-def phase_parity(shapes: dict) -> dict:
+def density_parity_cases(dshapes: list) -> dict:
+    """Every kernel shape the density phase launches (26 wires): windows,
+    top windows, the forward and backward rotations, the fused steps."""
+    n2 = 2 * DENSITY_N
+    rot = {r for sh in dshapes for r in sh["rotate"]}
+    return dict(
+        windows=sorted({(n2, a, k) for sh in dshapes for a, k in sh["window_apply"]}),
+        tops=sorted({(n2, n2 - k, k) for sh in dshapes for k in sh["window_apply_top"]}),
+        rotations=sorted({(n2, r) for r in rot | {(n2 - r) % n2 for r in rot}}),
+        fused=sorted({("rotmat", n2, r, r) for sh in dshapes for r in sh["rotmat_apply"]}
+                     | {("matrot", n2, r, n2 - r) for sh in dshapes for r in sh["matrot_apply"]}
+                     | {("rotwin", n2, r, k) for sh in dshapes for r, k in sh["rotwin_apply"]}))
+
+
+def phase_parity(shapes: dict, dshapes: list) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -884,7 +1001,7 @@ def phase_parity(shapes: dict) -> dict:
     edge_rot = [(24, 1), (24, 23), (13, 1), (13, 12), (5, 2), (11, 4)]
 
     log("phase 3: kernel parity against the plain versions in float64 on the card")
-    check_forward_path(ck, shapes)
+    check_forward_path(ck, shapes, dshapes)
     errs = {
         "window_apply": check_windows(ck, kn, main_windows + sorted(
             {(m, a, k) for a, k in shapes[m]["window_apply"]}), False, gen, rng),
@@ -948,6 +1065,17 @@ def phase_parity(shapes: dict) -> dict:
                          ("rotwin", 8, 3, 5), ("rotwin", 7, 3, 5), ("rotwin", 9, 2, 5),
                          ("rotwin", 12, 5, 7), ("rotwin", 12, 4, 7), ("rotwin", 11, 5, 7)],
                 gen, rng)
+    log("  the 13q density plans' shapes on 26 wires (forward, backward, fused):")
+    dcases = density_parity_cases(dshapes)
+    log(f"    {dcases}")
+    for name, e in (("window_apply", check_windows(ck, kn, dcases["windows"], False, gen, rng)),
+                    ("window_apply_bwd", check_bwd(ck, kn, dcases["windows"], False, gen, rng)),
+                    ("window_apply_top", check_windows(ck, kn, dcases["tops"], True, gen, rng)),
+                    ("window_apply_top_bwd", check_bwd(ck, kn, dcases["tops"], True, gen, rng)),
+                    ("rotate", check_rotations(ck, kn, dcases["rotations"], gen)),
+                    *check_fused(ck, kn, dcases["fused"], gen, rng, adjoint=False).items()):
+        errs[name] = max(errs.get(name, 0.0), e)
+    check_rotations(ck, kn, dcases["rotations"], gen, torch.bfloat16)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
@@ -1512,6 +1640,241 @@ def phase_chains(models: dict, shapes: dict, refs: dict, g64: torch.Tensor) -> t
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: the noisy density slice
+# ---------------------------------------------------------------------------
+
+
+def plain_step(psi2: torch.Tensor, kind: str, payload, wires, n: int) -> torch.Tensor:
+    """One scheduled plan step through the kernels' plain versions, in the
+    state's dtype and on its device (float64 on the card: the reference)."""
+    from qml_essentials_tpu_torch.ops import kernels as kn
+
+    if kind == "rot":
+        return kn.rotate_plain(psi2, int(payload), n)
+    if kind in ("rotmat", "matrot"):
+        r, mat = payload
+        w2, k = kn._pair_of(mat, psi2), len(wires)
+        if kind == "matrot":
+            return kn.matrot_apply_plain(psi2, w2, r, n)
+        return kn.rotmat_apply_plain(psi2, w2, r, n) if k == r else \
+            kn.rotwin_apply_plain(psi2, w2, r, k, n)
+    _check(kind == "mat", f"no plain version for plan step {kind!r}")
+    wires = [int(w) for w in wires]
+    srt, k, mat = sorted(wires), len(wires), payload
+    _check(srt == list(range(srt[0], srt[0] + k)), f"window on scattered wires {wires}")
+    if wires != srt:
+        rank = {w: i for i, w in enumerate(srt)}
+        mat = kn.permute_gate_qubits(mat, [rank[w] for w in wires], k)
+    w2 = kn._pair_of(mat, psi2)
+    if srt[0] + k == n:
+        return kn.window_apply_top_plain(psi2, w2, k, n)
+    return kn.window_apply_plain(psi2, w2, srt[0], k, n)
+
+
+def plain_density(model, x: float, seed: int = SEED) -> tuple:
+    """<Z> of a float64 CPU density model through the plain versions in
+    float64 on the card (its tape planned there in complex128, each step
+    checkpointed), and its plan; backward() on the result reaches the
+    model's params."""
+    from torch.utils.checkpoint import checkpoint
+
+    from qml_essentials_tpu_torch.ops import kernels as kn, simulation
+
+    n2 = 2 * DENSITY_N
+    plan, start = density_plan(density_tape(model, x, seed), torch.float64, DEVICE)
+    psi2 = start if start is not None else kn.zero_state_ri(n2, torch.float64, DEVICE)
+    for kind, payload, wires in plan:
+        psi2 = checkpoint(lambda p, s=(kind, payload, wires): plain_step(p, *s, n2), psi2,
+                          use_reentrant=False)
+    z = simulation._measure_interleaved_ri(psi2, DENSITY_N, "expval", model._build_obs()[1])
+    return z, plan
+
+
+def _check_density_answer(rho: torch.Tensor, dim: int, what: str) -> None:
+    """A density answer: (dim, dim), finite, trace 1, Hermitian."""
+    _check(tuple(rho.shape) == (dim, dim) and bool(torch.isfinite(torch.view_as_real(rho)).all()),
+           f"{what}: shape {tuple(rho.shape)} or non-finite entries")
+    tr = torch.trace(rho)
+    herm = (rho - rho.conj().T).abs().max().item()
+    log(f"  {what}: trace {tr.real.item():.7f}{tr.imag.item():+.1e}i, max|rho - rho^dag| {herm:.2e}")
+    _check(abs(tr.real.item() - 1) <= TOL_DENSITY and abs(tr.imag.item()) <= TOL_DENSITY
+           and herm <= TOL_HERMITIAN, f"{what}: trace {tr.item()} or Hermitian error {herm:.2e}")
+
+
+def phase_density(dshapes: dict) -> tuple:
+    """The 13q noisy Circuit_19 density model on the card: forward requests
+    (expval, probs, density) with exact launch counts, held to the float64
+    plain versions, the ket-then-bra engine and the pure path; another model
+    with every noise knob; the saved-executor gradient (forced adjoint and
+    chains change nothing, B12-B18 never launch); shots.  Returns the model
+    and the launches of its counted requests."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, saved, simulation
+
+    n2 = 2 * DENSITY_N
+    dshape = dshapes["noisy"]
+    log(f"phase 5e: the {DENSITY_N}q noisy Circuit_19 density model, {DENSITY_NOISE}, on the "
+        f"{n2}-wire interleaved doubled register")
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(fn):
+        before = ck.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = _diff(ck.launch_counts(), before)
+        for k in launches:
+            launches[k] += c[k]
+        return out, c
+
+    def plan_counts(shape: dict, requests: int) -> dict:
+        return {name: requests * len(shape[name]) for name in FWD_KERNELS}
+
+    model = density_model(DENSITY_NOISE)
+    x0 = REQUESTS[0]
+    ck.reset_launch_counts()
+
+    def other_types():
+        probs = model(inputs=x0, execution_type="probs")
+        rho = model(inputs=x0, execution_type="density")
+        model.output_qubit = [0, 1]
+        return probs, rho, model(inputs=x0, execution_type="density")
+
+    # Forward: three expval requests, then probs, the full density and the
+    # density of qubits [0, 1].
+    with torch.inference_mode():
+        zs, c = count(lambda: torch.stack([model(inputs=x) for x in REQUESTS]))
+        _only(c, plan_counts(dshape, 3), f"{DENSITY_N}q density: 3 expval requests")
+        (probs, rho, rho01), c = count(other_types)
+    _check(tuple(zs.shape) == (3, DENSITY_N) and bool(torch.isfinite(zs).all()),
+           f"{DENSITY_N}q density <Z>: shape {tuple(zs.shape)} or non-finite")
+    _only(c, plan_counts(dshape, 3), f"{DENSITY_N}q density: probs and density requests")
+    dim = 2**DENSITY_N
+    p = probs.reshape(-1)
+    _check(bool(torch.isfinite(p).all()) and abs(p.sum().item() - 1) <= TOL_DENSITY,
+           f"{DENSITY_N}q probs sum {p.sum().item()}")
+    _check_density_answer(rho, dim, f"{DENSITY_N}q density (all qubits)")
+    d = (torch.diagonal(rho).real - p).abs().max().item()
+    log(f"  {DENSITY_N}q diag(density) vs probs: max|delta|={d:.3e}")
+    _check(d <= TOL_HERMITIAN, f"{DENSITY_N}q diag(density) vs probs differ by {d:.3e}")
+    _check_density_answer(rho01, 4, f"{DENSITY_N}q density of qubits [0, 1]")
+    del rho
+    model.output_qubit = -1
+    model.execution_type = "expval"
+
+    # The same tape through the plain versions in float64 on the card, the
+    # ket-then-bra engine and, noise-free, against the pure path.
+    ref64 = density_model(DENSITY_NOISE, device="cpu", dtype=torch.float64)
+    ref64.load_numpy(model.params.detach().cpu().numpy())
+    z64, plan64 = plain_density(ref64, x0)
+    with torch.inference_mode():
+        plan32, _ = density_plan(density_tape(model, x0))
+    _check(shapes_of(plan32, n2)["steps"] == shapes_of(plan64, n2)["steps"],
+           f"{DENSITY_N}q float32 and float64 plans differ")
+    d = _maxdiff(zs[0], z64)
+    log(f"  {DENSITY_N}q card fp32 <Z> vs the plain versions in fp64 on the card: "
+        f"max|delta|={d:.3e} (tol {TOL_DENSITY})")
+    _check(d <= TOL_DENSITY, f"{DENSITY_N}q <Z> vs fp64 plain versions differ by {d:.3e}")
+
+    obs = model._build_obs()[1]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        rho2 = simulation.simulate_mixed_ri(density_tape(model, x0), DENSITY_N, device=DEVICE)
+        z_kb = simulation.measure_density_ri(rho2, DENSITY_N, "expval", obs)
+        torch.cuda.synchronize()
+    del rho2
+    d = _maxdiff(zs[0], z_kb)
+    log(f"  {DENSITY_N}q interleaved vs ket-then-bra engine (simulate_mixed_ri, "
+        f"{time.perf_counter() - t0:.1f} s): max|delta <Z>|={d:.3e} (tol {TOL_DENSITY})")
+    _check(d <= TOL_DENSITY, f"{DENSITY_N}q interleaved vs ket-then-bra differ by {d:.3e}")
+
+    pure = density_model(None)
+    with torch.inference_mode():
+        tape = density_tape(pure, x0)
+        rho2il = simulation._simulate_interleaved_ri(
+            simulation._lower_interleaved_tape(tape, DENSITY_N), n2, device=DEVICE)
+        p_il = simulation._pair_diag(rho2il[0], DENSITY_N)
+        psi2 = simulation.simulate_pure_ri(tape, DENSITY_N, device=DEVICE)
+        d = _maxdiff(p_il, psi2[0] ** 2 + psi2[1] ** 2)
+    del rho2il
+    log(f"  {DENSITY_N}q noise-free lowered tape's diagonal vs |psi|^2 of the pure path: "
+        f"max|delta|={d:.3e} (tol {TOL_DENSITY})")
+    _check(d <= TOL_DENSITY, f"{DENSITY_N}q lowered noise-free diagonal off by {d:.3e}")
+
+    # Every noise knob: a forward request, and its tape against float64.
+    allm = density_model(DENSITY_ALL_NOISE)
+    with torch.inference_mode():
+        z_all, c = count(lambda: allm(inputs=x0))
+        _only(c, plan_counts(dshapes["all"], 1), f"{DENSITY_N}q every noise knob: one request")
+        z32 = simulation.simulate_and_measure(density_tape(allm, x0, SEED + 1), DENSITY_N,
+                                              "expval", obs, True, device=DEVICE)
+    all64 = density_model(DENSITY_ALL_NOISE, device="cpu", dtype=torch.float64)
+    all64.load_numpy(allm.params.detach().cpu().numpy())
+    with torch.no_grad():
+        z64_all, _ = plain_density(all64, x0, SEED + 1)
+    d = _maxdiff(z32, z64_all)
+    log(f"  {DENSITY_N}q every noise knob ({describe(dshapes['all'])}): <Z> in [-1, 1]: "
+        f"{bool((z_all.abs() <= 1).all())}; card fp32 vs fp64 plain versions on one tape: "
+        f"max|delta|={d:.3e} (tol {TOL_DENSITY})")
+    _check(bool(torch.isfinite(z_all).all() and (z_all.abs() <= 1 + TOL_DENSITY).all())
+           and d <= TOL_DENSITY, f"{DENSITY_N}q every noise knob: <Z> {z_all} / {d:.3e}")
+
+    # Gradient of the mean <Z> through the saved executor.
+    saved.set_lambda_mode("f32")
+    (loss, g), c = count(lambda: _grad_request(model, x0))
+    want = {**plan_counts(dshape, 1), **saved_counts(dshape),
+            "rotate": 2 * len(dshape["rotate"])}  # the backward rotates lambda back
+    _only(c, want, f"{DENSITY_N}q density gradient (lambda=f32)")
+    z64.mean().backward()
+    g64 = ref64.params.grad
+    _within(g, g64, f"{DENSITY_N}q density saved gradient (lambda=f32) vs fp64 plain versions")
+    saved.set_lambda_mode("bf16")
+    torch.cuda.reset_peak_memory_stats()
+    (_, g16), c = count(lambda: _grad_request(model, x0))
+    peak = torch.cuda.max_memory_allocated()
+    _only(c, want, f"{DENSITY_N}q density gradient (lambda=bf16)")
+    _within(g16, g, f"{DENSITY_N}q density bf16 vs f32 lambda", 0.0, TOL_GRAD_BF16)
+    payload = sum(kind != "rot" for kind, _ in dshape["steps"])
+    log(f"  {DENSITY_N}q density fwd+grad peak {peak / 1e9:.2f} GB; residual rule's estimate "
+        f"{residual_bytes(dshape, n2) / 1e9:.2f} GB ({len(dshape['steps'])} steps), the "
+        f"saved residuals {payload * 8 * 2**n2 / 1e9:.2f} GB ({payload} payload steps)")
+    _finite_difference(model, g, x0, f"{DENSITY_N}q density")
+    with chain_route(True):
+        _check(density_shapes(DENSITY_NOISE)["steps"] == dshape["steps"],
+               f"{DENSITY_N}q density plan changed with USE_CHAINS on")
+        (_, g_adj, _), c = count(lambda: _adjoint_grad(model, x0, "adjoint", "f32"))
+    simulation.set_backward_mode("auto")
+    saved.set_lambda_mode("bf16")
+    _only(c, want, f"{DENSITY_N}q density gradient, BACKWARD_MODE adjoint and USE_CHAINS on")
+    _within(g_adj, g, f"{DENSITY_N}q density gradient, adjoint forced + chains on, vs saved",
+            0.0, TOL_BATCH)
+
+    # Shots: 10000 draws on the card; the same seed gives the same counts.
+    shot_models = [density_model(DENSITY_NOISE, shots=SHOTS) for _ in range(2)]
+    with torch.inference_mode():
+        (est, est2), c = count(lambda: [m(inputs=x0) for m in shot_models])
+    _only(c, plan_counts(dshape, 2), f"{DENSITY_N}q shots: two requests")
+    exact = zs[0].double().cpu()
+    err = (est.double().cpu() - exact).abs()
+    bound = SHOT_SIGMAS * torch.sqrt((1 - exact**2).clamp_min(0) / SHOTS) + 1e-6
+    log(f"  {DENSITY_N}q shots={SHOTS}: max |estimate - exact| {err.max().item():.4f}, "
+        f"worst in standard errors {(err / (bound / SHOT_SIGMAS)).max().item():.2f}; "
+        f"same seed, same estimate: {torch.equal(est, est2)}")
+    _check(bool((err <= bound).all()) and torch.equal(est, est2),
+           f"{DENSITY_N}q shots: estimates {est} vs exact {exact}")
+    try:
+        shot_models[0].execution_type = "density"
+        raise AssertionError("density with shots did not raise")
+    except ValueError as e:
+        log(f"  density with shots raises ValueError: {e}")
+
+    for name in (*ADJOINT_KERNELS, *CHAIN_KERNELS):
+        _check(launches[name] == 0, f"{name} launched on the density path: {launches}")
+    for name, v in {**plan_counts(dshape, 1), **saved_counts(dshape)}.items():
+        _check(not v or launches[name] > 0, f"kernel {name} of the density path never launched")
+    log(f"  launches over the density phase: {launches}")
+    return model, launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -1766,6 +2129,150 @@ def _chain_ab_times(model, n: int) -> None:
             f"plan {mean[0]:.3f} ms, forward {mean[1]:.3f} ms, adjoint fwd+grad {mean[2]:.3f} ms")
 
 
+def _density_times(model, smi: str) -> None:
+    """The 13q noisy density model's requests: forward (expval) and forward
+    + gradient (saved executor, bf16 lambda), best of 3 and median of 10,
+    with their peak memory; where a request's time goes (record, plan, run
+    for a forward; record, plan, forward run, backward run for a gradient);
+    the forward plan's device time (CUDA events, best of 3 means of 10)."""
+    from qml_essentials_tpu_torch.ops import adjoint, kernels, saved, simulation
+
+    n2 = 2 * DENSITY_N
+    saved.set_lambda_mode("bf16")
+    log(f"  {DENSITY_N}q noisy density model, {DENSITY_NOISE} ({smi}):")
+
+    def fwd():
+        with torch.inference_mode():
+            return model(inputs=REQUESTS[0])
+
+    fwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best, _, _ = _host_ms(fwd)
+    peak = torch.cuda.max_memory_allocated()
+    _, med, _ = _host_ms(fwd, reps=10)
+    log(f"  forward {DENSITY_N}q noisy density Circuit_19 L={N_LAYERS}: {best:.3f} ms per request "
+        f"(median of 10: {med:.3f} ms); peak {peak / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    _grad_times(model, REQUESTS[0], f"{DENSITY_N}q noisy density Circuit_19 L={N_LAYERS} (saved, "
+                f"bf16 lambda), per request", median=True)
+    log(f"    fwd+grad peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    meas_type, obs = model._build_obs()
+    inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
+
+    def record():
+        return model.script._record(model.params, inputs, model.enc_params,
+                                    random_key=torch.Generator().manual_seed(SEED),
+                                    noise_params=model.noise_params)
+
+    with torch.inference_mode():
+        rec_ms, _, tape = _host_ms(record)
+        plan_ms, _, (plan, start) = _host_ms(lambda: density_plan(tape))
+
+        def run():
+            psi2 = start if start is not None else kernels.zero_state_ri(n2, device=DEVICE)
+            for kind, payload, wires in plan:
+                psi2 = simulation._apply_step_ri(psi2, kind, payload, wires, n2)
+            return psi2
+
+        run_ms, _, _ = _host_ms(
+            lambda: simulation._measure_interleaved_ri(run(), DENSITY_N, meas_type, obs))
+        dev_ms = _events_ms(run)
+    log(f"    forward breakdown {DENSITY_N}q density: record {rec_ms:.3f} ms, plan (lower + "
+        f"interleaved plan) {plan_ms:.3f} ms, run {len(plan)} steps + readout {run_ms:.3f} ms; "
+        f"the plan on the device {dev_ms:.3f} ms (CUDA events)")
+
+    parts = {"record": [], "plan": [], "forward run": [], "backward run": []}
+    for _ in range(4):
+        model.params.grad = None
+        t = [time.perf_counter()]
+        tape = record()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        plan, start = density_plan(tape)
+        static, payloads = adjoint.normalize_plan(plan, n2)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        psi2 = start if start is not None else kernels.zero_state_ri(n2, device=DEVICE)
+        psi2 = saved.execute_plan_saved_ri(psi2, payloads, static, n2)
+        loss = simulation._measure_interleaved_ri(psi2, DENSITY_N, meas_type, obs).mean()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for (name, acc), t0, t1 in zip(parts.items(), t, t[1:]):
+            acc.append((t1 - t0) * 1e3)
+    log(f"    fwd+grad breakdown {DENSITY_N}q density, saved executor (best of 3): "
+        + ", ".join(f"{k} {min(v[1:]):.3f} ms" for k, v in parts.items()))
+    _density_kernel_times()
+
+
+def _density_kernel_times() -> None:
+    """Device time of each kernel call of one 13q density forward and one
+    saved gradient (bf16 lambda) at the plan's shapes, summed per kernel
+    beside its bound as phase 6 takes it (CUDA events, best of 3 means of
+    10, random unitary windows)."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    n2 = 2 * DENSITY_N
+    steps = density_shapes(DENSITY_NOISE)["steps"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    x, g = _state(n2, gen), _state(n2, gen)
+    rows = {}
+
+    def add(name, fn, work, tc=None):
+        flop_ms = work[0] / PEAK_FP32 if tc is None else tc[0] / PEAK_TF32 + tc[1] / PEAK_FP32
+        ms, bound = rows.get(name, (0.0, 0.0))
+        rows[name] = (ms + _events_ms(fn), bound + max(flop_ms, work[1] / PEAK_HBM) * 1e3)
+
+    def window_k(kind, shape):
+        if kind in ("win", "top"):
+            return shape
+        return 0, (shape[1] if kind == "rotwin" else n2 - shape)
+
+    with torch.inference_mode():
+        for kind, shape in steps:
+            if kind == "rot":
+                add("rotate", lambda: ck.rotate(x, shape, n2), work_rotate(n2, 4))
+                continue
+            a, k = window_k(kind, shape)
+            w, K = _unitary(k, rng), 2**k
+            fn = {"win": lambda: ck.window_apply(x, w, a, k, n2),
+                  "top": lambda: ck.window_apply_top(x, w, k, n2),
+                  "rotwin": lambda: ck.rotwin_apply(x, w, shape[0], k, n2)}.get(
+                kind, lambda: getattr(ck, f"{kind}_apply")(x, w, shape, n2))
+            name = {"win": "window_apply", "top": "window_apply_top"}.get(kind, f"{kind}_apply")
+            add(name, fn, work_fwd(K, n2), work_fwd_tc(K, n2))
+        fwd = dict(rows)
+        rows.clear()
+        for kind, shape, g_dt, out_dt in backward_calls(steps):
+            gg, eg, eo = g.to(g_dt), _esize(g_dt), _esize(out_dt)
+            if kind == "rot":
+                r = (n2 - shape) % n2
+                add("rotate", lambda: ck.rotate(gg, r, n2), work_rotate(n2, eg))
+                continue
+            a, k = window_k(kind, shape)
+            w, K = _unitary(k, rng), 2**k
+            fn = {"win": lambda: ck.window_apply_bwd(w, gg, x, a, k, n2, out_dt),
+                  "top": lambda: ck.window_apply_top_bwd(w, gg, x, k, n2, out_dt),
+                  "rotwin": lambda: ck.rotwin_apply_bwd(w, gg, x, shape[0], k, n2, out_dt)}.get(
+                kind, lambda: getattr(ck, f"{kind}_apply_bwd")(w, gg, x, shape, n2, out_dt))
+            name = {"win": "window_apply_bwd", "top": "window_apply_top_bwd"}.get(
+                kind, f"{kind}_apply_bwd")
+            add(name, fn, work_bwd(K, n2, eg, eo), work_bwd_tc(K, n2, eg))
+        bwd = dict(rows)
+
+    def fmt(d):
+        return ", ".join(f"{k} {ms:.3f} ms (bound {b:.3f})" for k, (ms, b) in d.items()) + \
+            f"; sum {sum(v[0] for v in d.values()):.3f} ms (bound {sum(v[1] for v in d.values()):.3f})"
+
+    log(f"    {DENSITY_N}q density kernels per forward: {fmt(fwd)}")
+    log(f"    {DENSITY_N}q density kernels per saved gradient's backward (bf16 lambda): {fmt(bwd)}")
+
+
 # The yardstick of each kernel (library_ms): the cuBLAS complex64 product(s)
 # of the same shapes through torch.matmul, on operands made from the
 # kernel's own inputs before the clock starts (TF32 off); for a rotation, one
@@ -2001,7 +2508,8 @@ def _esize(t: torch.dtype) -> int:
     return torch.empty((), dtype=t).element_size()
 
 
-def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -> dict:
+def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict, dmodel,
+                smi: str) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     log("phase 6: times (host clock ending in a synchronise: best of 3 after a warm-up, "
@@ -2024,6 +2532,7 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict) -
             f"per request (median of 10: {med:.3f} ms)")
         _log_grad_breakdown(model, n)
     _adjoint_times(models, model26, batch)
+    _density_times(dmodel, smi)
     _ab_times(models[WIDTHS[-1]], WIDTHS[-1])
     _chain_ab_times(models[WIDTHS[-1]], WIDTHS[-1])
 
@@ -2256,23 +2765,36 @@ def main() -> int:
     n24 = WIDTHS[-1]
     _check(all(shapes[n24][f"{k}_apply"] for k in ("rotmat", "matrot", "rotwin")),
            f"{n24}q plan has no step of some fused kind: {describe(shapes[n24])}")
-    errs = phase_parity(shapes)
+    t0 = time.perf_counter()
+    dshapes = {"noisy": density_shapes(DENSITY_NOISE), "all": density_shapes(DENSITY_ALL_NOISE),
+               "noise-free": density_shapes(None)}
+    n2 = 2 * DENSITY_N
+    for what, sh in dshapes.items():
+        payload = sum(kind != "rot" for kind, _ in sh["steps"])
+        log(f"  {DENSITY_N}q interleaved density plan ({what}, {n2} wires): {describe(sh)}")
+        log(f"    in order: {describe_steps(sh)}")
+        log(f"    residual estimate {residual_bytes(sh, n2) / 1e9:.2f} GB per input "
+            f"({len(sh['steps'])} steps); saved residuals {payload * 8 * 2**n2 / 1e9:.2f} GB "
+            f"({payload} payload steps)")
+    log(f"  (density plans on the card in {time.perf_counter() - t0:.1f} s)")
+    errs = phase_parity(shapes, list(dshapes.values()))
     # The main path: serving (phase 4), saved-residual training (5),
-    # adjoint training (5b) and the chain route (5d), each with the counts
-    # reset just before it and read just after; every kernel must launch
-    # over the four.
+    # adjoint training (5b), the chain route (5d) and the noisy density
+    # model (5e), each with the counts reset just before it and read just
+    # after; every kernel must launch over the five.
     models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
     phase_fusion_ab(models[n24], shapes, n24)
     chain_launches, chain_errs, plans = phase_chains(models, shapes, refs, g64)
     errs.update(chain_errs)
+    dmodel, density_launches = phase_density(dshapes)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
-                for k in KERNELS}
+                + density_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
-    totals = phase_times(models, model26, shapes, batch, plans)
+    totals = phase_times(models, model26, shapes, batch, plans, dmodel, smi)
 
     log(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [

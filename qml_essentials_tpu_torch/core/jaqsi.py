@@ -1,10 +1,10 @@
 """Public circuit-building entry point (the "jaqsi" surface).
 
-Exposes :class:`Script` and quantum-information utilities (probability
-marginalisation, parity observables).
+Exposes :class:`Script` and quantum-information utilities (partial trace,
+probability marginalisation, parity observables).
 
-Counterpart of ``qml_essentials_tpu/core/jaqsi.py`` (Hamiltonians and
-partial traces come with the pulse and density slices).
+Counterpart of ``qml_essentials_tpu/core/jaqsi.py`` (Hamiltonians come with
+the pulse slice).
 """
 
 from __future__ import annotations
@@ -16,6 +16,27 @@ import torch
 
 from qml_essentials_tpu_torch.core.executor import Script  # noqa: F401
 from qml_essentials_tpu_torch.ops.operations import Hermitian, PauliZ
+
+
+def _partial_trace_single(rho: torch.Tensor, n_qubits: int, keep: List[int]) -> torch.Tensor:
+    """Partial trace of one ``(2**n, 2**n)`` density matrix, one traced qubit
+    at a time on a 6-axis view (no view needs more axes than that)."""
+    n = n_qubits
+    for q in sorted(set(range(n_qubits)) - set(keep), reverse=True):
+        a, b = 2**q, 2 ** (n - q - 1)
+        rho = torch.diagonal(rho.reshape(a, 2, b, a, 2, b), dim1=1, dim2=4).sum(-1)
+        n -= 1
+        rho = rho.reshape(2**n, 2**n)
+    return rho
+
+
+def partial_trace(rho: torch.Tensor, n_qubits: int, keep: List[int]) -> torch.Tensor:
+    """Partial trace keeping only the *keep* qubits (in ascending wire
+    order); supports a leading batch axis."""
+    dim = 2**n_qubits
+    if tuple(rho.shape) == (dim, dim):
+        return _partial_trace_single(rho, n_qubits, keep)
+    return torch.stack([_partial_trace_single(r, n_qubits, keep) for r in rho])
 
 
 def marginalize_probs(

@@ -16,9 +16,17 @@ with ``trainable_frequencies``) on the CPU and on the card, where the
 gradient runs through the kernels' backwards; serve forward-only requests
 under ``torch.inference_mode()``, which keeps no residuals.
 
-Counterpart of ``qml_essentials_tpu/models/model.py`` (unitary gates,
-``expval`` / ``probs`` / ``state``; noise, shots, density and pulses come
-with later slices and raise ``NotImplementedError``).
+Noise (``noise_params``: Kraus channels after the gates, state-preparation
+and measurement flips, decoherence at the end, Gaussian ``GateError`` on the
+angles) makes the tape noisy, which the executor simulates as a density
+matrix on the card's kernels; ``execution_type="density"`` returns one, and
+``shots`` estimates ``expval`` / ``probs`` from samples.  Where the JAX
+package threads PRNG keys, the model threads ``torch.Generator`` objects: its
+own (``random_key``, seeded by ``random_seed``) gives each call one
+generator, and each call one per batch element and one for the shots.
+
+Counterpart of ``qml_essentials_tpu/models/model.py`` (pulses come with a
+later slice and raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -36,8 +44,41 @@ from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.models.ansaetze import Ansaetze, Circuit, Encoding
 from qml_essentials_tpu_torch.models.gates import Gates
 from qml_essentials_tpu_torch.ops import operations as op
+from qml_essentials_tpu_torch.ops.operations import KrausChannel
+from qml_essentials_tpu_torch.ops.tape import recording
+from qml_essentials_tpu_torch.utils import safe_random_split
 
 log = logging.getLogger(__name__)
+
+
+# Supported decoherence/noise knobs and their inactive defaults.
+_NOISE_DEFAULTS: Dict[str, Union[float, None]] = {
+    "BitFlip": 0.0,
+    "PhaseFlip": 0.0,
+    "Depolarizing": 0.0,
+    "MultiQubitDepolarizing": 0.0,
+    "AmplitudeDamping": 0.0,
+    "PhaseDamping": 0.0,
+    "GateError": 0.0,
+    "ThermalRelaxation": None,
+    "StatePreparation": 0.0,
+    "Measurement": 0.0,
+}
+
+_THERMAL_KEYS = ("t1", "t2", "t_factor")
+
+
+class _KeyStream:
+    """Hands out one child generator per call, split off one parent
+    (``None`` flows through: noise-free circuits never draw)."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key: Optional[torch.Generator]) -> None:
+        self.key = key
+
+    def __call__(self) -> Optional[torch.Generator]:
+        return safe_random_split(self.key, 1)[0]
 
 
 class Model(nn.Module):
@@ -77,8 +118,9 @@ class Model(nn.Module):
                 ``zero-controlled`` | ``pi-controlled``.
             initialization_domain: ``[lo, hi]`` for random init.
             output_qubit: Measured qubit(s); ``-1`` = all.
-            shots: Finite-shot count; only ``None`` (analytic) is ported.
-            random_seed: Seed of the ``torch.Generator`` for parameter init.
+            shots: Finite-shot count (``None`` = analytic).
+            random_seed: Seed of the model's ``torch.Generator``: parameter
+                init, then one generator per call for noise and shots.
             remove_zero_encoding: Elide encoding gates for all-zero inputs.
             repeat_batch_axis: Which of the (inputs, params) axes fuse into
                 the flat execution batch.
@@ -143,14 +185,42 @@ class Model(nn.Module):
 
     # =============================================================== properties
     @property
-    def noise_params(self) -> Optional[Dict]:
-        """Noise parameter dict; only ``None`` (noise-free) is ported."""
-        return None
+    def noise_params(self) -> Optional[Dict[str, Union[float, Dict[str, float]]]]:
+        """Noise parameter dict, or ``None`` when noise-free."""
+        return self._noise_params
 
     @noise_params.setter
     def noise_params(self, kvs: Optional[Dict]) -> None:
-        if kvs is not None and any(v for v in kvs.values()):
-            raise NotImplementedError("noise_params come with the density slice")
+        self._noise_params = self._canon_noise(kvs)
+
+    @staticmethod
+    def _canon_noise(kvs: Optional[Dict]) -> Optional[Dict]:
+        """Fill defaults, warn on unknown keys, validate thermal relaxation."""
+        if kvs is None or all(v == 0.0 for v in kvs.values()):
+            return None
+        for key in set(kvs) - set(_NOISE_DEFAULTS):
+            warnings.warn(f"Ignoring unsupported noise type {key!r}.", UserWarning)
+        merged = dict(_NOISE_DEFAULTS)
+        merged.update(kvs)
+
+        tr = merged["ThermalRelaxation"]
+        if isinstance(tr, dict):
+            for k in set(tr) - set(_THERMAL_KEYS):
+                warnings.warn(
+                    f"Unknown ThermalRelaxation key {k!r} ignored (expected t1/t2/t_factor).",
+                    UserWarning,
+                )
+            tr = {k: tr.get(k, 0.0) for k in _THERMAL_KEYS}
+            if not all(tr.values()) or tr["t2"] > 2 * tr["t1"]:
+                warnings.warn(
+                    "ThermalRelaxation values are degenerate (need all nonzero "
+                    "and t2 <= 2*t1); skipping the channel.",
+                    UserWarning,
+                )
+                merged["ThermalRelaxation"] = 0.0
+            else:
+                merged["ThermalRelaxation"] = tr
+        return merged
 
     @property
     def output_qubit(self) -> List[int]:
@@ -176,15 +246,14 @@ class Model(nn.Module):
 
     @property
     def execution_type(self) -> str:
-        """One of ``expval`` / ``probs`` / ``state``."""
+        """One of ``expval`` / ``probs`` / ``state`` / ``density``."""
         return self._execution_type
 
     @execution_type.setter
     def execution_type(self, value: str) -> None:
         k = len(self.output_qubit)
-        shapes = {"expval": (k,), "probs": (2,) * k, "state": (2**k,)}
-        if value == "density":
-            raise NotImplementedError("density execution comes with the density slice")
+        shapes = {"expval": (k,), "probs": (2,) * k, "state": (2**k,),
+                  "density": (2**k, 2**k)}
         if value not in shapes:
             raise ValueError(f"Invalid execution type: {value}.")
         self._result_shape = shapes[value]
@@ -196,6 +265,8 @@ class Model(nn.Module):
             )
         if value == "probs" and self.shots is None:
             warnings.warn("probs mode without shots returns exact probabilities.", UserWarning)
+        if value == "density" and self.shots is not None:
+            raise ValueError("density mode is incompatible with finite shots.")
         self._execution_type = value
 
     @property
@@ -205,10 +276,7 @@ class Model(nn.Module):
 
     @shots.setter
     def shots(self, value: Optional[int]) -> None:
-        value = None if (type(value) is int and value <= 0) else value
-        if value is not None:
-            raise NotImplementedError("finite-shot sampling is not ported yet")
-        self._shots = value
+        self._shots = None if (type(value) is int and value <= 0) else value
 
     @property
     def params(self) -> torch.Tensor:
@@ -391,35 +459,56 @@ class Model(nn.Module):
         params: torch.Tensor,
         inputs: torch.Tensor,
         enc_params: Optional[torch.Tensor] = None,
+        random_key: Optional[torch.Generator] = None,
         gate_mode: str = "unitary",
         noise_params: Optional[Dict] = None,
     ) -> None:
-        """Interpret the segment program, emitting gates onto the active tape."""
+        """Interpret the segment program, emitting gates (and, with noise,
+        channels) onto the active tape.  *random_key* is the generator of
+        this circuit's noise: each segment gets a child of it."""
         if params.ndim > 2 and params.shape[0] == 1:
             params = params[0]
         if inputs.ndim > 1 and inputs.shape[0] == 1:
             inputs = inputs[0]
         if enc_params is None:
             enc_params = self.enc_params
+        if noise_params is None and self.noise_params is not None:
+            warnings.warn("_variational called without noise_params; falling back to "
+                          "the stored self.noise_params.", RuntimeWarning)
+            noise_params = self.noise_params
+        if noise_params is not None and random_key is None:
+            warnings.warn("_variational called without a random_key while noise is "
+                          "active; reusing the model generator.", RuntimeWarning)
+            random_key = self.random_key
 
+        keys = _KeyStream(random_key)
         elide_encoding = (
             self.remove_zero_encoding and self._zero_inputs and self.batch_shape[0] == 1
         )
+        if noise_params is not None:
+            p_prep = noise_params.get("StatePreparation", 0.0)
+            if p_prep > 0:
+                for q in range(self.n_qubits):
+                    op.BitFlip(p_prep, wires=q)
+
         for segment in self._program:
             kind = segment[0]
             if kind == "prep":
                 for q in range(self.n_qubits):
                     for gate in self._sp:
-                        gate(wires=q, noise_params=noise_params, gate_mode=gate_mode)
+                        gate(wires=q, noise_params=noise_params, random_key=keys(),
+                             gate_mode=gate_mode)
             elif kind == "pqc":
                 layer = segment[1]
                 self.pqc(
                     params[layer],
                     self.n_qubits,
                     noise_params=noise_params,
+                    random_key=keys(),
                     gate_mode=gate_mode,
                 )
             elif kind == "enc":
+                keys()  # a layer-level split, as in the JAX package
                 if elide_encoding:
                     continue
                 layer, sites = segment[1], segment[2]
@@ -428,8 +517,10 @@ class Model(nn.Module):
                         self.transform_input(inputs[..., f], enc_params[layer, q, f]),
                         wires=q,
                         noise_params=noise_params,
+                        random_key=keys(),
                     )
             elif kind == "golomb":
+                keys()
                 if elide_encoding:
                     continue
                 layer = segment[1]
@@ -437,7 +528,60 @@ class Model(nn.Module):
                     self.transform_input(inputs[..., 0], enc_params[layer, :, 0].mean()),
                     wires=list(range(self.n_qubits)),
                     noise_params=noise_params,
+                    random_key=keys(),
                 )
+
+        if noise_params is not None:
+            self._emit_decoherence(noise_params)
+
+    def _emit_decoherence(self, noise_params: Dict) -> None:
+        """Post-circuit decoherence channels on every qubit."""
+        amp = noise_params.get("AmplitudeDamping", 0.0)
+        phase = noise_params.get("PhaseDamping", 0.0)
+        meas = noise_params.get("Measurement", 0.0)
+        thermal = noise_params.get("ThermalRelaxation", 0.0)
+        tg = (self._get_circuit_depth() * thermal["t_factor"]
+              if isinstance(thermal, dict) else None)
+        for q in range(self.n_qubits):
+            if amp > 0:
+                op.AmplitudeDamping(amp, wires=q)
+            if phase > 0:
+                op.PhaseDamping(phase, wires=q)
+            if meas > 0:
+                op.BitFlip(meas, wires=q)
+            if tg is not None:
+                op.ThermalRelaxationError(1.0, thermal["t1"], thermal["t2"], tg, q)
+
+    def _get_circuit_depth(self, inputs=None) -> int:
+        """Critical-path depth of the noise-free circuit (cached): each gate
+        starts after the busiest of its wires; depth is the latest finish.
+        Recorded with zero inputs unless *inputs* are given, as in the JAX
+        package (encodings elided under ``remove_zero_encoding``); the
+        model's zero-input flag is restored afterwards."""
+        cached = getattr(self, "_depth_cache", None)
+        if cached is not None:
+            return cached
+        zero_inputs = self._zero_inputs
+        saved = self._noise_params
+        self._noise_params = None
+        try:
+            inputs = self._inputs_validation(inputs)
+            with recording() as tape, torch.no_grad():
+                self._variational(self.params[0], inputs[0], noise_params=None)
+        finally:
+            self._noise_params = saved
+            self._zero_inputs = zero_inputs
+
+        finish: Dict[int, int] = {}
+        depth = 0
+        for gate in tape:
+            if isinstance(gate, KrausChannel):
+                continue
+            t = 1 + max((finish.get(w, 0) for w in gate.wires), default=0)
+            finish.update({w: t for w in gate.wires})
+            depth = max(depth, t)
+        self._depth_cache = depth
+        return depth
 
     def _build_obs(self) -> Tuple[str, List[op.Operation]]:
         """Translate execution_type / output_qubit into (meas_type, obs)."""
@@ -558,7 +702,10 @@ class Model(nn.Module):
         """Forward pass: canonicalise → fuse batches → execute → shape.
 
         Output shapes by ``execution_type``: ``expval`` → (n_out,),
-        ``probs`` → (2,)*k, ``state`` → (2^n,), with leading batch dims.
+        ``probs`` → (2,)*k, ``state`` → (2^n,), ``density`` → (2^k, 2^k),
+        with leading batch dims.  Each call splits one generator off the
+        model's, then one per batch element (the circuit's noise) and, with
+        shots, one for the draws.
         """
         if gate_mode == "pulse":
             raise NotImplementedError("gate_mode='pulse' comes with the pulse slice")
@@ -573,8 +720,13 @@ class Model(nn.Module):
         enc_params = self._enc_params_validation(enc_params)
         inputs, params = self._assimilate_batch(inputs, params)
 
+        self.random_key, call_key = safe_random_split(self.random_key)
+        shot_key = None
+        if self.shots is not None:
+            call_key, shot_key = safe_random_split(call_key)
+
         meas_type, obs = self._build_obs()
-        run_kwargs = dict(gate_mode=gate_mode)
+        run_kwargs = dict(noise_params=self.noise_params, gate_mode=gate_mode)
         B = int(np.prod(self.eff_batch_shape))
 
         if B > 1:
@@ -582,20 +734,26 @@ class Model(nn.Module):
             result = self.script.execute(
                 type=meas_type,
                 obs=obs,
-                args=(params, inputs, enc_params),
+                args=(params, inputs, enc_params, list(safe_random_split(call_key, B))),
                 kwargs=run_kwargs,
-                in_axes=(axes[1], axes[0], None),
+                in_axes=(axes[1], axes[0], None, 0),
+                shots=self.shots,
+                generator=shot_key,
             )
         else:
             result = self.script.execute(
                 type=meas_type, obs=obs, kwargs=run_kwargs,
-                args=(params, inputs, enc_params),
+                args=(params, inputs, enc_params, call_key),
+                shots=self.shots, generator=shot_key,
             )
         return self._shape_result(result, force_mean)
 
     def _shape_result(self, result: torch.Tensor, force_mean: bool) -> torch.Tensor:
         """Post-process raw executor output into the documented shape."""
-        if not self.all_qubit_measurement and self.execution_type == "probs":
+        partial = not self.all_qubit_measurement
+        if partial and self.execution_type == "density":
+            result = js.partial_trace(result, self.n_qubits, self.output_qubit)
+        elif partial and self.execution_type == "probs":
             groups = self.output_qubit
             if isinstance(groups[0], (list, tuple)):
                 result = torch.stack(

@@ -1,18 +1,26 @@
-"""Unitary gate frontend: static gate wrappers.
+"""Unitary gate frontend: noise-aware static gate wrappers.
 
-``UnitaryGates`` methods emit the operation onto the active tape.  In the
-JAX package they also perturb angles with Gaussian ``GateError`` noise and
-append Kraus channels; those need the density slice, so a non-empty
-``noise_params`` raises ``NotImplementedError`` here.  Also hosts the Golomb
-ruler construction used by the Golomb data encoding.
+``UnitaryGates`` methods (a) optionally perturb rotation angles with
+Gaussian ``GateError`` noise drawn from an explicit ``torch.Generator``,
+(b) emit the operation onto the active tape, and (c) append the configured
+Kraus noise channels.  Also hosts the Golomb ruler construction used by the
+Golomb data encoding.
+
+The model hands every gate of one circuit layer the same generator; each
+rotation draws its own sample from it (in the JAX package the gates of a
+layer share a key, and so one sample).  ``batch_gate_error = False`` draws
+every sample from a fresh generator seeded 0, the same for every gate and
+every element of a batch, as the JAX package's fixed key does.
 
 Counterpart of ``qml_essentials_tpu/models/unitary.py``.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.ops import operations as op
@@ -47,42 +55,113 @@ def golomb_ruler(d: int) -> Tuple[int, ...]:
     return _GOLOMB_RULER_CACHE[d]
 
 
-def _no_noise(noise_params: Optional[Dict]) -> None:
-    if noise_params is not None:
-        raise NotImplementedError(
-            "gate noise (Kraus channels, GateError) comes with the density slice"
-        )
-
-
 class UnitaryGates:
-    """Static unitary gate wrappers."""
+    """Static unitary gate wrappers with optional noise insertion."""
+
+    # True: GateError draws an independent sample per batch element (each
+    # element's own generator); False: one fixed sample broadcast across the
+    # batch.
+    batch_gate_error = True
+
+    # ----------------------------------------------------------- noise glue
+    @staticmethod
+    def NQubitDepolarizingChannel(p: float, wires: List[int]) -> op.QubitChannel:
+        """n-qubit depolarizing channel from the full Pauli basis (4^n Kraus ops)."""
+        if not (0.0 <= p <= 1.0):
+            raise ValueError(f"Probability p must be between 0 and 1, got {p}")
+        n = len(wires)
+        if n < 2:
+            raise ValueError(f"Number of qubits must be >= 2, got {n}")
+        paulis = [op.Id._matrix, op.PauliX._matrix, op.PauliY._matrix, op.PauliZ._matrix]
+        dim = 2**n
+        kraus = [float(np.sqrt(1 - p * (4**n - 1) / 4**n)) * torch.eye(dim, dtype=torch.complex128)]
+        for idxs in itertools.product(range(4), repeat=n):
+            if not any(idxs):
+                continue  # the identity is K0
+            P = paulis[idxs[0]]
+            for i in idxs[1:]:
+                P = torch.kron(P, paulis[i])
+            kraus.append(float(np.sqrt(p / 4**n)) * P)
+        return op.QubitChannel(kraus, wires=wires)
 
     @staticmethod
+    def Noise(wires, noise_params: Optional[Dict[str, float]] = None) -> None:
+        """Append the configured per-gate Kraus channels to the tape: BitFlip,
+        PhaseFlip, Depolarizing on each wire, MultiQubitDepolarizing on a
+        multi-qubit gate's wires; all default to 0."""
+        if noise_params is None:
+            return
+        wires_list = [wires] if isinstance(wires, int) else list(wires)
+        single = (
+            ("BitFlip", op.BitFlip),
+            ("PhaseFlip", op.PhaseFlip),
+            ("Depolarizing", op.DepolarizingChannel),
+        )
+        for wire in wires_list:
+            for knob, channel in single:
+                prob = noise_params.get(knob, 0.0)
+                if prob > 0:
+                    channel(prob, wires=wire)
+        mq = noise_params.get("MultiQubitDepolarizing", 0.0)
+        if mq > 0 and len(wires_list) > 1:
+            UnitaryGates.NQubitDepolarizingChannel(mq, wires_list)
+
+    @staticmethod
+    def GateError(
+        w, noise_params: Optional[Dict[str, float]] = None,
+        random_key: Optional[torch.Generator] = None,
+    ):
+        """Gaussian angle noise: returns ``(w + sigma * N(0, 1), random_key)``.
+
+        The sample is drawn in float64 on the generator's device (the CPU
+        for the model's generators) and cast to the angle's dtype and
+        device, so one seed perturbs a float32 model on the card as it does a
+        float64 one on the CPU."""
+        sigma = (noise_params or {}).get("GateError")
+        if sigma is None:
+            return w, random_key
+        if random_key is None:
+            raise ValueError("A random_key (torch.Generator) must be provided when using GateError")
+        gen = random_key if UnitaryGates.batch_gate_error else torch.Generator().manual_seed(0)
+        w = _param(w)
+        draw = torch.randn(w.shape, generator=gen, dtype=torch.float64, device=gen.device)
+        return w + sigma * draw.to(device=w.device, dtype=w.dtype), random_key
+
+    # --------------------------------------------------------------- gates
+    @staticmethod
     def Rot(phi, theta, omega, wires, noise_params=None, random_key=None) -> None:
-        """General rotation."""
-        _no_noise(noise_params)
+        """General rotation with optional GateError on each angle."""
+        if noise_params is not None and "GateError" in noise_params:
+            phi, theta, omega = (
+                UnitaryGates.GateError(a, noise_params, random_key)[0] for a in (phi, theta, omega)
+            )
         op.Rot(phi, theta, omega, wires=wires)
+        UnitaryGates.Noise(wires, noise_params)
 
     @staticmethod
     def PauliRot(theta, pauli, wires, noise_params=None, random_key=None) -> None:
-        """Multi-qubit Pauli rotation."""
-        _no_noise(noise_params)
+        """Multi-qubit Pauli rotation with optional GateError."""
+        theta, _ = UnitaryGates.GateError(theta, noise_params, random_key)
         op.PauliRot(theta, pauli, wires=wires)
+        UnitaryGates.Noise(wires, noise_params)
 
     @staticmethod
     def GolombEncoding(w, wires, noise_params=None, random_key=None) -> None:
         """Diagonal encoding ``S(x) = exp(-i diag(golomb marks) x)`` on all wires."""
-        _no_noise(noise_params)
         wires_list = [wires] if isinstance(wires, int) else list(wires)
+        w, _ = UnitaryGates.GateError(w, noise_params, random_key)
         w = _param(w)
         marks = torch.tensor(
             golomb_ruler(2 ** len(wires_list)), dtype=w.dtype, device=w.device
         )
         op.DiagonalQubitUnitary(torch.exp(-1j * marks * w), wires=wires_list)
+        UnitaryGates.Noise(wires_list, noise_params)
 
 
 def _install_gate_wrappers() -> None:
-    """Generate the uniform UnitaryGates wrappers from one table."""
+    """Generate the uniform UnitaryGates wrappers from one table: perturb the
+    angle with GateError (rotations only), emit the operation, append the
+    configured noise channels."""
     rotations = {
         "RX": op.RX, "RY": op.RY, "RZ": op.RZ,
         "CRX": op.CRX, "CRY": op.CRY, "CRZ": op.CRZ,
@@ -93,22 +172,23 @@ def _install_gate_wrappers() -> None:
 
     def rotation_wrapper(name, ctor):
         def gate(w, wires, noise_params=None, random_key=None):
-            _no_noise(noise_params)
+            w, _ = UnitaryGates.GateError(w, noise_params, random_key)
             ctor(w, wires=wires)
+            UnitaryGates.Noise(wires, noise_params)
 
         gate.__name__ = name
         gate.__qualname__ = f"UnitaryGates.{name}"
-        gate.__doc__ = f"{name} rotation."
+        gate.__doc__ = f"{name} rotation with optional GateError + noise."
         return staticmethod(gate)
 
     def fixed_wrapper(name, ctor):
         def gate(wires, noise_params=None, random_key=None):
-            _no_noise(noise_params)
             ctor(wires=wires)
+            UnitaryGates.Noise(wires, noise_params)
 
         gate.__name__ = name
         gate.__qualname__ = f"UnitaryGates.{name}"
-        gate.__doc__ = f"{name} gate."
+        gate.__doc__ = f"{name} gate with configured noise channels."
         return staticmethod(gate)
 
     for name, ctor in rotations.items():

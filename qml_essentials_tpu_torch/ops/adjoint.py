@@ -53,8 +53,11 @@ earliest payload step writes λ in the working dtype, and ψ is always in the
 working dtype.  On the CPU the same executor runs the kernels' plain
 versions.
 
-Counterpart of ``qml_essentials_tpu/ops/adjoint.py`` (the port has no noise
-channels on the statevector path yet).
+The adjoint never runs a density plan: a superoperator is not undone by
+its dagger, so noisy tapes take the saved executor
+(:func:`~qml_essentials_tpu_torch.ops.simulation._simulate_interleaved_ri`).
+
+Counterpart of ``qml_essentials_tpu/ops/adjoint.py``.
 """
 
 from __future__ import annotations
@@ -66,7 +69,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from qml_essentials_tpu_torch.ops import chains, cuda_kernels, kernels, saved
-from qml_essentials_tpu_torch.ops.operations import DiagonalQubitUnitary, Operation
+from qml_essentials_tpu_torch.ops.operations import (
+    DiagonalQubitUnitary,
+    KrausChannel,
+    Operation,
+)
 
 # Session flag (the reference's switch).  ``BACKWARD_MODE`` alone picks the
 # executor; with the flag off, a gradient that a forced mode or the residual
@@ -102,8 +109,9 @@ def normalize_plan(
     ``("rot", r)``, ``(kind, r, wires)`` with wires sorted, and ``("chain",
     geom, descs)`` with one payload per descriptor (a chain the kernels do
     not take is expanded into ``mat``/``diag`` steps), and ``payloads`` the
-    matching tuple of real-split tensors.  (The reference returns ``None``
-    for noise channels; the port's statevector path has none yet.)
+    matching tuple of real-split tensors.  A noise channel raises
+    ``TypeError`` (the reference returns ``None``): noisy tapes run the
+    density engines, whose lowered plans hold none.
     """
     static: list = []
     payloads: list = []
@@ -131,6 +139,8 @@ def normalize_plan(
             mat = payload
         else:  # "op"
             op = payload
+            if isinstance(op, KrausChannel):
+                raise TypeError(f"{op.name} is a noise channel: run it on a density engine")
             cls = op.__class__
             if cls.apply_to_state_ri is not Operation.apply_to_state_ri:
                 if isinstance(op, DiagonalQubitUnitary):

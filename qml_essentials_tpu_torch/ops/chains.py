@@ -39,6 +39,7 @@ from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
     DiagonalQubitUnitary,
     Id,
+    KrausChannel,
     Operation,
 )
 
@@ -381,6 +382,8 @@ def plan_chains(
             continue
         if isinstance(op, Id) and op._matrix is Id._matrix:
             continue
+        if isinstance(op, KrausChannel):
+            return None
         if (
             op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri
             and not isinstance(op, DiagonalQubitUnitary)

@@ -667,6 +667,44 @@ def zero_state_ri(
     return psi2
 
 
+def zero_density_ri(
+    n_qubits: int, dtype: torch.dtype = torch.float32, device=None
+) -> torch.Tensor:
+    """|0><0| as a stacked (2, 4**n) real pair."""
+    return zero_state_ri(2 * n_qubits, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Density-matrix application (rho flat over 2n conceptual qubits: ket wires
+# 0..n-1, bra wires n..2n-1); plain tensor code in the JAX package too
+# ---------------------------------------------------------------------------
+
+
+def apply_unitary_to_density_flat_ri(
+    rho2: torch.Tensor, mat: torch.Tensor, wires: Sequence[int], n_qubits: int
+) -> torch.Tensor:
+    """Real-split ``rho -> U rho U†`` over the flat 2n-qubit density state:
+    U on the ket wires, conj(U) on the bra wires."""
+    wires = list(wires)
+    rho2 = apply_matrix_flat_ri(rho2, mat, wires, 2 * n_qubits)
+    bra = [w + n_qubits for w in wires]
+    return apply_matrix_flat_ri(rho2, torch.conj_physical(mat), bra, 2 * n_qubits)
+
+
+def apply_kraus_to_density_flat_ri(
+    rho2: torch.Tensor,
+    kraus: Sequence[torch.Tensor],
+    wires: Sequence[int],
+    n_qubits: int,
+) -> torch.Tensor:
+    """Real-split ``rho -> sum_k K_k rho K_k†`` (per-operator loop)."""
+    out = None
+    for K in kraus:
+        branch = apply_unitary_to_density_flat_ri(rho2, K, wires, n_qubits)
+        out = branch if out is None else out + branch
+    return out
+
+
 def reduce_diagonal_expectation(
     probs: torch.Tensor, qubit_weights: Sequence[Optional[Tuple[float, float]]]
 ) -> torch.Tensor:

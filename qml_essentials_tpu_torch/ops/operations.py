@@ -12,9 +12,16 @@ float64 model computes with them exactly and a float32 one rounds them once.
 The simulator casts every matrix to the state's dtype and device where it is
 applied.
 
+Noise channels (:class:`KrausChannel` and its subclasses) carry their Kraus
+operators as complex128 CPU tensors built from float64 host arithmetic
+(``ThermalRelaxationError``'s Choi eigendecomposition included); they act on
+real-split density states (:meth:`Operation.apply_to_density_ri`), and the
+density engines of :mod:`~qml_essentials_tpu_torch.ops.simulation` lower
+them to superoperators.
+
 Counterpart of ``qml_essentials_tpu/ops/operations.py`` (Operation up to the
-controlled rotations).  Noise channels, Hamiltonians and ``PauliWord`` come
-with the density, pulse and analysis slices.
+controlled rotations, and the Kraus channels).  Hamiltonians and
+``PauliWord`` come with the pulse and analysis slices.
 """
 
 from __future__ import annotations
@@ -228,6 +235,13 @@ class Operation:
         """Apply to a real-split ``(2, 2**n)`` state (simulation hot path)."""
         return kernels.apply_matrix_flat_ri(psi2, self.matrix, self.wires, n_qubits)
 
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        """Apply ``rho -> U rho U†`` to a real-split ``(2, 4**n)`` density
+        state (ket wires ``0..n-1``, bra wires ``n..2n-1``)."""
+        return kernels.apply_unitary_to_density_flat_ri(
+            rho2, self.matrix, self.wires, n_qubits
+        )
+
 
 # ---------------------------------------------------------------------------
 # Observables defined by data
@@ -267,6 +281,9 @@ class Id(Operation):
 
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
         return psi2
+
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return rho2
 
 
 class PauliX(Operation):
@@ -342,6 +359,13 @@ class DiagonalQubitUnitary(Operation):
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
         return kernels.apply_diagonal_flat_ri(psi2, self.diag, self.wires, n_qubits)
 
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        rho2 = kernels.apply_diagonal_flat_ri(rho2, self.diag, self.wires, 2 * n_qubits)
+        bra = [w + n_qubits for w in self.wires]
+        return kernels.apply_diagonal_flat_ri(
+            rho2, torch.conj_physical(self.diag), bra, 2 * n_qubits
+        )
+
 
 class Barrier(Operation):
     """Visual separator; a no-op for every simulation path."""
@@ -350,6 +374,9 @@ class Barrier(Operation):
 
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
         return psi2
+
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return rho2
 
 
 _PAULI_LABELS = ["I", "X", "Y", "Z"]
@@ -597,3 +624,206 @@ def _make_controlled_rotation_subclass(name: str, axis: str) -> type:
 CRX = _make_controlled_rotation_subclass("CRX", "X")
 CRY = _make_controlled_rotation_subclass("CRY", "Y")
 CRZ = _make_controlled_rotation_subclass("CRZ", "Z")
+
+
+# ---------------------------------------------------------------------------
+# Kraus channels
+# ---------------------------------------------------------------------------
+
+
+class KrausChannel(Operation):
+    """Base class for noise channels ``rho -> sum_k K_k rho K_k†``.
+
+    Channels have no single unitary matrix and cannot act on pure states;
+    :meth:`apply_to_density_ri` applies the Kraus operators one by one.
+    """
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    @property
+    def matrix(self) -> torch.Tensor:
+        raise TypeError(
+            f"{self.__class__.__name__} is a noise channel and has no single "
+            "unitary matrix. Use apply_to_density_ri() instead."
+        )
+
+    def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        raise TypeError(
+            f"{self.__class__.__name__} is a noise channel and cannot be "
+            "applied to a pure statevector. Use execute(type='density') instead."
+        )
+
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return kernels.apply_kraus_to_density_flat_ri(
+            rho2, self.kraus_matrices(), self.wires, n_qubits
+        )
+
+
+def _check_prob(p: float, name: str = "p") -> None:
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"{name} must be in [0, 1].")
+
+
+def _scaled(c: float, mat: torch.Tensor) -> torch.Tensor:
+    """``sqrt(c) * mat`` in complex128 (host float64 arithmetic)."""
+    return float(np.sqrt(c)) * mat
+
+
+class BitFlip(KrausChannel):
+    """Bit-flip channel: K0 = sqrt(1-p) I, K1 = sqrt(p) X."""
+
+    _num_wires = 1
+    _param_names = ("p",)
+
+    def __init__(self, p: float, wires: Wires = 0) -> None:
+        _check_prob(p)
+        self.p = p
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        return [_scaled(1 - self.p, Id._matrix), _scaled(self.p, PauliX._matrix)]
+
+
+class PhaseFlip(KrausChannel):
+    """Phase-flip channel: K0 = sqrt(1-p) I, K1 = sqrt(p) Z."""
+
+    _num_wires = 1
+    _param_names = ("p",)
+
+    def __init__(self, p: float, wires: Wires = 0) -> None:
+        _check_prob(p)
+        self.p = p
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        return [_scaled(1 - self.p, Id._matrix), _scaled(self.p, PauliZ._matrix)]
+
+
+class DepolarizingChannel(KrausChannel):
+    """Single-qubit depolarizing channel (I, X, Y, Z Kraus set)."""
+
+    _num_wires = 1
+    _param_names = ("p",)
+
+    def __init__(self, p: float, wires: Wires = 0) -> None:
+        _check_prob(p)
+        self.p = p
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        p = self.p
+        return [
+            _scaled(1 - p, Id._matrix),
+            _scaled(p / 3, PauliX._matrix),
+            _scaled(p / 3, PauliY._matrix),
+            _scaled(p / 3, PauliZ._matrix),
+        ]
+
+
+class AmplitudeDamping(KrausChannel):
+    """Amplitude damping: energy loss |1> -> |0> with probability gamma."""
+
+    _num_wires = 1
+    _param_names = ("gamma",)
+
+    def __init__(self, gamma: float, wires: Wires = 0) -> None:
+        _check_prob(gamma, "gamma")
+        self.gamma = gamma
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        g = self.gamma
+        return [_const([[1.0, 0.0], [0.0, np.sqrt(1 - g)]]),
+                _const([[0.0, np.sqrt(g)], [0.0, 0.0]])]
+
+
+class PhaseDamping(KrausChannel):
+    """Phase damping (dephasing) with probability gamma."""
+
+    _num_wires = 1
+    _param_names = ("gamma",)
+
+    def __init__(self, gamma: float, wires: Wires = 0) -> None:
+        _check_prob(gamma, "gamma")
+        self.gamma = gamma
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        g = self.gamma
+        return [_const([[1.0, 0.0], [0.0, np.sqrt(1 - g)]]),
+                _const([[0.0, 0.0], [0.0, np.sqrt(g)]])]
+
+
+class ThermalRelaxationError(KrausChannel):
+    """Thermal relaxation: simultaneous T1 relaxation and T2 dephasing.
+
+    ``t2 <= t1`` uses the six-operator Markovian set; ``t2 > t1`` builds the
+    Choi matrix and eigendecomposes it (float64, on the host) into four Kraus
+    operators, whose phases are the eigensolver's: compare channels by their
+    superoperators, not by their Kraus lists.
+    """
+
+    _num_wires = 1
+    _param_names = ("pe", "t1", "t2", "tg")
+
+    def __init__(self, pe: float, t1: float, t2: float, tg: float, wires: Wires = 0) -> None:
+        _check_prob(pe, "pe")
+        if t1 <= 0:
+            raise ValueError("t1 must be > 0.")
+        if t2 <= 0:
+            raise ValueError("t2 must be > 0.")
+        if t2 > 2 * t1:
+            raise ValueError("t2 must be <= 2·t1.")
+        if tg < 0:
+            raise ValueError("tg must be >= 0.")
+        self.pe, self.t1, self.t2, self.tg = pe, t1, t2, tg
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        pe, t1, t2, tg = (float(v) for v in (self.pe, self.t1, self.t2, self.tg))
+        eT1 = np.exp(-tg / t1)
+        p_reset = 1.0 - eT1
+        eT2 = np.exp(-tg / t2)
+
+        if t2 <= t1:
+            pz = (1.0 - p_reset) * (1.0 - eT2 / eT1) / 2.0
+            pr0 = (1.0 - pe) * p_reset
+            pr1 = pe * p_reset
+            pid = 1.0 - pz - pr0 - pr1
+            return [
+                _scaled(pid, Id._matrix),
+                _scaled(pz, PauliZ._matrix),
+                _scaled(pr0, _P0),
+                _scaled(pr0, _const([[0, 1], [0, 0]])),
+                _scaled(pr1, _const([[0, 0], [1, 0]])),
+                _scaled(pr1, _P1),
+            ]
+
+        # Non-Markovian regime: Choi matrix eigendecomposition, column-major
+        # vec convention (the JAX package's and PennyLane's).
+        choi = np.array(
+            [
+                [1 - pe * p_reset, 0, 0, eT2],
+                [0, pe * p_reset, 0, 0],
+                [0, 0, (1 - pe) * p_reset, 0],
+                [eT2, 0, 0, 1 - (1 - pe) * p_reset],
+            ],
+            dtype=np.complex128,
+        )
+        lams, vecs = np.linalg.eigh(choi)
+        return [
+            torch.from_numpy(np.sqrt(abs(lams[i])) * vecs[:, i].reshape(2, 2).T.copy())
+            for i in range(4)
+        ]
+
+
+class QubitChannel(KrausChannel):
+    """Generic channel from a user-supplied Kraus operator list."""
+
+    def __init__(self, kraus_ops: List, wires: Wires = 0) -> None:
+        self._kraus_ops = [_as_complex(K) for K in kraus_ops]
+        super().__init__(wires=wires)
+
+    def kraus_matrices(self) -> List[torch.Tensor]:
+        return self._kraus_ops

@@ -1,4 +1,4 @@
-"""Statevector simulation and measurement.
+"""Statevector and density simulation, measurement and shot sampling.
 
 Stateless functions: take a recorded tape (list of
 :class:`~qml_essentials_tpu_torch.ops.operations.Operation`) plus
@@ -31,13 +31,31 @@ executor (:mod:`~qml_essentials_tpu_torch.ops.saved`) in the large-state
 regime, and the kernels' own autograd backwards below it.  A batch takes one
 decision for all its elements (:class:`BackwardChoice`).
 
-Counterpart of ``qml_essentials_tpu/ops/simulation.py`` (the statevector
-part; density simulation and shots come later).
+*Density.*  A noisy n-qubit tape (Kraus channels) runs as a pure state of
+2n doubled wires.  The preferred engine lowers it to the **interleaved**
+layout (:func:`_lower_interleaved_tape`: data wire w owns doubled wires 2w,
+ket, and 2w+1, bra; a gate U becomes U ⊗ conj(U), a channel its
+superoperator Σ K ⊗ conj(K)), so every operator is contiguous and the tape
+runs the statevector planner, scheduler and kernels
+(:func:`_simulate_interleaved_ri`) — never the chain plan, and never the
+adjoint backward (a superoperator is not undone by its dagger): a gradient
+takes the saved executor.  A tape with no contiguous doubled form (a channel
+on more than 3 wires) runs the ket-then-bra engine
+(:func:`simulate_mixed_ri`: ket wires 0..n-1, bra wires n..2n-1).  A
+noise-free tape asked for ``"density"`` runs the statevector and takes one
+outer product.  The readout reads the interleaved diagonal with one gather
+(:func:`_pair_diag`) and de-interleaves the full matrix only for
+``"density"`` and non-diagonal observables.
+
+*Shots.*  :func:`sample_shots` draws from the exact probabilities with
+``torch.multinomial`` on an explicit ``torch.Generator`` on their device.
+
+Counterpart of ``qml_essentials_tpu/ops/simulation.py``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +67,10 @@ from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
     DiagonalQubitUnitary,
     Id,
+    KrausChannel,
     Operation,
 )
+from qml_essentials_tpu_torch.utils import safe_random_split
 
 # Maximum combined support (in qubits) of a fused gate block below the
 # large-state regime.  Set to 0/1 to disable fusion.
@@ -87,9 +107,8 @@ def infer_n_qubits(ops: List[Operation], obs: List[Operation]) -> int:
 
 
 def uses_density(tape: List[Operation], type: str) -> bool:
-    """Density-matrix simulation is needed for type='density' (noise channels
-    come with the density slice)."""
-    return type == "density"
+    """Density-matrix simulation is needed for noise channels or type='density'."""
+    return type == "density" or any(isinstance(op, KrausChannel) for op in tape)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +147,8 @@ def plan_contractions(
     ``(2**w, 2**w)`` matrix (complex *dtype*, on *device*) on ``[lo, hi)``.
 
     Returns steps ``("op", operation, wires)`` (applied through the
-    operation's own method) and ``("mat", matrix, wires)`` (a fused window).
+    operation's own method; every Kraus channel is one, and flushes the open
+    windows) and ``("mat", matrix, wires)`` (a fused window).
     """
     width = FUSE_MAX_WIDTH if max_width is None else max_width
     if n_qubits is not None and max_width is None:
@@ -164,6 +184,10 @@ def plan_contractions(
         if isinstance(op, Barrier):
             continue
         if isinstance(op, Id) and op._matrix is Id._matrix:
+            continue
+        if isinstance(op, KrausChannel):
+            flush()
+            steps.append(("op", op, list(op.wires)))
             continue
 
         op_support = set(op.wires)
@@ -293,6 +317,8 @@ def schedule_layout(
             norm.append((kind, payload, wires))
             continue
         op = payload
+        if isinstance(op, KrausChannel):
+            return steps  # channels never reach the pure-state path
         if isinstance(op, DiagonalQubitUnitary):
             norm.append(("diag", op.diag, list(op.wires)))
         elif op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri:
@@ -563,14 +589,20 @@ def scheduled_plan(
     the scheduled one when it has steps and fewer of them than the
     unscheduled window plan; it starts from |0...0>."""
     plan = plan_contractions(tape, n_qubits=n_qubits, dtype=cdtype(dtype), device=device)
-    if n_qubits < LARGE_STATE_MIN_N:
-        return plan, None
-    if USE_CHAINS:
+    if USE_CHAINS and n_qubits >= LARGE_STATE_MIN_N:
         cplan = chains.plan_chains(tape, n_qubits, cdtype(dtype), device)
         if cplan is not None and 0 < len(cplan) < len(plan):
             return cplan, None
-    peeled, psi2 = _zero_state_prefix(plan, n_qubits)
-    return schedule_layout(_drop_indices(plan, peeled), n_qubits), psi2
+    return _scheduled(plan, n_qubits)
+
+
+def _scheduled(plan: list, n: int) -> Tuple[list, Optional[torch.Tensor]]:
+    """A window plan as it runs: in the large-state regime, its outer-product
+    start peeled off and the rest layout-scheduled."""
+    if n < LARGE_STATE_MIN_N:
+        return plan, None
+    peeled, psi2 = _zero_state_prefix(plan, n)
+    return schedule_layout(_drop_indices(plan, peeled), n), psi2
 
 
 # Backward-pass strategy: "auto" keeps per-step residuals (the saved
@@ -724,6 +756,311 @@ def _apply_chain_ri(psi2: torch.Tensor, geom: tuple, descs: tuple, pays: tuple,
     return psi2
 
 
+# ---------------------------------------------------------------------------
+# Density simulation: the ket-then-bra engine
+# ---------------------------------------------------------------------------
+
+# Widest channel (in data qubits) lowered to a one-pass superoperator on the
+# doubled register (4**3 = 64-dim matrices).
+_SUPEROP_MAX_WIRES: int = 3
+
+
+def _channel_superop(op: KrausChannel) -> Optional[Tuple[torch.Tensor, List[int]]]:
+    """``(Σ_k K ⊗ conj(K), wires)`` of a Kraus channel, or None when it is
+    wider than ``_SUPEROP_MAX_WIRES``: ``vec(Σ K ρ K†) = (Σ K ⊗ conj(K))
+    vec(ρ)`` with the ket wires before the bra wires."""
+    if len(op.wires) > _SUPEROP_MAX_WIRES:
+        return None
+    s = None
+    for K in op.kraus_matrices():
+        term = torch.kron(K, torch.conj_physical(K))
+        s = term if s is None else s + term
+    return s, list(op.wires)
+
+
+def _double_plan(
+    plan: List[Tuple[str, object, List[int]]], n: int, large: bool
+) -> List[Tuple[str, object, List[int]]]:
+    """Map an n-qubit contraction plan onto the 2n-qubit doubled register in
+    ket-then-bra wire order (ket wires 0..n-1, bra wires n..2n-1).
+
+    A window becomes its ket application and its conjugate bra twin, a
+    diagonal likewise.  A channel becomes one superoperator on its ket and
+    bra wires below the large-state regime; in it (wires n apart) it keeps
+    its own density application (``"dens_op"``), as do the no-op gates."""
+    out: List[Tuple[str, object, List[int]]] = []
+    for kind, payload, wires in plan:
+        if kind == "mat":
+            out.append(("mat", payload, list(wires)))
+            out.append(("mat", torch.conj_physical(payload), [w + n for w in wires]))
+            continue
+        op = payload
+        if isinstance(op, KrausChannel):
+            lowered = None if large else _channel_superop(op)
+            if lowered is None:
+                out.append(("dens_op", op, list(wires)))
+            else:
+                s, kw = lowered
+                out.append(("mat", s, kw + [w + n for w in kw]))
+        elif isinstance(op, DiagonalQubitUnitary):
+            out.append(("diag", op.diag, list(op.wires)))
+            out.append(("diag", torch.conj_physical(op.diag), [w + n for w in op.wires]))
+        elif op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri:
+            out.append(("dens_op", op, list(wires)))
+        else:
+            m = op.matrix
+            out.append(("mat", m, list(wires)))
+            out.append(("mat", torch.conj_physical(m), [w + n for w in wires]))
+    return out
+
+
+def _schedule_density_segments(
+    plan: List[Tuple[str, object, List[int]]], n2: int
+) -> List[Tuple[str, object, List[int]]]:
+    """Layout-schedule the unitary stretches of a doubled plan; the
+    ``dens_op`` steps between them address physical wires, and each stretch
+    ends at offset 0 (:func:`schedule_layout`)."""
+    out: List[Tuple[str, object, List[int]]] = []
+    seg: List[Tuple[str, object, List[int]]] = []
+    for step in plan:
+        if step[0] == "dens_op":
+            out.extend(schedule_layout(seg, n2))
+            out.append(step)
+            seg = []
+        else:
+            seg.append(step)
+    out.extend(schedule_layout(seg, n2))
+    return out
+
+
+def simulate_mixed_ri(
+    tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None
+) -> torch.Tensor:
+    """Ket-then-bra density simulation from |0><0|; returns the ``(2, 4**n)``
+    pair (row index = ket bits, column index = bra bits).
+
+    The tape's window plan is doubled (:func:`_double_plan`) and runs through
+    the same kernels as the statevector path, one step at a time; in the
+    large-state regime the windows span one side of the register (at most
+    ``LARGE_FUSE_WIDTH`` data qubits), each stretch between channels is
+    layout-scheduled, and every channel applies its Kraus operators in turn.
+    The interleaved engine is preferred; this one takes what it cannot lower.
+    """
+    n2 = 2 * n_qubits
+    large = n2 >= LARGE_STATE_MIN_N
+    cd = cdtype(dtype)
+    if large:
+        base = plan_contractions(tape, max_width=min(n_qubits, LARGE_FUSE_WIDTH),
+                                 dtype=cd, device=device)
+    else:
+        base = plan_contractions(tape, n_qubits=n_qubits, dtype=cd, device=device)
+    plan = _double_plan(base, n_qubits, large)
+    if large:
+        plan = _schedule_density_segments(plan, n2)
+
+    rho2 = kernels.zero_density_ri(n_qubits, dtype, device)
+    for kind, payload, wires in plan:
+        if kind == "dens_op":
+            rho2 = payload.apply_to_density_ri(rho2, n_qubits)
+        else:
+            rho2 = _apply_step_ri(rho2, kind, payload, wires, n2)
+    return rho2
+
+
+# ---------------------------------------------------------------------------
+# Density simulation: the interleaved engine
+# ---------------------------------------------------------------------------
+
+# Widest data-gate support doubled into a dense U ⊗ conj(U) window (5 wires:
+# a 1024-dim operator, the re-fusion ceiling).
+_DOUBLE_MAX_WIRES: int = 5
+# Widest diagonal gate doubled into an interleaved diagonal (4**m entries).
+_DOUBLE_DIAG_MAX_WIRES: int = 8
+
+
+def _interleaved_wires(wires: Sequence[int]) -> List[int]:
+    """Doubled wires of a data-wire support under the interleaved layout:
+    the ket wires, then the bra wires (the operator's qubit order)."""
+    return [2 * w for w in wires] + [2 * w + 1 for w in wires]
+
+
+def _interleave_diag(d: torch.Tensor, m: int) -> torch.Tensor:
+    """``d ⊗ conj(d)`` with its bits shuffled to (k0, b0, k1, b1, ...)."""
+    dd = torch.outer(d, torch.conj_physical(d)).reshape((2,) * (2 * m))
+    order = [ax for i in range(m) for ax in (i, m + i)]
+    return dd.permute(*order).reshape(-1)
+
+
+def _lower_interleaved_tape(
+    tape: List[Operation], n_qubits: int
+) -> Optional[List[Operation]]:
+    """Lower an n-qubit tape to a 2n-qubit pure-state tape in the
+    interleaved layout, or ``None`` when an operation has no contiguous
+    doubled form (a channel wider than ``_SUPEROP_MAX_WIRES``, a gate wider
+    than ``_DOUBLE_MAX_WIRES``, a wide or scattered diagonal, a gate with
+    its own application): callers then take the ket-then-bra engine."""
+    out: List[Operation] = []
+    for op in tape:
+        if isinstance(op, Barrier) or (isinstance(op, Id) and op._matrix is Id._matrix):
+            continue
+        m = len(op.wires)
+        if isinstance(op, KrausChannel):
+            lowered = _channel_superop(op)
+            if lowered is None:
+                return None
+            s, kw = lowered
+            out.append(Operation(wires=_interleaved_wires(kw), matrix=s, record=False,
+                                 name=f"S[{op.name}]"))
+            continue
+        if isinstance(op, DiagonalQubitUnitary):
+            ws = sorted(op.wires)
+            if m > _DOUBLE_DIAG_MAX_WIRES or ws != list(range(ws[0], ws[0] + m)):
+                return None
+            # Diagonal entries follow sorted wire order by construction.
+            out.append(DiagonalQubitUnitary(_interleave_diag(op.diag, m),
+                                            wires=list(range(2 * ws[0], 2 * (ws[0] + m))),
+                                            record=False))
+            continue
+        if op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri:
+            return None
+        if m > _DOUBLE_MAX_WIRES:
+            return None
+        u = op.matrix
+        out.append(Operation(wires=_interleaved_wires(op.wires),
+                             matrix=torch.kron(u, torch.conj_physical(u)), record=False,
+                             name=f"D[{op.name}]"))
+    return out
+
+
+def interleaved_plan(
+    dtape: List[Operation], n2: int, dtype: torch.dtype = torch.float32, device=None
+) -> Tuple[list, Optional[torch.Tensor]]:
+    """The plan :func:`_simulate_interleaved_ri` runs for a lowered tape on
+    ``n2`` doubled wires, and its outer-product start (``None``: |0...0>):
+    :func:`plan_contractions`, then in the large-state regime
+    :func:`_zero_state_prefix` and :func:`schedule_layout`.  Never a chain
+    plan, whatever ``USE_CHAINS`` says."""
+    plan = plan_contractions(dtape, n_qubits=n2, dtype=cdtype(dtype), device=device)
+    return _scheduled(plan, n2)
+
+
+def _simulate_interleaved_ri(
+    dtape: List[Operation], n2: int, dtype: torch.dtype = torch.float32, device=None
+) -> torch.Tensor:
+    """Pure-state simulation of a lowered doubled tape; returns the
+    interleaved ``(2, 2**n2)`` density pair.
+
+    A gradient runs through the saved-residual executor in the large-state
+    regime (its pullback ``W†λ`` needs no unitarity) and the kernels' own
+    backwards below it; ``BACKWARD_MODE`` and the 0.35 residual rule do not
+    apply, since the adjoint backward would undo a superoperator with its
+    dagger.  A forward alone runs the per-step loop."""
+    plan, psi2 = interleaved_plan(dtape, n2, dtype, device)
+    if psi2 is None:
+        psi2 = kernels.zero_state_ri(n2, dtype, device)
+    if _needs_grad(plan, psi2) and saved.ENABLED and saved.usable(plan, n2):
+        static, payloads = adjoint.normalize_plan(plan, n2)
+        if payloads:
+            return saved.execute_plan_saved_ri(psi2, payloads, static, n2)
+    for kind, payload, wires in plan:
+        psi2 = _apply_step_ri(psi2, kind, payload, wires, n2)
+    return psi2
+
+
+# ---------------------------------------------------------------------------
+# Density readout
+# ---------------------------------------------------------------------------
+
+_INDEX_CACHE: Dict[tuple, torch.Tensor] = {}
+
+
+def _cached_index(key: tuple, build) -> torch.Tensor:
+    """An index tensor cached per (kind, n, device), built outside inference
+    mode so that a later gradient may save it."""
+    idx = _INDEX_CACHE.get(key)
+    if idx is None:
+        with torch.inference_mode(False):
+            idx = build()
+        _INDEX_CACHE[key] = idx
+    return idx
+
+
+def _index_dtype(size: int) -> torch.dtype:
+    return torch.int32 if size < 2**31 else torch.int64
+
+
+def _pair_diag_index(n_qubits: int, device) -> torch.Tensor:
+    """Positions of the diagonal in an interleaved flat plane: entry d sits
+    where every (ket, bra) bit pair holds d's bit twice (00 or 11)."""
+
+    def build():
+        d = torch.arange(2**n_qubits, dtype=torch.int64, device=device)
+        idx = torch.zeros_like(d)
+        for i in range(n_qubits):
+            idx |= ((d >> i) & 1) * 3 << (2 * i)
+        return idx.to(_index_dtype(4**n_qubits))
+
+    return _cached_index(("pair_diag", n_qubits, torch.device(device)), build)
+
+
+def _pair_diag(x: torch.Tensor, n_qubits: int) -> torch.Tensor:
+    """Diagonal of an interleaved flat density plane: one gather of its
+    ``2**n`` entries (differentiable: ⟨Z⟩'s gradient flows back through it)."""
+    return x.index_select(-1, _pair_diag_index(n_qubits, x.device))
+
+
+def _deinterleave_index(n_qubits: int, device) -> torch.Tensor:
+    """Gather indices from the interleaved flat order to the ket-then-bra
+    one: ``target[j] = src[idx[j]]``, j with bits (k0..k_{n-1}, b0..b_{n-1})
+    and the source interleaving (k0, b0, k1, b1, ...)."""
+
+    def build():
+        dim = 2**n_qubits
+        j = torch.arange(4**n_qubits, dtype=torch.int64, device=device)
+        ket, bra = j // dim, j % dim
+        idx = torch.zeros_like(j)
+        for i in range(n_qubits):
+            idx |= ((ket >> i) & 1) << (2 * i + 1)
+            idx |= ((bra >> i) & 1) << (2 * i)
+        return idx.to(_index_dtype(4**n_qubits))
+
+    return _cached_index(("deinterleave", n_qubits, torch.device(device)), build)
+
+
+def _deinterleave_ri(rho2il: torch.Tensor, n_qubits: int) -> torch.Tensor:
+    """Interleaved flat density pair -> ket-then-bra flat pair (one gather)."""
+    return rho2il.index_select(1, _deinterleave_index(n_qubits, rho2il.device))
+
+
+def _measure_interleaved_ri(
+    rho2il: torch.Tensor, n_qubits: int, type: str, obs: List[Operation]
+) -> torch.Tensor:
+    """Measurement from an interleaved density pair: ``probs`` and diagonal
+    expvals off the pair diagonal; anything needing the full matrix
+    de-interleaves it once."""
+    if type in ("probs", "expval"):
+        probs = _pair_diag(rho2il[0], n_qubits)
+        if type == "probs":
+            return probs
+        diags = [_diagonal_real(ob) for ob in obs]
+        if obs and all(d is not None for d in diags):
+            return _expval_from_probs(probs, n_qubits, obs, diags)
+    return measure_density_ri(_deinterleave_ri(rho2il, n_qubits), n_qubits, type, obs)
+
+
+def _outer_ri(psi2: torch.Tensor) -> torch.Tensor:
+    """Real-split outer product ``rho = |psi><psi|`` as a flat (2, 4**n) pair."""
+    r, i = psi2[0], psi2[1]
+    rho_r = torch.outer(r, r) + torch.outer(i, i)
+    rho_i = torch.outer(i, r) - torch.outer(r, i)
+    return torch.stack([rho_r.reshape(-1), rho_i.reshape(-1)])
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
 def simulate_and_measure(
     tape: List[Operation],
     n_qubits: int,
@@ -731,17 +1068,45 @@ def simulate_and_measure(
     obs: List[Operation],
     use_density: bool = False,
     *,
+    shots: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
     dtype: torch.dtype = torch.float32,
     device=None,
     batch: int = 1,
     choice: Optional[BackwardChoice] = None,
 ) -> torch.Tensor:
-    """Simulate the tape and measure ``expval`` / ``probs`` / ``state``
-    (density simulation and shot sampling are not ported yet).  *batch* and
-    *choice*: see :func:`simulate_pure_ri`."""
+    """Simulate the tape and measure ``expval`` / ``probs`` / ``state`` /
+    ``density``.
+
+    A noisy tape runs the interleaved density engine (the ket-then-bra one
+    when it cannot be lowered); a noise-free ``density`` request runs the
+    statevector and one outer product.  With *shots*, ``probs`` and
+    ``expval`` are estimated from that many draws of the exact probabilities
+    (:func:`sample_shots`, on *generator*); other types ignore them.
+    *batch* and *choice*: see :func:`simulate_pure_ri`."""
+    dim = 2**n_qubits
+    sampled = shots is not None and type in ("probs", "expval")
     if use_density:
-        raise NotImplementedError("density simulation comes with the density slice")
+        if any(isinstance(o, KrausChannel) for o in tape):
+            dtape = _lower_interleaved_tape(tape, n_qubits)
+            if dtape is not None:
+                rho2il = _simulate_interleaved_ri(dtape, 2 * n_qubits, dtype, device)
+                if sampled:
+                    exact = _pair_diag(rho2il[0], n_qubits)
+                    return sample_shots(exact, n_qubits, type, obs, shots, generator)
+                return _measure_interleaved_ri(rho2il, n_qubits, type, obs)
+            rho2 = simulate_mixed_ri(tape, n_qubits, dtype, device)
+        else:
+            rho2 = _outer_ri(simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice))
+        if sampled:
+            exact = torch.diagonal(rho2[0].reshape(dim, dim))
+            return sample_shots(exact, n_qubits, type, obs, shots, generator)
+        return measure_density_ri(rho2, n_qubits, type, obs)
+
     psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice)
+    if sampled:
+        exact = psi2[0] ** 2 + psi2[1] ** 2
+        return sample_shots(exact, n_qubits, type, obs, shots, generator)
     return measure_state_ri(psi2, n_qubits, type, obs)
 
 
@@ -857,3 +1222,94 @@ def measure_state_ri(
         return measure_state(kernels.from_ri(psi2), n_qubits, type, obs)
     raise ValueError(f"Unknown measurement type: {type!r}")
 
+
+
+def measure_density(
+    rho: torch.Tensor, n_qubits: int, type: str, obs: List[Operation]
+) -> torch.Tensor:
+    """Measure a complex density matrix: ``density`` / ``probs`` / ``expval``."""
+    if type == "density":
+        return rho
+    if type == "probs":
+        return torch.diagonal(rho).real
+    if type == "expval":
+        diags = [_diagonal_real(ob) for ob in obs]
+        if obs and all(d is not None for d in diags):
+            return _expval_from_probs(torch.diagonal(rho).real, n_qubits, obs, diags)
+        obs_mats = torch.stack(
+            [ob.lifted_matrix(n_qubits).to(device=rho.device, dtype=rho.dtype) for ob in obs]
+        )
+        return torch.einsum("oij,ji->o", obs_mats, rho).real
+    raise ValueError(
+        "Measurement type 'state' is not defined for mixed (noisy) circuits. "
+        "Use 'density' instead."
+    )
+
+
+def measure_density_ri(
+    rho2: torch.Tensor, n_qubits: int, type: str, obs: List[Operation]
+) -> torch.Tensor:
+    """Measure a real-split ket-then-bra density pair; complex only at the
+    boundary."""
+    dim = 2**n_qubits
+    if type == "density":
+        return kernels.from_ri(rho2).reshape(dim, dim)
+    probs = torch.diagonal(rho2[0].reshape(dim, dim))
+    if type == "probs":
+        return probs
+    if type == "expval":
+        diags = [_diagonal_real(ob) for ob in obs]
+        if obs and all(d is not None for d in diags):
+            return _expval_from_probs(probs, n_qubits, obs, diags)
+        return measure_density(kernels.from_ri(rho2).reshape(dim, dim), n_qubits, type, obs)
+    raise ValueError(
+        "Measurement type 'state' is not defined for mixed (noisy) circuits. "
+        "Use 'density' instead."
+    )
+
+
+# ---------------------------------------------------------------------------
+# Shots
+# ---------------------------------------------------------------------------
+
+
+def sample_shots(
+    probs: torch.Tensor,
+    n_qubits: int,
+    type: str,
+    obs: List[Operation],
+    shots: int,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Finite-shot estimate from an exact probability vector.
+
+    ``torch.multinomial`` with replacement draws the *shots* outcomes by
+    inverse transform over the running sum of *probs*: one pass over the
+    ``2**n`` probabilities and a search per shot (a Gumbel-max draw, the
+    JAX package's, would make ``shots x 2**n`` uniforms).  The draw runs on
+    *generator*, on the probabilities' device; a generator on another device
+    (or ``None``: seed 0) seeds one there.  Rounding leaves float32
+    probabilities a hair below zero at times; they are clipped.  The
+    estimate carries no gradient."""
+    dim = 2**n_qubits
+    p = probs.detach().reshape(-1).clamp_min(0)
+    if generator is None:
+        generator = torch.Generator(device=p.device).manual_seed(0)
+    elif generator.device != p.device:
+        generator = safe_random_split(generator, 1, device=p.device)[0]
+    samples = torch.multinomial(p, shots, replacement=True, generator=generator)
+    estimated = torch.bincount(samples, minlength=dim).to(probs.dtype) / shots
+
+    if type == "probs":
+        return estimated
+    if type == "expval":
+        diags = [_diagonal_real(ob) for ob in obs]
+        if obs and all(d is not None for d in diags):
+            return _expval_from_probs(estimated, n_qubits, obs, diags)
+        return torch.stack([
+            torch.diagonal(ob.lifted_matrix(n_qubits)).real.to(estimated) @ estimated
+            for ob in obs
+        ])
+    raise ValueError(
+        f"Shot simulation is only supported for 'probs' and 'expval', got {type!r}."
+    )

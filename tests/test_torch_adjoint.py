@@ -63,6 +63,7 @@ from qml_essentials_tpu.ops import operations as jop
 from qml_essentials_tpu.ops import pallas_kernels
 from qml_essentials_tpu.ops import simulation as jsim
 from qml_essentials_tpu.ops.tape import recording as jrecording
+from qml_essentials_tpu.pulse.pulses import PulseInformation
 from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.models.model import Model
 from qml_essentials_tpu_torch.ops import adjoint, cuda_kernels, kernels, saved
@@ -272,7 +273,9 @@ def _port_grad(params, dtype=torch.float32, inputs=X0):
 @pytest.fixture(scope="module")
 def results():
     """Gradients of the same model under every configuration, computed once."""
+    pulse_state = PulseInformation.snapshot_state()
     jm = JaxModel(n_qubits=N, n_layers=2, circuit_type="Circuit_19", random_seed=13)
+    PulseInformation.restore_state(pulse_state)  # JaxModel() sets the global pulse envelope
     params = np.asarray(jm.params)
     out = {"params": params}
     steps, rotations = [], []

@@ -34,6 +34,7 @@ from qml_essentials_tpu.ops import operations as jops
 from qml_essentials_tpu.ops import pallas_kernels
 from qml_essentials_tpu.ops import simulation as jsim
 from qml_essentials_tpu.ops.tape import recording as jax_recording
+from qml_essentials_tpu.pulse.pulses import PulseInformation
 from qml_essentials_tpu_torch.models.model import Model
 from qml_essentials_tpu_torch.ops import adjoint, chains, cuda_kernels, kernels, saved
 from qml_essentials_tpu_torch.ops import operations as tops
@@ -153,8 +154,8 @@ def test_seam_decomposition_matches_jax(name, args):
 @pytest.mark.unittest
 def test_plan_chains_refuses_what_it_cannot_express():
     """A wrap gate with no conjugator form (SWAP, a three-wire CCX) gives
-    ``None`` in both packages, as a noise channel does in the JAX package
-    (the port's statevector tapes carry no channels)."""
+    ``None`` in both packages, as a noise channel does (for the port:
+    tests/test_torch_density.py)."""
     for make in (lambda ops: ops.SWAP(wires=[N - 1, 0]),
                  lambda ops: ops.CCX(wires=[N - 1, 0, 1])):
         with recording() as tt:
@@ -269,7 +270,9 @@ def chain_slice():
     ``"auto"`` gradient, each with the wrappers it called."""
     out = {}
     with pytest.MonkeyPatch.context() as mp:
+        pulse_state = PulseInformation.snapshot_state()
         jm, tm = _models(N)
+        PulseInformation.restore_state(pulse_state)  # JaxModel() sets the global pulse envelope
 
         def loss(p):
             z = jm(p, inputs=np.array([X]))

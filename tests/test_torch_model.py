@@ -19,6 +19,7 @@ from qml_essentials_tpu.models.ansaetze import Ansaetze as JaxAnsaetze
 from qml_essentials_tpu.models.model import Model as JaxModel
 from qml_essentials_tpu.ops import pallas_kernels
 from qml_essentials_tpu.ops import simulation as jsim
+from qml_essentials_tpu.pulse.pulses import PulseInformation
 from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.core.executor import Script
 from qml_essentials_tpu_torch.models.model import Model
@@ -50,7 +51,10 @@ def _assert_close(got, ref):
 
 @pytest.fixture(scope="module")
 def pair6():
-    return _pair(6)
+    pulse_state = PulseInformation.snapshot_state()
+    pair = _pair(6)
+    PulseInformation.restore_state(pulse_state)  # JaxModel() sets the global pulse envelope
+    return pair
 
 
 @pytest.mark.unittest
@@ -123,16 +127,27 @@ def test_float64_mode_is_explicit(pair6):
 @pytest.mark.unittest
 @pytest.mark.parametrize("what", ["noise", "shots", "density", "pulse"])
 def test_later_slices_raise(what):
+    """Pulses are not ported and raise ``NotImplementedError``; noise, shots
+    and density came with the density slice and now answer
+    (tests/test_torch_density.py and tests/test_torch_shots.py hold them to
+    the JAX package)."""
     tm = Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", device="cpu")
-    with pytest.raises(NotImplementedError):
-        if what == "noise":
-            tm(inputs=0.1, noise_params={"BitFlip": 0.1})
-        elif what == "shots":
-            Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", shots=100, device="cpu")
-        elif what == "density":
-            tm(inputs=0.1, execution_type="density")
-        else:
+    if what == "pulse":
+        with pytest.raises(NotImplementedError):
             tm(inputs=0.1, gate_mode="pulse")
+        return
+    if what == "noise":
+        out = tm(inputs=0.1, noise_params={"BitFlip": 0.1})
+        assert out.shape == (3,) and bool((out.abs() <= 1).all())
+    elif what == "shots":
+        ts = Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", shots=100, device="cpu")
+        out = ts(inputs=0.1)
+        assert out.shape == (3,) and bool((out.abs() <= 1).all())
+    else:
+        rho = tm(inputs=0.1, execution_type="density").detach()
+        assert rho.shape == (8, 8)
+        assert abs(torch.trace(rho).real.item() - 1) <= 1e-5
+        assert (rho - rho.conj().T).abs().max() <= 1e-6
 
 
 # Every ansatz of the registry uses only gates the port has (RX/RY/RZ, Rot,

@@ -24,6 +24,7 @@ from qml_essentials_tpu.models.model import Model as JaxModel
 from qml_essentials_tpu.ops import pallas_kernels
 from qml_essentials_tpu.ops import simulation as jsim
 from qml_essentials_tpu.ops.tape import recording as jax_recording
+from qml_essentials_tpu.pulse.pulses import PulseInformation
 from qml_essentials_tpu_torch.models.model import Model
 from qml_essentials_tpu_torch.ops import kernels
 from qml_essentials_tpu_torch.ops import simulation as tsim
@@ -208,7 +209,9 @@ def fused_slice():
         mp.setattr(pallas_kernels, "PRECISION_MODE", "highest")
         mp.setattr(jsim, "BACKWARD_MODE", "adjoint")
         mp.setattr(jax_saved, "LAMBDA_MODE", "f32")
+        pulse_state = PulseInformation.snapshot_state()
         jm, tm = _models(SLICE_N)
+        PulseInformation.restore_state(pulse_state)  # JaxModel() sets the global pulse envelope
         z, vjp = jax.vjp(lambda p: jm(p, inputs=SLICE_X), jm.params)
         (g,) = vjp(jnp.full(z.shape, 1.0 / z.size, z.dtype))
         out["jax"] = (np.asarray(z, np.float64), np.asarray(g, np.float64))

@@ -49,6 +49,7 @@ import torch
 from qml_essentials_tpu.core import executor as jax_executor
 from qml_essentials_tpu.models.model import Model as JaxModel
 from qml_essentials_tpu.ops import pallas_kernels
+from qml_essentials_tpu.pulse.pulses import PulseInformation
 from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.models.model import Model
 from qml_essentials_tpu_torch.ops import adjoint, kernels, saved
@@ -268,7 +269,9 @@ def _port_grad(params, dtype=torch.float32, inputs=X0):
 @pytest.fixture(scope="module")
 def results():
     """Gradients of the same model under every configuration, computed once."""
+    pulse_state = PulseInformation.snapshot_state()
     jm = JaxModel(n_qubits=N, n_layers=2, circuit_type="Circuit_19", random_seed=11)
+    PulseInformation.restore_state(pulse_state)  # JaxModel() sets the global pulse envelope
     params = np.asarray(jm.params)
     out = {"params": params}
     hits = []
