@@ -9,10 +9,11 @@ computing the gradient of the mean <Z> with respect to ``params`` at 22 and
 24 qubits through the saved-residual executor, and through the adjoint-state
 executor at 22, 24 and 26 qubits, all on the reference's default plan
 (``FUSE_LAYOUT_ROT`` on: fused rotation steps), the same 22 and 24 qubit
-models through the chain route (``USE_CHAINS`` on), and the reference
+models through the chain route (``USE_CHAINS`` on), the reference
 bench's 13-qubit noisy Circuit_19 (``{"Depolarizing": 0.01}``) as a density
-matrix on the 26-wire interleaved doubled register — and checks it phase by
-phase:
+matrix on the 26-wire interleaved doubled register, and the analysis stack
+(the Fourier spectra of both, FourierTree, entanglement, expressibility and
+QFI on small registers) — and checks it phase by phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
@@ -147,6 +148,29 @@ phase:
    memory beside the residual estimate; ``shots=10000`` within 5 standard
    errors of the exact <Z>, the same seed giving the same estimate, and
    ``density`` with shots raising ``ValueError``;
+5f. the analysis slice: ``Coefficients.get_spectrum`` of the 24q model
+   (97 grid inputs in one model call) launches exactly the forward plan's
+   kernels per grid input and nothing else; the grid's outputs within 1e-5
+   (its coefficients within 1e-5 max|c|) of the same grid through the plain
+   versions in float64 on the card; the spectrum's imaginary leak within the float32
+   budget (the reference's own check, which raises); the Fourier series at
+   three off-grid inputs within 1e-4 of the card's forward; the same for
+   the 13q noisy density model (53 grid inputs on 26 wires, without the
+   float64 grid).  Then the small registers, whose every window, top-window
+   and backward shape phase 3 has held in float64 first (read off the same
+   analyses run on the CPU, plus n = 1 and 2 whole-register windows), with
+   no plain version called on the card: the 1q RX spectrum (1/2 at +-1);
+   FourierTree of 2q and 4q Circuit_19 against the card's FFT spectrum
+   (1e-4), the native leaf enumerator loaded; Meyer-Wallach of 4q
+   Circuit_1 and Circuit_9 (200 samples) within 2e-2 of 0 and 1 and Bell
+   measurements within 1e-5 of it on the stored sets; the 2q GHZ's
+   concentratable entanglement within 1e-5 of the CPU float64 one; the KL
+   divergence of 4q Circuit_9 on [0, 4 pi] (5000 samples, 75 bins) within
+   40 % of Sim et al.'s 0.6773; the 4q Circuit_19 QFI (reverse-mode
+   Jacobian through the backward kernels) within 1e-4 max|F| of the CPU
+   float64 one.  Times: each spectrum and its ms a grid input beside a
+   single forward request, the Meyer-Wallach, Bell, KL, FourierTree and
+   QFI runs, and a 4q batch element's ms (record, plan, run);
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
@@ -158,7 +182,8 @@ phase:
    chain plan's device time; the 13q density forward and saved fwd+grad
    (best of 3, median of 10, peak memory), where their time goes, their
    plan's device time and its kernels' device time per forward and per
-   gradient; and each kernel's time on one request's shapes
+   gradient beside their library yardsticks and bounds; and each kernel's
+   time on one request's shapes
    beside its plain version's, its library yardstick's (the cuBLAS complex64
    products of the same shapes through ``torch.matmul``, a transpose copy,
    or for the chain kernels the products of the step's windows and its
@@ -242,6 +267,16 @@ TOL_DENSITY = 1e-5  # <Z> / probabilities: card fp32 vs fp64 plain versions, oth
 TOL_HERMITIAN = 1e-6  # max|rho - rho^dag| of a density answer
 SHOTS = 10000
 SHOT_SIGMAS = 5  # a shot estimate lies within 5 standard errors of the exact value
+# The analysis slice (phase 5f).
+TOL_SPECTRUM = 1e-5  # 24q grid outputs, and coefficients times max|c|: card fp32 vs fp64 plain
+TOL_SERIES = 1e-4  # Fourier series off the grid vs the card's forward (fp32 phases up to 48 rad)
+TOL_TREE = 1e-4  # FourierTree coefficients vs the card's FFT spectrum
+MW_SAMPLES, MW_SEED, MW_TOL = 200, 1000, 2e-2  # tests/test_golden.py:264-282
+TOL_BELL = 1e-5  # Bell measurements vs Meyer-Wallach on the same stored sets (fp32)
+TOL_CE = 1e-5  # 2q GHZ concentratable entanglement: card fp32 vs CPU fp64
+KL_SAMPLES, KL_BINS, KL_GOLDEN, KL_REL = 5000, 75, 0.6773, 0.40  # tests/test_golden.py:315-347
+TOL_QFI = 1e-4  # 4q QFI: card fp32 vs CPU fp64, relative to max|F|
+OFF_GRID = (0.123, 1.7, 4.4)
 
 KERNELS = {
     "window_apply": dict(
@@ -980,7 +1015,7 @@ def density_parity_cases(dshapes: list) -> dict:
                      | {("rotwin", n2, r, k) for sh in dshapes for r, k in sh["rotwin_apply"]}))
 
 
-def phase_parity(shapes: dict, dshapes: list) -> dict:
+def phase_parity(shapes: dict, dshapes: list, ashapes: dict) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -1076,6 +1111,21 @@ def phase_parity(shapes: dict, dshapes: list) -> dict:
                     *check_fused(ck, kn, dcases["fused"], gen, rng, adjoint=False).items()):
         errs[name] = max(errs.get(name, 0.0), e)
     check_rotations(ck, kn, dcases["rotations"], gen, torch.bfloat16)
+    # Phase 5f's small registers: every shape its analyses run (1-4 qubits,
+    # 6 and 8 wires), whole-register windows included, and n = 1 and 2
+    # whatever they run; QFI's backward at its forward's windows.
+    log("  the analysis slice's small registers (phase 5f), from its runs on the CPU:")
+    log(f"    {ashapes}")
+    tops = sorted(set(ashapes["tops"]) | {(1, 0, 1), (2, 1, 1), (2, 0, 2)})
+    windows = sorted(set(ashapes["windows"]) | {(2, 0, 1)})
+    for name, e in (("window_apply", check_windows(ck, kn, windows, False, gen, rng)),
+                    ("window_apply_top", check_windows(ck, kn, tops, True, gen, rng)),
+                    ("rotate", check_rotations(ck, kn, ashapes["rotations"], gen)),
+                    ("window_apply_bwd", check_bwd(ck, kn, ashapes["bwd_windows"], False, gen,
+                                                   rng)),
+                    ("window_apply_top_bwd", check_bwd(ck, kn, ashapes["bwd_tops"], True, gen,
+                                                       rng))):
+        errs[name] = max(errs.get(name, 0.0), e)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
@@ -1875,6 +1925,372 @@ def phase_density(dshapes: dict) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5f: the analysis slice
+# ---------------------------------------------------------------------------
+
+
+def analysis_models(device=None, dtype=torch.float32) -> dict:
+    """The small-register models of phase 5f, on the card unless *device*
+    says otherwise: Circuit_19 at 1, 2 and 4 qubits (spectra, FourierTree,
+    QFI), the Sim et al. 4q Circuit_1 / Circuit_9 (Meyer-Wallach, Bell,
+    expressibility on [0, 4 pi]) and the 2q GHZ (concentratable
+    entanglement)."""
+    from qml_essentials_tpu_torch.models.model import Model
+
+    kw = dict(device=device or DEVICE, dtype=dtype)
+    nodru = dict(data_reupload=False, **kw)
+    return {
+        "1q": Model(n_qubits=1, n_layers=1, circuit_type="No_Ansatz", **nodru),
+        "2q": Model(n_qubits=2, n_layers=1, circuit_type="Circuit_19", random_seed=SEED, **kw),
+        "4q": Model(n_qubits=4, n_layers=1, circuit_type="Circuit_19", random_seed=SEED, **kw),
+        "mw1": Model(n_qubits=4, n_layers=1, circuit_type="Circuit_1", **nodru),
+        "mw9": Model(n_qubits=4, n_layers=1, circuit_type="Circuit_9", **nodru),
+        "kl9": Model(n_qubits=4, n_layers=1, circuit_type="Circuit_9",
+                     initialization_domain=[0, 4 * np.pi], **nodru),
+        "ghz": Model(n_qubits=2, n_layers=1, circuit_type="GHZ", **nodru),
+    }
+
+
+def _run_small_analyses(models: dict, samples: int, kl_samples: int) -> dict:
+    """Every analysis phase 5f runs on small registers, at the given sample
+    counts; returns their results."""
+    from qml_essentials_tpu_torch.analysis.coefficients import Coefficients, FourierTree
+    from qml_essentials_tpu_torch.analysis.entanglement import Entanglement
+    from qml_essentials_tpu_torch.analysis.expressibility import Expressibility
+    from qml_essentials_tpu_torch.analysis.math import quantum_fisher_information
+
+    gen = torch.Generator().manual_seed
+    out, seconds = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        if models["4q"].device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return result
+
+    with torch.no_grad():
+        out["1q"] = Coefficients.get_spectrum(models["1q"], shift=True)
+        for key in ("2q", "4q"):
+            out[f"fft{key}"] = Coefficients.get_spectrum(models[key], shift=True)
+            out[f"tree{key}"] = timed("FourierTree", lambda: FourierTree(models[key])
+                                      .get_spectrum(force_mean=True))
+        for key in ("mw1", "mw9"):
+            m = models[key]
+            out[key] = timed("Meyer-Wallach", lambda: float(Entanglement.meyer_wallach(
+                m, n_samples=samples, random_key=gen(MW_SEED))))
+            out[f"{key} stored"] = float(Entanglement.meyer_wallach(m, n_samples=-1))
+            out[f"bell {key}"] = timed("Bell", lambda: Entanglement.bell_measurements(
+                m, n_samples=-1))
+        out["ce"] = Entanglement.concentratable_entanglement(models["ghz"], n_samples=-1)
+        out["kl"] = timed("KL", lambda: float(Expressibility.kl_divergence_to_haar(
+            models["kl9"], n_samples=kl_samples, n_bins=KL_BINS, random_key=gen(MW_SEED))[0]))
+    m = models["4q"]
+    out["qfi"] = timed("QFI", lambda: quantum_fisher_information(
+        lambda p: m(params=p, inputs=REQUESTS[0], execution_type="state"), m.params[0].detach()))
+    out["seconds"] = seconds
+    return out
+
+
+class _ShapeSpy:
+    """Records the shapes the window, top-window and rotation wrappers are
+    called at, while it is entered (each call still runs)."""
+
+    NAMES = ("window_apply", "window_apply_top", "rotate")
+
+    def __enter__(self):
+        from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+        self.ck, self.saved = ck, {name: getattr(ck, name) for name in self.NAMES}
+        self.windows, self.tops, self.rotations = set(), set(), set()
+
+        def window(psi2, w2, a, k, n):
+            self.windows.add((n, a, k))
+            return self.saved["window_apply"](psi2, w2, a, k, n)
+
+        def top(psi2, w2, k, n):
+            self.tops.add((n, n - k, k))
+            return self.saved["window_apply_top"](psi2, w2, k, n)
+
+        def rot(psi2, r, n):
+            self.rotations.add((n, r))
+            return self.saved["rotate"](psi2, r, n)
+
+        ck.window_apply, ck.window_apply_top, ck.rotate = window, top, rot
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ck, name, fn)
+
+
+def analysis_shapes() -> dict:
+    """Every window, top-window and rotation shape of phase 5f's small
+    registers (1-4 qubits, and 8 and 6 wires for Bell and the SWAP test),
+    read off the same analyses run on the CPU with two samples; QFI's
+    backward runs the backward kernels at its forward's windows."""
+    models = analysis_models(device="cpu")
+    with _ShapeSpy() as spy:
+        _run_small_analyses(models, samples=2, kl_samples=2)
+    with _ShapeSpy() as qfi:
+        m = models["4q"]
+        with torch.no_grad():
+            m(inputs=REQUESTS[0], execution_type="state")
+    return dict(windows=sorted(spy.windows), tops=sorted(spy.tops),
+                rotations=sorted(spy.rotations), bwd_windows=sorted(qfi.windows),
+                bwd_tops=sorted(qfi.tops))
+
+
+class _PlainOnCardSpy:
+    """Counts calls of the kernels' plain versions on CUDA tensors (the
+    wrappers take them only for CPU tensors): phase 5f requires none."""
+
+    NAMES = ("window_apply_plain", "window_apply_top_plain", "rotate_plain",
+             "window_apply_bwd_plain", "window_apply_top_bwd_plain")
+
+    def __enter__(self):
+        from qml_essentials_tpu_torch.ops import kernels as kn
+
+        self.kn, self.saved, self.calls = kn, {n: getattr(kn, n) for n in self.NAMES}, 0
+
+        def wrap(fn):
+            def counted(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    self.calls += 1
+                return fn(*args, **kw)
+            return counted
+
+        for name, fn in self.saved.items():
+            setattr(kn, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.kn, name, fn)
+
+
+def _plain_grid_expvals(model, n: int, grid: np.ndarray) -> torch.Tensor:
+    """The mean <Z> of *model*'s parameters at each grid input, through the
+    kernels' plain versions in float64 on the card (a float64 CPU model
+    records each tape; planned on the card in complex128)."""
+    from qml_essentials_tpu_torch.ops import kernels as kn, simulation
+    from qml_essentials_tpu_torch.ops.tape import recording
+
+    ref = _cpu_f64_model(model, n)
+    obs = ref._build_obs()[1]
+    out = []
+    with torch.no_grad():
+        for x in grid:
+            with recording() as tape:
+                ref._variational(ref.params[0], torch.tensor([float(x)], dtype=torch.float64))
+            plan, psi2 = simulation.scheduled_plan(tape, n, torch.float64, DEVICE)
+            if psi2 is None:
+                psi2 = kn.zero_state_ri(n, torch.float64, DEVICE)
+            for kind, payload, wires in plan:
+                psi2 = plain_step(psi2, kind, payload, wires, n)
+            out.append(simulation.measure_state_ri(psi2, n, "expval", obs).mean())
+    return torch.stack(out)
+
+
+def _spectrum_on_card(model, what: str, plan_calls: dict, grid_ref=None) -> dict:
+    """``Coefficients.get_spectrum(model)`` with the launch counts reset
+    before and read after: exactly *plan_calls* a grid input and nothing
+    else; the leak (the reference's own check raised on a larger one) and
+    the reconstruction at three off-grid inputs against the card's forward
+    (TOL_SERIES).  With *grid_ref* (n), the grid's outputs and coefficients
+    are held to the plain versions in float64 on the card.  Returns times
+    and launches."""
+    from qml_essentials_tpu_torch.analysis.coefficients import Coefficients
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    n_grid = model.degree[0]
+    before = ck.launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        coeffs, freqs = Coefficients.get_spectrum(model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _diff(ck.launch_counts(), before)
+    _only(counts, {k: n_grid * v for k, v in plan_calls.items()},
+          f"{what} spectrum: {n_grid} grid inputs")
+    leak = float(coeffs.sum().imag)
+    _check(tuple(coeffs.shape) == (n_grid,) and bool(torch.isfinite(torch.view_as_real(coeffs)).all()),
+           f"{what} spectrum: shape {tuple(coeffs.shape)} or non-finite")
+    log(f"  {what} spectrum: {n_grid} grid inputs in {seconds:.2f} s "
+        f"({seconds / n_grid * 1e3:.2f} ms a grid input); imaginary leak {leak:.2e} "
+        f"(float32 budget 1e-4); max|c| {coeffs.abs().max().item():.4e}")
+    xs = np.array(OFF_GRID)
+    with torch.no_grad():
+        series = Coefficients.evaluate_Fourier_series(coeffs, freqs, xs)
+        direct = torch.stack([model(inputs=float(x)).mean() for x in xs])
+    d = _maxdiff(series, direct)
+    log(f"  {what} Fourier series at {OFF_GRID} vs the card's forward: max|delta|={d:.3e} "
+        f"(tol {TOL_SERIES})")
+    _check(d <= TOL_SERIES, f"{what}: the series misses the forward by {d:.3e}")
+    if grid_ref is not None:
+        grid = np.arange(0, 2 * np.pi, 2 * np.pi / n_grid)
+        t0 = time.perf_counter()
+        ref_out = _plain_grid_expvals(model, grid_ref, grid)
+        card_out = torch.fft.ifft(coeffs.cdouble() * n_grid).real
+        ref_c = torch.fft.fft(ref_out) / n_grid
+        d_out = _maxdiff(card_out, ref_out)
+        d_c = (coeffs.cdouble() - ref_c).abs().max().item()
+        scale = ref_c.abs().max().item()
+        log(f"  {what} grid vs the plain versions in float64 on the card "
+            f"({time.perf_counter() - t0:.1f} s): outputs max|delta|={d_out:.3e} (tol "
+            f"{TOL_SPECTRUM}), coefficients max|delta|={d_c:.3e} = {d_c / scale:.2e} max|c| "
+            f"(tol {TOL_SPECTRUM} max|c|)")
+        _check(d_out <= TOL_SPECTRUM and d_c <= TOL_SPECTRUM * scale,
+               f"{what} grid off the float64 plain versions: {d_out:.3e} / {d_c:.3e}")
+    return dict(seconds=seconds, launches=counts)
+
+
+def _element_breakdown(model, n: int, reps: int = 50) -> dict:
+    """Median ms of one element of a density batch split into record (the
+    tape, gate matrices on the card), plan (window composition) and run
+    (the kernels, the outer product and the readout)."""
+    from qml_essentials_tpu_torch.ops import kernels, simulation
+
+    inputs = torch.zeros((1, model.n_input_feat), device=DEVICE)
+    parts = {"record": [], "plan": [], "run": []}
+    with torch.no_grad():
+        for i in range(reps + 1):
+            t = [time.perf_counter()]
+            tape = model.script._record(model.params[i % model.params.shape[0]], inputs,
+                                        model.enc_params)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            plan, start = simulation.scheduled_plan(tape, n, device=DEVICE)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            psi2 = start if start is not None else kernels.zero_state_ri(n, device=DEVICE)
+            for kind, payload, wires in plan:
+                psi2 = simulation._apply_step_ri(psi2, kind, payload, wires, n)
+            simulation.measure_density_ri(simulation._outer_ri(psi2), n, "density", [])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            if i:  # the first element is the warm-up
+                for (name, acc), t0, t1 in zip(parts.items(), t, t[1:]):
+                    acc.append((t1 - t0) * 1e3)
+    return {name: float(np.median(v)) for name, v in parts.items()}
+
+
+def phase_analysis(models: dict, shapes: dict, dmodel, dshapes: dict, smi: str) -> dict:
+    """The analysis slice on the card: the 24q spectrum through the forward
+    kernels (held to float64 plain versions), the 13q density spectrum, and
+    the small-register analyses against their goldens and CPU float64
+    answers.  Returns the launches of its counted runs."""
+    from qml_essentials_tpu_torch import native
+    from qml_essentials_tpu_torch.analysis.entanglement import Entanglement
+    from qml_essentials_tpu_torch.analysis.math import quantum_fisher_information
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    n24 = WIDTHS[-1]
+    log(f"phase 5f: the analysis slice ({smi})")
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def plan_calls(shape):
+        return {name: len(shape[name]) for name in FWD_KERNELS if shape[name]}
+
+    ck.reset_launch_counts()
+    m24 = models[n24]
+    s24 = _spectrum_on_card(m24, f"{n24}q Circuit_19 L={N_LAYERS}", plan_calls(shapes[n24]),
+                            grid_ref=n24)
+    add(s24["launches"])
+    with torch.inference_mode():
+        req_ms, _, _ = _host_ms(lambda: m24(inputs=REQUESTS[0]))
+    log(f"  {n24}q: {s24['seconds'] / m24.degree[0] * 1e3:.2f} ms a grid input in the spectrum's "
+        f"batch beside {req_ms:.2f} ms for a single forward request (best of 3)")
+
+    dplan = plan_calls(dshapes["noisy"])
+    s13 = _spectrum_on_card(dmodel, f"{DENSITY_N}q noisy density", dplan)
+    add(s13["launches"])
+    with torch.inference_mode():
+        dreq_ms, _, _ = _host_ms(lambda: dmodel(inputs=REQUESTS[0]))
+    log(f"  {DENSITY_N}q density: {s13['seconds'] / dmodel.degree[0] * 1e3:.2f} ms a grid input "
+        f"beside {dreq_ms:.2f} ms for a single forward request (best of 3)")
+
+    # Small registers, every window on a kernel and no plain version on the card.
+    _check(native.native_available(), "the native FourierTree enumerator did not load")
+    log(f"  native FourierTree enumerator loaded: {native.library_path().relative_to(ROOT)}")
+    small = analysis_models()
+    before = ck.launch_counts()
+    t0 = time.perf_counter()
+    with _PlainOnCardSpy() as plain:
+        res = _run_small_analyses(small, MW_SAMPLES, KL_SAMPLES)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _diff(ck.launch_counts(), before)
+    add(counts)
+    log(f"  small registers: {seconds:.1f} s, launched {dict((k, v) for k, v in counts.items() if v)}; "
+        f"plain versions on the card: {plain.calls}")
+    _check(plain.calls == 0, f"{plain.calls} plain-version calls on the card in phase 5f")
+    # Below 14 qubits a ring-wrap gate moves its wires to the front (no
+    # rotation kernel), so the small registers run no rotate.
+    for name in ("window_apply", "window_apply_top", "window_apply_bwd", "window_apply_top_bwd"):
+        _check(counts[name] > 0, f"phase 5f small registers never launched {name}")
+    for name in (*ADJOINT_KERNELS, *CHAIN_KERNELS):
+        _check(counts[name] == 0, f"{name} launched on the small registers: {counts}")
+
+    c1, f1 = res["1q"]
+    one = dict(zip(np.asarray(f1).tolist(), c1.cpu().tolist()))
+    log(f"  1q RX(x) spectrum: c(+1) = {one[1.0]:.6f}, c(0) = {abs(one[0.0]):.2e} (want 1/2, 0)")
+    _check(abs(one[1.0] - 0.5) <= TOL_TREE and abs(one[0.0]) <= TOL_TREE, "1q spectrum off")
+    for key in ("2q", "4q"):
+        fc, ff = res[f"fft{key}"]
+        fft = dict(zip(np.asarray(ff).tolist(), fc.cpu().tolist()))
+        tc, tf = res[f"tree{key}"]
+        d = max(abs(c - fft[f]) for f, c in zip(np.asarray(tf[0]).tolist(), tc[0].cpu().tolist()))
+        log(f"  {key} Circuit_19 FourierTree ({len(tf[0])} frequencies) vs the card's FFT "
+            f"spectrum: max|delta|={d:.3e} (tol {TOL_TREE})")
+        _check(d <= TOL_TREE, f"{key} FourierTree off the FFT spectrum by {d:.3e}")
+    for key, want in (("mw1", 0.0), ("mw9", 1.0)):
+        log(f"  Meyer-Wallach {key} ({MW_SAMPLES} samples): {res[key]:.4f} (want {want} +- "
+            f"{MW_TOL}); Bell measurements on the stored sets {res[f'bell {key}']:.6f} vs "
+            f"Meyer-Wallach {res[f'{key} stored']:.6f}")
+        _check(abs(res[key] - want) < MW_TOL, f"Meyer-Wallach {key} {res[key]} vs {want}")
+        _check(abs(res[f"bell {key}"] - res[f"{key} stored"]) <= TOL_BELL,
+               f"Bell {key} {res[f'bell {key}']} vs MW {res[f'{key} stored']}")
+    cpu = analysis_models(device="cpu", dtype=torch.float64)
+    ce64 = Entanglement.concentratable_entanglement(cpu["ghz"], n_samples=-1)
+    log(f"  concentratable entanglement, 2q GHZ: {res['ce']:.7f} vs CPU float64 {ce64:.7f}")
+    _check(abs(res["ce"] - ce64) <= TOL_CE, f"CE {res['ce']} vs {ce64}")
+    rel = abs(res["kl"] - KL_GOLDEN) / KL_GOLDEN
+    log(f"  expressibility 4q Circuit_9, [0, 4 pi], {KL_SAMPLES} samples, {KL_BINS} bins: KL "
+        f"{res['kl']:.4f} vs Sim et al. {KL_GOLDEN} ({rel:.1%} off, tol {KL_REL:.0%})")
+    _check(rel < KL_REL, f"KL {res['kl']} off Sim et al.'s {KL_GOLDEN} by {rel:.1%}")
+    m64 = cpu["4q"]
+    m64.load_numpy(small["4q"].params.detach().cpu().numpy())
+    q64 = quantum_fisher_information(
+        lambda p: m64(params=p, inputs=REQUESTS[0], execution_type="state"), m64.params[0])
+    d = _maxdiff(res["qfi"], q64)
+    scale = q64.abs().max().item()
+    log(f"  QFI 4q Circuit_19 ({tuple(q64.shape)}): card vs CPU float64 max|delta|={d:.3e} = "
+        f"{d / scale:.2e} max|F| (tol {TOL_QFI})")
+    _check(d <= TOL_QFI * scale, f"QFI off the CPU float64 one by {d:.3e}")
+
+    # What one element of a 4q batch costs, for the batching slice.
+    sec = res["seconds"]
+    log("  times: " + ", ".join(f"{k} {v:.2f} s" for k, v in sec.items())
+        + f" ({MW_SAMPLES} + {MW_SAMPLES} Meyer-Wallach elements, 2 x {MW_SAMPLES} Bell "
+        f"elements on 8 wires, {2 * KL_SAMPLES} KL elements)")
+    br = _element_breakdown(small["kl9"], 4)
+    log(f"  4q density batch (Circuit_9): {sec['KL'] / (2 * KL_SAMPLES) * 1e3:.3f} ms an element "
+        f"over the KL run's {2 * KL_SAMPLES}; one element's parts (median of 50): record "
+        f"{br['record']:.3f} ms, plan {br['plan']:.3f} ms, run + outer product + readout "
+        f"{br['run']:.3f} ms")
+    log(f"  launches over the analysis phase: {dict((k, v) for k, v in launches.items() if v)}")
+    log(f"  phase 5f took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -2212,8 +2628,9 @@ def _density_times(model, smi: str) -> None:
 def _density_kernel_times() -> None:
     """Device time of each kernel call of one 13q density forward and one
     saved gradient (bf16 lambda) at the plan's shapes, summed per kernel
-    beside its bound as phase 6 takes it (CUDA events, best of 3 means of
-    10, random unitary windows)."""
+    beside its library yardstick (phase 6's: cuBLAS complex64 products of
+    the same shapes, a transpose copy for a rotation) and its bound as phase
+    6 takes it (CUDA events, best of 3 means of 10, random unitary windows)."""
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck
 
     n2 = 2 * DENSITY_N
@@ -2223,10 +2640,11 @@ def _density_kernel_times() -> None:
     x, g = _state(n2, gen), _state(n2, gen)
     rows = {}
 
-    def add(name, fn, work, tc=None):
+    def add(name, fn, lib, work, tc=None):
         flop_ms = work[0] / PEAK_FP32 if tc is None else tc[0] / PEAK_TF32 + tc[1] / PEAK_FP32
-        ms, bound = rows.get(name, (0.0, 0.0))
-        rows[name] = (ms + _events_ms(fn), bound + max(flop_ms, work[1] / PEAK_HBM) * 1e3)
+        ms, lib_ms, bound = rows.get(name, (0.0, 0.0, 0.0))
+        rows[name] = (ms + _events_ms(fn), lib_ms + _events_ms(lib),
+                      bound + max(flop_ms, work[1] / PEAK_HBM) * 1e3)
 
     def window_k(kind, shape):
         if kind in ("win", "top"):
@@ -2236,38 +2654,57 @@ def _density_kernel_times() -> None:
     with torch.inference_mode():
         for kind, shape in steps:
             if kind == "rot":
-                add("rotate", lambda: ck.rotate(x, shape, n2), work_rotate(n2, 4))
+                add("rotate", lambda: ck.rotate(x, shape, n2), lib_rotate(x, shape, n2),
+                    work_rotate(n2, 4))
                 continue
             a, k = window_k(kind, shape)
             w, K = _unitary(k, rng), 2**k
-            fn = {"win": lambda: ck.window_apply(x, w, a, k, n2),
-                  "top": lambda: ck.window_apply_top(x, w, k, n2),
-                  "rotwin": lambda: ck.rotwin_apply(x, w, shape[0], k, n2)}.get(
-                kind, lambda: getattr(ck, f"{kind}_apply")(x, w, shape, n2))
+            fn, lib = {
+                "win": (lambda: ck.window_apply(x, w, a, k, n2), lambda: lib_window(x, w, a, k, n2)),
+                "top": (lambda: ck.window_apply_top(x, w, k, n2),
+                        lambda: lib_window_top(x, w, k, n2)),
+                "rotwin": (lambda: ck.rotwin_apply(x, w, shape[0], k, n2),
+                           lambda: lib_rotwin(ck, x, w, shape[0], k, n2)),
+                "rotmat": (lambda: ck.rotmat_apply(x, w, shape, n2),
+                           lambda: lib_rotmat(x, w, shape, n2)),
+                "matrot": (lambda: ck.matrot_apply(x, w, shape, n2),
+                           lambda: lib_matrot(x, w, shape, n2)),
+            }[kind]
             name = {"win": "window_apply", "top": "window_apply_top"}.get(kind, f"{kind}_apply")
-            add(name, fn, work_fwd(K, n2), work_fwd_tc(K, n2))
+            add(name, fn, lib(), work_fwd(K, n2), work_fwd_tc(K, n2))
         fwd = dict(rows)
         rows.clear()
         for kind, shape, g_dt, out_dt in backward_calls(steps):
             gg, eg, eo = g.to(g_dt), _esize(g_dt), _esize(out_dt)
             if kind == "rot":
                 r = (n2 - shape) % n2
-                add("rotate", lambda: ck.rotate(gg, r, n2), work_rotate(n2, eg))
+                add("rotate", lambda: ck.rotate(gg, r, n2), lib_rotate(gg, r, n2),
+                    work_rotate(n2, eg))
                 continue
             a, k = window_k(kind, shape)
             w, K = _unitary(k, rng), 2**k
-            fn = {"win": lambda: ck.window_apply_bwd(w, gg, x, a, k, n2, out_dt),
-                  "top": lambda: ck.window_apply_top_bwd(w, gg, x, k, n2, out_dt),
-                  "rotwin": lambda: ck.rotwin_apply_bwd(w, gg, x, shape[0], k, n2, out_dt)}.get(
-                kind, lambda: getattr(ck, f"{kind}_apply_bwd")(w, gg, x, shape, n2, out_dt))
+            fn, lib = {
+                "win": (lambda: ck.window_apply_bwd(w, gg, x, a, k, n2, out_dt),
+                        lambda: lib_window_bwd(w, gg, x, a, k, n2)),
+                "top": (lambda: ck.window_apply_top_bwd(w, gg, x, k, n2, out_dt),
+                        lambda: lib_window_top_bwd(w, gg, x, k, n2)),
+                "rotwin": (lambda: ck.rotwin_apply_bwd(w, gg, x, shape[0], k, n2, out_dt),
+                           lambda: lib_rotwin_bwd(ck, w, gg, x, shape[0], k, n2)),
+                "rotmat": (lambda: ck.rotmat_apply_bwd(w, gg, x, shape, n2, out_dt),
+                           lambda: lib_rotmat_bwd(w, gg, x, shape, n2)),
+                "matrot": (lambda: ck.matrot_apply_bwd(w, gg, x, shape, n2, out_dt),
+                           lambda: lib_matrot_bwd(w, gg, x, shape, n2)),
+            }[kind]
             name = {"win": "window_apply_bwd", "top": "window_apply_top_bwd"}.get(
                 kind, f"{kind}_apply_bwd")
-            add(name, fn, work_bwd(K, n2, eg, eo), work_bwd_tc(K, n2, eg))
+            add(name, fn, lib(), work_bwd(K, n2, eg, eo), work_bwd_tc(K, n2, eg))
         bwd = dict(rows)
 
     def fmt(d):
-        return ", ".join(f"{k} {ms:.3f} ms (bound {b:.3f})" for k, (ms, b) in d.items()) + \
-            f"; sum {sum(v[0] for v in d.values()):.3f} ms (bound {sum(v[1] for v in d.values()):.3f})"
+        return (", ".join(f"{k} {ms:.3f} ms (library {lib:.3f}, bound {b:.3f})"
+                          for k, (ms, lib, b) in d.items())
+                + f"; sum {sum(v[0] for v in d.values()):.3f} ms (library "
+                f"{sum(v[1] for v in d.values()):.3f}, bound {sum(v[2] for v in d.values()):.3f})")
 
     log(f"    {DENSITY_N}q density kernels per forward: {fmt(fwd)}")
     log(f"    {DENSITY_N}q density kernels per saved gradient's backward (bf16 lambda): {fmt(bwd)}")
@@ -2777,11 +3214,15 @@ def main() -> int:
             f"({len(sh['steps'])} steps); saved residuals {payload * 8 * 2**n2 / 1e9:.2f} GB "
             f"({payload} payload steps)")
     log(f"  (density plans on the card in {time.perf_counter() - t0:.1f} s)")
-    errs = phase_parity(shapes, list(dshapes.values()))
+    t0 = time.perf_counter()
+    ashapes = analysis_shapes()
+    log(f"  phase 5f's small-register shapes, from its analyses on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): {ashapes}")
+    errs = phase_parity(shapes, list(dshapes.values()), ashapes)
     # The main path: serving (phase 4), saved-residual training (5),
-    # adjoint training (5b), the chain route (5d) and the noisy density
-    # model (5e), each with the counts reset just before it and read just
-    # after; every kernel must launch over the five.
+    # adjoint training (5b), the chain route (5d), the noisy density
+    # model (5e) and the analysis slice (5f), each with the counts reset
+    # just before it and read just after; every kernel must launch over the six.
     models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
@@ -2789,8 +3230,9 @@ def main() -> int:
     chain_launches, chain_errs, plans = phase_chains(models, shapes, refs, g64)
     errs.update(chain_errs)
     dmodel, density_launches = phase_density(dshapes)
+    analysis_launches = phase_analysis(models, shapes, dmodel, dshapes, smi)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
-                + density_launches[k] for k in KERNELS}
+                + density_launches[k] + analysis_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -382,6 +382,32 @@ class Model(nn.Module):
             s for s, on in zip(self.batch_shape, self.repeat_batch_axis) if on and s
         )
 
+    def exact_spectrum(self, method: str = "tree") -> Tuple[np.ndarray, ...]:
+        """Exact per-feature Fourier support via the analytic FourierTree.
+
+        Unlike :attr:`frequencies` (an encoding-count estimate that can
+        overestimate), this derives the support symbolically; see
+        :meth:`~qml_essentials_tpu_torch.analysis.coefficients.FourierTree.get_exact_support`.
+        """
+        from qml_essentials_tpu_torch.analysis.coefficients import FourierTree
+
+        tree = FourierTree(self)
+        where = {feat: pos for pos, feat in enumerate(tree.features)}
+
+        seen: set = set()
+        for freqs in tree.get_exact_support(method=method):
+            arr = np.atleast_2d(np.asarray(freqs))
+            for row in arr:
+                seen.add(tuple(int(v) for v in np.atleast_1d(row)))
+
+        out = []
+        for feat in range(self.n_input_feat):
+            if seen and feat in where:
+                out.append(np.array(sorted({t[where[feat]] for t in seen}), dtype=int))
+            else:
+                out.append(np.array([0], dtype=int))
+        return tuple(out)
+
     # ============================================================ param init
     _INIT_STRATEGIES = ("random", "zeros", "pi", "zero-controlled", "pi-controlled")
 

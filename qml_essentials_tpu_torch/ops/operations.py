@@ -19,9 +19,14 @@ real-split density states (:meth:`Operation.apply_to_density_ri`), and the
 density engines of :mod:`~qml_essentials_tpu_torch.ops.simulation` lower
 them to superoperators.
 
+The Pauli helpers at the end (:class:`PauliWord`, the packed-bitmask
+symplectic algebra with Clifford conjugation tables, and the dense
+``pauli_decompose`` / ``evolve_pauli_with_clifford``) serve the analysis
+stack; their tables are host numpy, built from the gates' matrices.
+
 Counterpart of ``qml_essentials_tpu/ops/operations.py`` (Operation up to the
-controlled rotations, and the Kraus channels).  Hamiltonians and
-``PauliWord`` come with the pulse and analysis slices.
+controlled rotations, the Kraus channels and the Pauli helpers).
+Hamiltonians come with the pulse slice.
 """
 
 from __future__ import annotations
@@ -150,6 +155,12 @@ class Operation:
                 f"{self.__class__.__name__} does not define a matrix."
             )
         return self._matrix
+
+    def decompose(self) -> List["Operation"]:
+        """Decompose into primitive operations (created with ``record=False``)."""
+        raise NotImplementedError(
+            f"{self.__class__.__name__} does not define a decomposition."
+        )
 
     @property
     def wires(self) -> List[int]:
@@ -384,6 +395,7 @@ _PAULI_CLASSES = [Id, PauliX, PauliY, PauliZ]
 _PAULI_MATRICES = {
     label: cls._matrix for label, cls in zip(_PAULI_LABELS, _PAULI_CLASSES)
 }
+_PAULI_MATS = [_PAULI_MATRICES[label] for label in _PAULI_LABELS]
 
 
 def _pauli_exponential(theta, P: torch.Tensor) -> torch.Tensor:
@@ -448,6 +460,16 @@ def _make_controlled_gate(target_class: type, name: str) -> type:
 
         def __init__(self, wires: List[int] = [0, 1], **kwargs) -> None:
             super().__init__(wires=wires, **kwargs)
+
+        def decompose(self) -> List["Operation"]:
+            if name != "CZ":
+                return super().decompose()
+            c, t = self.wires
+            return [
+                H(wires=t, record=False),
+                CX(wires=[c, t], record=False),
+                H(wires=t, record=False),
+            ]
 
     _Controlled.__name__ = name
     _Controlled.__qualname__ = name
@@ -519,6 +541,14 @@ class Rot(Operation):
         cd = torch.promote_types(torch.promote_types(mz.dtype, my.dtype), mp.dtype)
         mat = mz.to(cd) @ my.to(cd) @ mp.to(cd)
         super().__init__(wires=wires, matrix=mat, **kwargs)
+
+    def decompose(self) -> List["Operation"]:
+        w = self.wires[0]
+        return [
+            RZ(self.phi, wires=w, record=False),
+            RY(self.theta, wires=w, record=False),
+            RZ(self.omega, wires=w, record=False),
+        ]
 
 
 _WORD_MATRICES: Dict[str, torch.Tensor] = {}
@@ -615,6 +645,29 @@ def _make_controlled_rotation_subclass(name: str, axis: str) -> type:
 
         def __init__(self, theta, wires: List[int] = [0, 1], **kwargs) -> None:
             super().__init__(theta, axis, wires=wires, n_controls=1, **kwargs)
+
+        def decompose(self) -> List["Operation"]:
+            c, t = self.wires
+            theta = self.theta
+            core = [
+                RZ(theta / 2, wires=t, record=False),
+                CX(wires=[c, t], record=False),
+                RZ(-theta / 2, wires=t, record=False),
+                CX(wires=[c, t], record=False),
+            ]
+            if axis == "Z":
+                return core
+            if axis == "X":
+                return [H(wires=t, record=False)] + core + [H(wires=t, record=False)]
+            # axis == "Y": CRY = RX(-pi/2)_t · CRZ · RX(pi/2)_t  (exact; the
+            # basis change maps Z -> Y on the target), in theta's precision.
+            p = _param(theta)
+            half_pi = torch.tensor(np.pi / 2, dtype=p.dtype, device=p.device)
+            return (
+                [RX(half_pi, wires=t, record=False)]
+                + core
+                + [RX(-half_pi, wires=t, record=False)]
+            )
 
     _CRot.__name__ = name
     _CRot.__qualname__ = name
@@ -827,3 +880,375 @@ class QubitChannel(KrausChannel):
 
     def kraus_matrices(self) -> List[torch.Tensor]:
         return self._kraus_ops
+
+
+# ---------------------------------------------------------------------------
+# Pauli helpers (dense)
+# ---------------------------------------------------------------------------
+
+
+def evolve_pauli_with_clifford(
+    clifford: Operation,
+    pauli: Operation,
+    adjoint_left: bool = True,
+) -> Operation:
+    """Dense ``C† P C`` (or ``C P C†``) on the union wire set, as a Hermitian."""
+    all_wires = sorted(set(clifford.wires) | set(pauli.wires))
+    C = kernels.lift_matrix(clifford.matrix, clifford.wires, all_wires)
+    P = kernels.lift_matrix(pauli.matrix, pauli.wires, all_wires)
+    cd = torch.promote_types(C.dtype, P.dtype)
+    C, P = C.to(cd), P.to(device=C.device, dtype=cd)
+    Cd = C.conj().T
+    result = (Cd @ P @ C) if adjoint_left else (C @ P @ Cd)
+    return Hermitian(matrix=result, wires=all_wires, record=False)
+
+
+def _dominant_pauli_label(matrix: torch.Tensor) -> Tuple[torch.Tensor, str]:
+    """Dominant Pauli term ``(coeff, label)`` via the trace formula.
+
+    Brute-force O(4^n); only used on small matrices (Clifford-conjugated
+    Paulis in the Fourier tree).  Computed with one trace per stacked Pauli
+    basis element, then a single argmax.
+    """
+    from itertools import product as _product
+
+    matrix = _as_complex(matrix)
+    dim = matrix.shape[0]
+    n_qubits = int(round(float(np.log2(dim))))
+
+    labels = []
+    coeffs = []
+    for idxs in _product(range(4), repeat=n_qubits):
+        P = reduce(torch.kron, [_PAULI_MATS[i] for i in idxs])
+        P = P.to(device=matrix.device, dtype=matrix.dtype)
+        coeffs.append(torch.trace(P @ matrix) / dim)
+        labels.append("".join(_PAULI_LABELS[i] for i in idxs))
+    coeffs = torch.stack(coeffs)
+    best = int(torch.argmax(coeffs.abs()))
+    return coeffs[best], labels[best]
+
+
+def pauli_decompose(matrix: torch.Tensor, wire_order: Optional[List[int]] = None):
+    """Dominant Pauli term of a Hermitian matrix as ``(coeff, Operation)``."""
+    dim = matrix.shape[0]
+    n_qubits = int(round(float(np.log2(dim))))
+    if wire_order is None:
+        wire_order = list(range(n_qubits))
+
+    coeff, label = _dominant_pauli_label(matrix)
+    label_to_idx = {lbl: i for i, lbl in enumerate(_PAULI_LABELS)}
+
+    if sum(1 for ch in label if ch != "I") <= 1:
+        for q, ch in enumerate(label):
+            if ch != "I":
+                result = _PAULI_CLASSES[label_to_idx[ch]](
+                    wires=wire_order[q], record=False
+                )
+                result._pauli_label = ch
+                return coeff, result
+        result = Id(wires=wire_order[0], record=False)
+        result._pauli_label = "I" * n_qubits
+        return coeff, result
+
+    P = reduce(torch.kron, [_PAULI_MATRICES[ch] for ch in label])
+    result = Hermitian(matrix=P, wires=wire_order, record=False)
+    result._pauli_label = label
+    return coeff, result
+
+
+def pauli_string_from_operation(op: Operation) -> str:
+    """Pauli word string of a Pauli-like operation (``"X"``, ``"ZZ"``, ...)."""
+    label = (
+        getattr(op, "pauli_word", None)
+        if isinstance(op, PauliRot)
+        else getattr(op, "_pauli_label", None)
+    )
+    if label is not None:
+        return label
+    builtin = {"PauliX": "X", "PauliY": "Y", "PauliZ": "Z", "I": "I"}.get(op.name)
+    if builtin is not None:
+        return builtin
+    _, pauli_op = pauli_decompose(op.matrix, wire_order=op.wires)
+    return pauli_op._pauli_label
+
+
+def prod(*ops: Operation) -> Operation:
+    """Module-level product: ``prod(op1, op2, ...) == op1.prod(op2, ...)``."""
+    if not ops:
+        raise ValueError("prod() needs at least one operation")
+    head, *rest = ops
+    return head.prod(*rest)
+
+
+# ---------------------------------------------------------------------------
+# PauliWord — packed-bitmask symplectic Pauli algebra
+# ---------------------------------------------------------------------------
+
+# Local Pauli code c = x + 2z per qubit: 0=I, 1=X, 2=Z, 3=Y (Y = i·X·Z).
+_CODE_CHARS = "IXZY"
+_CHAR_CODE = {ch: c for c, ch in enumerate(_CODE_CHARS)}
+
+# conjugation lookup tables, keyed by the Clifford's matrix bytes:
+#   table[c_in] = (c_out, dphase)  over local codes of the gate's wires.
+_CONJ_LUTS: dict = {}
+
+
+def _local_xz_matrix(code: int, k: int) -> np.ndarray:
+    """Dense ``2^k x 2^k`` operator ``⊗_i X^{x_i} Z^{z_i}`` for a local code.
+
+    Wire ``i = 0`` (lowest base-4 digit of *code*) is the most significant
+    kron factor, matching the gate-matrix convention used throughout.
+    """
+    X = np.array([[0, 1], [1, 0]], dtype=complex)
+    Z = np.array([[1, 0], [0, -1]], dtype=complex)
+    out = np.eye(1, dtype=complex)
+    for i in range(k):
+        c = (code >> (2 * i)) & 3
+        f = np.eye(2, dtype=complex)
+        if c & 1:
+            f = f @ X
+        if c & 2:
+            f = f @ Z
+        out = np.kron(out, f)
+    return out
+
+
+def _build_conj_lut(C: np.ndarray, k: int) -> Optional[List[Tuple[int, int]]]:
+    """Conjugation table ``X^x Z^z -> i^d X^x' Z^z'`` under ``P -> C P C†``.
+
+    Returns ``None`` when *C* is not a Clifford (some image is not a single
+    signed Pauli), signalling the dense fallback.
+    """
+    Cd = C.conj().T
+    table: List[Tuple[int, int]] = []
+    for c_in in range(4**k):
+        M = C @ _local_xz_matrix(c_in, k) @ Cd
+        hit = None
+        for c_out in range(4**k):
+            P = _local_xz_matrix(c_out, k)
+            # ratio i^d with d integer <=> M == i^d P elementwise
+            for d in range(4):
+                if np.allclose(M, (1j**d) * P, atol=1e-9):
+                    hit = (c_out, d)
+                    break
+            if hit:
+                break
+        if hit is None:
+            return None
+        table.append(hit)
+    return table
+
+
+def _conj_lut_for(clifford: "Operation", adjoint_left: bool):
+    """Cached LUT for ``C P C†`` (or ``C† P C``) of a <=2-qubit gate."""
+    mat = clifford._matrix
+    if mat is None:
+        return None
+    C = mat.detach().cpu().numpy().astype(np.complex128)
+    k = len(clifford.wires)
+    if C.shape != (2**k, 2**k) or k > 2:
+        return None
+    if adjoint_left:
+        C = C.conj().T
+    key = (C.tobytes(), k)
+    if key not in _CONJ_LUTS:
+        _CONJ_LUTS[key] = _build_conj_lut(C, k)
+    return _CONJ_LUTS[key]
+
+
+class PauliWord:
+    r"""Symbolic n-qubit Pauli ``P = i^phase · X^{x} Z^{z}`` on packed bits.
+
+    The X- and Z-components are stored as integer *bitmasks* (bit ``q`` of
+    ``xm``/``zm`` is qubit ``q``'s exponent) with the scalar tracked as
+    ``i^phase`` mod 4; ``Y = i X Z`` contributes set bits in both masks.
+    Products and commutators are two XORs / popcounts on machine words, and
+    Clifford conjugation is a per-gate table lookup — the tables are derived
+    at first use from the gate's dense matrix (so *any* 1–2 qubit Clifford,
+    e.g. CY, gets an exact symbolic rule automatically), with a dense
+    conjugation fallback for wider gates.
+    """
+
+    __slots__ = ("xm", "zm", "n", "phase")
+
+    def __init__(self, x, z, phase: int = 0) -> None:
+        if isinstance(x, (int, np.integer)):
+            raise TypeError("use _make() for mask construction")
+        x = np.asarray(x)
+        z = np.asarray(z)
+        self.n = int(x.shape[0])
+        self.xm = int.from_bytes(np.packbits(x.astype(bool), bitorder="little"), "little")
+        self.zm = int.from_bytes(np.packbits(z.astype(bool), bitorder="little"), "little")
+        self.phase = int(phase) % 4
+
+    @classmethod
+    def _make(cls, xm: int, zm: int, n: int, phase: int) -> "PauliWord":
+        w = cls.__new__(cls)
+        w.xm, w.zm, w.n, w.phase = xm, zm, n, phase % 4
+        return w
+
+    # ---- constructors ----------------------------------------------------
+    @classmethod
+    def identity(cls, n_qubits: int) -> "PauliWord":
+        return cls._make(0, 0, n_qubits, 0)
+
+    @classmethod
+    def from_pauli_string(
+        cls, pauli_string: str, wires: List[int], n_qubits: int
+    ) -> "PauliWord":
+        xm = zm = 0
+        phase = 0
+        for ch, w in zip(pauli_string, wires):
+            c, w = _CHAR_CODE[ch], int(w)
+            xm |= (c & 1) << w
+            zm |= (c >> 1) << w
+            phase += c == 3  # each Y carries one factor of i
+        return cls._make(xm, zm, n_qubits, phase)
+
+    @classmethod
+    def from_operation(cls, op: "Operation", n_qubits: int) -> "PauliWord":
+        cached = getattr(op, "_pauli_word", None)
+        if isinstance(cached, PauliWord) and cached.n == n_qubits:
+            return cached
+        label = (
+            op.pauli_word
+            if isinstance(op, PauliRot)
+            else {
+                "RX": "X", "RY": "Y", "RZ": "Z",
+                "PauliX": "X", "PauliY": "Y", "PauliZ": "Z", "I": "I",
+            }.get(op.name)
+        )
+        if label is None:
+            label = pauli_string_from_operation(op)
+        return cls.from_pauli_string(label, op.wires, n_qubits)
+
+    # ---- views ------------------------------------------------------------
+    @property
+    def n_qubits(self) -> int:
+        return self.n
+
+    def _unpack(self, mask: int) -> np.ndarray:
+        raw = mask.to_bytes((self.n + 7) // 8, "little")
+        return np.unpackbits(
+            np.frombuffer(raw, np.uint8), count=self.n, bitorder="little"
+        ).astype(np.int8)
+
+    @property
+    def x(self) -> np.ndarray:
+        return self._unpack(self.xm)
+
+    @property
+    def z(self) -> np.ndarray:
+        return self._unpack(self.zm)
+
+    @property
+    def xy_mask(self) -> np.ndarray:
+        """Boolean mask of qubits carrying X or Y (off-diagonal support)."""
+        return self._unpack(self.xm).astype(bool)
+
+    @property
+    def is_diagonal(self) -> bool:
+        return self.xm == 0
+
+    # ---- algebra ----------------------------------------------------------
+    def commutes_with(self, other: "PauliWord") -> bool:
+        """Vanishing symplectic form: popcount parity of the cross terms."""
+        anti = ((self.xm & other.zm).bit_count() + (self.zm & other.xm).bit_count()) & 1
+        return anti == 0
+
+    def compose(self, other: "PauliWord") -> "PauliWord":
+        r"""Product: reordering each ``Z^{z1} X^{x2}`` crossing costs ``-1``."""
+        cross = (self.zm & other.xm).bit_count()
+        return PauliWord._make(
+            self.xm ^ other.xm,
+            self.zm ^ other.zm,
+            self.n,
+            self.phase + other.phase + 2 * cross,
+        )
+
+    # ---- Clifford conjugation ---------------------------------------------
+    def conjugate_by_clifford(
+        self, clifford: "Operation", adjoint_left: bool = False
+    ) -> "PauliWord":
+        """``C P C†`` (or ``C† P C`` with *adjoint_left*) via the gate LUT."""
+        wires = list(clifford.wires)
+        lut = _conj_lut_for(clifford, adjoint_left)
+        if lut is None:
+            return self._conjugate_via_matrix(clifford, adjoint_left)
+        # Local code of this word on the gate's wires (gate wire order).
+        c_in = 0
+        for i, w in enumerate(wires):
+            c_in |= (((self.xm >> w) & 1) | (((self.zm >> w) & 1) << 1)) << (2 * i)
+        c_out, dphase = lut[c_in]
+        xm, zm = self.xm, self.zm
+        for i, w in enumerate(wires):
+            loc = (c_out >> (2 * i)) & 3
+            xm = (xm & ~(1 << w)) | ((loc & 1) << w)
+            zm = (zm & ~(1 << w)) | (((loc >> 1) & 1) << w)
+        return PauliWord._make(xm, zm, self.n, self.phase + dphase)
+
+    def _conjugate_via_matrix(
+        self, clifford: "Operation", adjoint_left: bool
+    ) -> "PauliWord":
+        """Exact dense fallback for Cliffords wider than the LUT covers."""
+        C = kernels.lift_matrix(
+            clifford.matrix.detach().cpu().to(torch.complex128), clifford.wires,
+            list(range(self.n)))
+        Cd = C.conj().T
+        mat = self.to_matrix()
+        out = (Cd @ mat @ C) if adjoint_left else (C @ mat @ Cd)
+        return PauliWord.from_matrix(out)
+
+    # ---- expectation / conversions -----------------------------------------
+    def zero_expectation(self) -> complex:
+        """``<0…0|P|0…0>`` — nonzero only for I/Z words."""
+        return complex(1j**self.phase) if self.xm == 0 else 0.0 + 0.0j
+
+    def _codes(self) -> List[int]:
+        return [
+            ((self.xm >> q) & 1) | (((self.zm >> q) & 1) << 1) for q in range(self.n)
+        ]
+
+    def to_pauli_string(self) -> str:
+        return "".join(_CODE_CHARS[c] for c in self._codes())
+
+    def leading_phase(self) -> complex:
+        """Scalar relating this word to its bare Pauli string (Y = i·X·Z)."""
+        n_y = (self.xm & self.zm).bit_count()
+        return complex(1j ** ((self.phase - n_y) % 4))
+
+    def to_pauli_string_and_phase(self) -> Tuple[str, complex]:
+        return self.to_pauli_string(), self.leading_phase()
+
+    def to_matrix(self) -> torch.Tensor:
+        """Dense matrix (host-side, exact integer entries times ``i^phase``),
+        complex128 on the CPU like the gates' constant matrices."""
+        out = np.eye(1, dtype=complex)
+        for c in self._codes():
+            out = np.kron(out, _local_xz_matrix(c, 1))
+        return torch.from_numpy((1j**self.phase) * out)
+
+    @classmethod
+    def from_matrix(cls, matrix: torch.Tensor) -> "PauliWord":
+        """Word for a matrix known to be a single (phase-scaled) Pauli."""
+        coeff, label = _dominant_pauli_label(matrix)
+        word = cls.from_pauli_string(label, list(range(len(label))), len(label))
+        quarter_turns = int(round(np.angle(complex(coeff)) / (np.pi / 2)))
+        word.phase = (word.phase + quarter_turns) % 4
+        return word
+
+    def to_list_repr(self) -> np.ndarray:
+        """Legacy int list representation (I=-1, X=0, Y=1, Z=2)."""
+        remap = np.array([-1, 0, 2, 1])  # code order I,X,Z,Y -> legacy ints
+        return remap[np.asarray(self._codes())]
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, PauliWord):
+            return NotImplemented
+        return (self.xm, self.zm, self.n, self.phase) == (
+            other.xm, other.zm, other.n, other.phase,
+        )
+
+    def __repr__(self) -> str:
+        sign = ("+", "+i", "-", "-i")[self.phase]
+        return f"PauliWord({sign}{self.to_pauli_string()})"

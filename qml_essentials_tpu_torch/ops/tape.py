@@ -6,15 +6,19 @@ a recording context is active, every freshly constructed operation appends
 itself to the innermost tape.  Tapes live in ``threading.local`` storage so
 concurrent threads never interleave.
 
+:func:`copy_to_tape` replays a recorded body on shifted wires, to build
+multi-register circuits (the analysis stack's Bell and SWAP-test doubling).
+
 Counterpart of ``qml_essentials_tpu/ops/tape.py`` (operation tapes only;
 the pulse-event tape comes with the pulse slice).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from contextlib import contextmanager
-from typing import TYPE_CHECKING, Iterator, List, Optional
+from typing import TYPE_CHECKING, Callable, Iterator, List, Optional
 
 if TYPE_CHECKING:  # pragma: no cover
     from qml_essentials_tpu_torch.ops.operations import Operation
@@ -47,3 +51,23 @@ def recording() -> Iterator[List["Operation"]]:
     finally:
         stack.pop()
 
+
+def shift_and_append(tape_ops: List["Operation"], offset: int) -> None:
+    """Replay *tape_ops* on the active tape with all wires shifted by *offset*.
+
+    Each operation is shallow-copied so the source tape stays intact.
+    """
+    current = active_tape()
+    if current is None:
+        return
+    for o in tape_ops:
+        shifted = copy.copy(o)
+        shifted._wires = [w + offset for w in o.wires]
+        current.append(shifted)
+
+
+def copy_to_tape(fn: Callable, offset: int) -> None:
+    """Record ``fn()`` on a side tape, then replay it shifted by *offset*."""
+    with recording() as side_tape:
+        fn()
+    shift_and_append(side_tape, offset)
