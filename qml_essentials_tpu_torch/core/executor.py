@@ -4,35 +4,133 @@
 :class:`~qml_essentials_tpu_torch.ops.operations.Operation` objects; it
 records the tape and hands it to
 :func:`~qml_essentials_tpu_torch.ops.simulation.simulate_and_measure` on an
-explicit device (the card unless the caller asks for the CPU) and dtype.  A
-batch (``in_axes``) runs as a plain loop over its elements, stacked at the
-end: PyTorch runs eagerly, so there is no jit, no vmap and no plan cache.
-Under autograd every element's saved states stay alive until the backward,
-so the loop passes the batch size down to the
-simulator's memory estimate (the JAX package reads it off the vmap batch),
-and one :class:`~qml_essentials_tpu_torch.ops.simulation.BackwardChoice`
-for the whole batch: the first element decides between the saved-residual
-and the adjoint backward, from the memory free before the batch, and every
-element takes that executor.  A batched argument is a tensor (sliced
-along its axis) or a list (one entry per element, e.g. the model's
-per-element ``torch.Generator``).  Finite ``shots`` sample each element's
-exact probabilities on its own generator, split off the one passed in.
+explicit device (the card unless the caller asks for the CPU) and dtype:
 
-Counterpart of ``qml_essentials_tpu/core/executor.py`` (memory-aware
-chunking and sharding come later).
+record -> plan (cached) -> memory-aware chunking -> batched run -> readout.
+
+*Batches* (``in_axes``).  The circuit function is called once with the
+batched arguments themselves (a tensor's batch axis moved to the front, a
+list of generators as a
+:class:`~qml_essentials_tpu_torch.utils.GeneratorBatch`): its gates receive
+``(Bt,)`` parameters and record ``(Bt, K, K)`` matrices, so the batch is
+recorded once, planned once and run with a leading batch axis — one kernel
+launch per plan step for the whole batch (or chunk) below
+``LARGE_STATE_MIN_N`` qubits, the steps element by element on the shared
+plan's payload rows from there.  This is the counterpart of the JAX
+package's ``vmap`` over one trace.  A batch that cannot be recorded so — a
+circuit whose Python control flow reads argument values, a parameter whose
+leading dimension is neither the batch nor 1, a batched argument that is
+neither a tensor nor a list of generators — runs as a loop over its
+elements, stacked at the end.  ``Script.routes`` logs the route of every
+batched request, newest last: ``"vectorised"``, ``"per element: <reason>"``
+(recorded and planned once, run element by element:
+:func:`~qml_essentials_tpu_torch.ops.simulation.batch_route`) or
+``"loop: <reason>"``.  Every batched call checks the recording
+once: its last element, recorded on its own, must give the batched tape's
+last row.
+
+*Plan cache.*  Plans are cached on the recorded tape's structure
+(:func:`~qml_essentials_tpu_torch.ops.recipes.tape_signature`: gate classes
+and wires in order) together with the qubit count, measurement type, shots,
+dtype, device, the observables' signature, ``UnitaryGates.batch_gate_error``
+and the planner's flags and functions.  The port records every call, so a
+key read off what was recorded cannot serve a stale plan (the JAX package
+keys on the arguments, which cannot see, say, a zero input that elides the
+encodings).  A hit skips the planner's structural work and only recomposes
+the payloads from the fresh gate matrices.
+
+*Chunks.*  :mod:`~qml_essentials_tpu_torch.core.memory` sizes the chunks a
+batch runs in (memoised per key and batch size); the batch is still
+recorded once and each chunk runs the rows of its slice.
+
+*Gradients.*  One :class:`~qml_essentials_tpu_torch.ops.simulation.BackwardChoice`
+decides for the whole batch between the saved-residual and the adjoint
+backward, from the memory free before the batch.  Finite ``shots`` sample
+each element's exact probabilities on its own generator, split off the one
+passed in.
+
+Counterpart of ``qml_essentials_tpu/core/executor.py`` (sharding comes
+later).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import logging
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from qml_essentials_tpu_torch.ops import simulation
+from qml_essentials_tpu_torch.ops import chains, recipes, simulation
 from qml_essentials_tpu_torch.ops.operations import Operation
 from qml_essentials_tpu_torch.ops.tape import recording
-from qml_essentials_tpu_torch.utils import safe_random_split
+from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
+
+logger = logging.getLogger(__name__)
+
+# Routes kept in Script.routes.
+_ROUTE_LOG = 64
+
+
+def _obs_signature(obs: List[Operation]) -> tuple:
+    """Value signature of the observable list for the plan cache: Pauli
+    observables key on (class, wires, label), any other on its matrix's
+    content (PyTorch has no tracers: every matrix is concrete)."""
+    sig = []
+    for o in obs:
+        label = getattr(o, "_pauli_label", None)
+        if label is not None:
+            sig.append((o.__class__.__name__, tuple(o.wires), label))
+            continue
+        m = getattr(o, "_matrix", None)
+        if m is None:
+            sig.append((o.__class__.__name__, tuple(o.wires), None))
+            continue
+        arr = np.asarray(m.detach().cpu())
+        sig.append((o.__class__.__name__, tuple(o.wires), arr.shape, hash(arr.tobytes())))
+    return tuple(sig)
+
+
+def _planner_signature() -> tuple:
+    """The planner's flags (which tests and tools set) and functions (which
+    they replace): a change to either makes a new cache entry."""
+    s = simulation
+    flags = (s.FUSE_LAYOUT_ROT, s.USE_CHAINS, s.LARGE_STATE_MIN_N, s.FUSE_MAX_WIDTH,
+             s.REFUSE_MAX_WIDTH, s.BACKWARD_MODE, s.LARGE_FUSE_WIDTH, s.FUSE_MIN_EXCESS)
+    fns = (s.plan_contractions, s.schedule_layout, s._zero_state_prefix, s.refuse_windows,
+           s.fuse_layout_rotations, s.scheduled_plan, s.interleaved_plan, s.mixed_plan,
+           s._lower_interleaved_tape, chains.plan_chains)
+    return flags + tuple(id(f) for f in fns)
+
+
+class _NotVectorisable(Exception):
+    """A batch that takes the loop route; the message is the reason."""
+
+
+def _batch_size(args: tuple, in_axes: Tuple) -> int:
+    """The batch size the batched arguments agree on (1 when none is)."""
+    sizes = {len(a) if not isinstance(a, torch.Tensor) else a.shape[ax]
+             for a, ax in zip(args, in_axes) if ax is not None}
+    if len(sizes) > 1:
+        raise ValueError(f"batched arguments disagree on the batch size: {sorted(sizes)}")
+    return sizes.pop() if sizes else 1
+
+
+def _element(a, ax, i):
+    if ax is None:
+        return a
+    return a.select(ax, i) if isinstance(a, torch.Tensor) else a[i]
+
+
+def _alone(a, ax, i):
+    """Element *i* of an argument as the batch's check records it: a
+    generator copied as it stands before the batch draws from it."""
+    e = _element(a, ax, i)
+    if isinstance(e, torch.Generator):
+        e = torch.Generator(device=e.device).set_state(e.get_state())
+    return e
 
 
 class Script:
@@ -56,13 +154,38 @@ class Script:
         self._n_qubits = n_qubits
         self.device = resolve_device(device)
         self.dtype = dtype
+        # Plan cache: key -> simulation.PlanSlot; chunk sizes by (key, batch).
+        self._plans: Dict[tuple, simulation.PlanSlot] = {}
+        self._chunks: Dict[tuple, int] = {}
+        # Route of every batched request, newest last.
+        self.routes: List[str] = []
 
+    # ------------------------------------------------------------ recording
     def _record(self, *args, **kwargs) -> List[Operation]:
         """Run the circuit function, collecting operations on a fresh tape."""
         with recording() as tape:
             self.f(*args, **kwargs)
         return tape
 
+    def _plan_key(self, tape, n_qubits, type, obs, use_density, shots) -> tuple:
+        from qml_essentials_tpu_torch.models.unitary import UnitaryGates
+
+        return (recipes.tape_signature(tape), n_qubits, type, use_density, shots,
+                str(self.dtype), str(self.device), _obs_signature(obs),
+                UnitaryGates.batch_gate_error, _planner_signature())
+
+    def _slot(self, tape, n_qubits, type, obs, use_density, shots):
+        key = self._plan_key(tape, n_qubits, type, obs, use_density, shots)
+        slot = self._plans.get(key)
+        if slot is None:
+            slot = self._plans[key] = simulation.PlanSlot()
+        return key, slot
+
+    def _log_route(self, route: str) -> None:
+        self.routes.append(route)
+        del self.routes[:-_ROUTE_LOG]
+
+    # -------------------------------------------------------------- execute
     def _run_one(self, type: str, obs: List[Operation], args: tuple, kwargs: dict,
                  batch: int = 1, choice: Optional[simulation.BackwardChoice] = None,
                  shots: Optional[int] = None, generator: Optional[torch.Generator] = None,
@@ -70,9 +193,10 @@ class Script:
         tape = self._record(*args, **kwargs)
         n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
         use_density = simulation.uses_density(tape, type)
+        _, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
         return simulation.simulate_and_measure(
             tape, n_qubits, type, obs, use_density, shots=shots, generator=generator,
-            dtype=self.dtype, device=self.device, batch=batch, choice=choice,
+            dtype=self.dtype, device=self.device, batch=batch, choice=choice, plans=slot,
         )
 
     def execute(
@@ -93,7 +217,10 @@ class Script:
             obs: Observables for ``"expval"``.
             args / kwargs: Forwarded to the circuit function.
             in_axes: Per-positional-arg batch axes (``None`` = broadcast);
-                when given, results carry a leading batch dimension.
+                when given, results carry a leading batch dimension.  A
+                batched argument is a tensor (batched along its axis) or a
+                list (one entry per element, e.g. per-element
+                ``torch.Generator``\\ s).
             shots: Finite-shot sampling count (``"probs"``/``"expval"`` only).
             generator: ``torch.Generator`` of the shot draws (seed 0 when
                 ``None``); a batch splits one per element off it.
@@ -110,30 +237,116 @@ class Script:
                 f"in_axes has {len(in_axes)} entries but args has {len(args)}. "
                 "Provide one in_axes entry per positional argument."
             )
-        sizes = {len(a) if isinstance(a, (list, tuple)) else a.shape[ax]
-                 for a, ax in zip(args, in_axes) if ax is not None}
-        if len(sizes) > 1:
-            raise ValueError(f"batched arguments disagree on the batch size: {sorted(sizes)}")
-        batch = sizes.pop() if sizes else 1
+        batch = _batch_size(args, in_axes)
         choice = simulation.BackwardChoice()
-        shot_gens = safe_random_split(generator, batch, device=self.device)
-
-        def element(a, ax, i):
-            if ax is None:
-                return a
-            return a[i] if isinstance(a, (list, tuple)) else a.select(ax, i)
-
-        results = [
-            self._run_one(
-                type,
-                obs,
-                tuple(element(a, ax, i) for a, ax in zip(args, in_axes)),
-                kwargs,
-                batch,
-                choice,
-                shots,
-                shot_gens[i],
-            )
+        shot_gens = list(safe_random_split(generator, batch, device=self.device))
+        try:
+            return self._execute_vectorised(type, obs, args, kwargs, in_axes, batch, choice,
+                                            shots, shot_gens)
+        except _NotVectorisable as why:
+            self._log_route(f"loop: {why}")
+            logger.info("Batch of %r runs as a loop: %s", getattr(self.f, "__name__", self.f),
+                        why)
+        return torch.stack([
+            self._run_one(type, obs, tuple(_element(a, ax, i) for a, ax in zip(args, in_axes)),
+                          kwargs, batch, choice, shots, shot_gens[i])
             for i in range(batch)
-        ]
-        return torch.stack(results)
+        ])
+
+    # ----------------------------------------------------------- vectorised
+    @staticmethod
+    def _batched_arg(a, ax):
+        """A batched argument as the circuit receives it in one recording."""
+        if ax is None:
+            return a
+        if isinstance(a, torch.Tensor):
+            return a.movedim(ax, 0)
+        if isinstance(a, GeneratorBatch):
+            return a
+        if isinstance(a, (list, tuple)) and all(isinstance(g, torch.Generator) for g in a):
+            return GeneratorBatch(list(a))
+        if isinstance(a, (list, tuple)) and all(g is None for g in a):
+            return None
+        raise _NotVectorisable(f"a batched argument of type {type(a).__name__}")
+
+    def _record_batch(self, args: tuple, in_axes: Tuple, kwargs: dict, batch: int):
+        if batch < 2:
+            raise _NotVectorisable("a batch of one")
+        bargs = tuple(self._batched_arg(a, ax) for a, ax in zip(args, in_axes))
+        last = tuple(_alone(a, ax, batch - 1) for a, ax in zip(args, in_axes))
+        try:
+            tape = self._record(*bargs, **kwargs)
+            rows = recipes.batch_of(tape)
+        except Exception as e:  # the loop records each element and raises what is real
+            raise _NotVectorisable(f"recording the batch raised {type(e).__name__}: {e}")
+        if rows is None:
+            raise _NotVectorisable("no gate depends on the batched arguments")
+        if rows != batch:
+            raise _NotVectorisable(
+                f"a parameter's leading dimension is {rows}, neither {batch} nor 1")
+        self._check_last_element(tape, last, kwargs, batch)
+        return tape
+
+    def _check_last_element(self, tape, last_args, kwargs, batch) -> None:
+        """The last element recorded on its own (*last_args*) must give the
+        batched tape's last row: a circuit that indexes a batched argument
+        from the front would not."""
+        last = self._record(*last_args, **kwargs)
+        if recipes.tape_signature(last) != recipes.tape_signature(tape):
+            raise _NotVectorisable("the last element records another circuit")
+        row = recipes.materialize(recipes.proxy_tape(tape), tape, batch - 1)
+        for a, b in zip(last, row):
+            for k in ("_matrix", "diag"):
+                x, y = a.__dict__.get(k), b.__dict__.get(k)
+                if isinstance(x, torch.Tensor) and not torch.allclose(
+                        x.detach(), y.detach().to(x.dtype), rtol=1e-5, atol=1e-6):
+                    raise _NotVectorisable(
+                        f"the last element's {a.name} differs from the batch's last row")
+
+    def _execute_vectorised(self, type, obs, args, kwargs, in_axes, batch, choice, shots,
+                            shot_gens) -> torch.Tensor:
+        tape = self._record_batch(args, in_axes, kwargs, batch)
+        n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
+        use_density = simulation.uses_density(tape, type)
+        key, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
+        chunk = self._chunk_size(key, slot, tape, n_qubits, type, len(obs), use_density, batch,
+                                 choice)
+        self._log_route(simulation.batch_route(tape, slot, n_qubits, type, use_density,
+                                               self.dtype, self.device, batch, choice))
+
+        def run(rows: torch.Tensor, gens: list) -> torch.Tensor:
+            start = int(rows[0])
+            part = slice(start, start + len(rows)) if len(rows) < batch else None
+            return simulation.simulate_and_measure(
+                tape, n_qubits, type, obs, use_density, shots=shots, generator=gens,
+                dtype=self.dtype, device=self.device, batch=batch, choice=choice,
+                plans=slot, rows=part)
+
+        return self._dispatch(run, batch, chunk, shot_gens)
+
+    def _chunk_size(self, key, slot, tape, n_qubits, type, n_obs, use_density, batch,
+                    choice) -> int:
+        """Memoised memory-aware chunk size for this plan key + batch size.
+        A fresh estimate reads free memory once for the batch: the batch's
+        backward decision (*choice*) takes the same reading."""
+        mem_key = (key, batch)
+        chunk = self._chunks.get(mem_key)
+        if chunk is None:
+            choice.free = memory.available_memory_bytes(self.device)
+            chunk = memory.compute_chunk_size(
+                n_qubits, batch, type, use_density, n_obs, n_ops=len(tape), dtype=self.dtype,
+                payload_bytes=simulation.payload_bytes(
+                    slot, tape, n_qubits, use_density, self.dtype, self.device),
+                device=self.device, available=choice.free,
+            )
+            self._chunks[mem_key] = chunk
+        return chunk
+
+    @staticmethod
+    def _dispatch(run: Callable, batch: int, chunk: int, shot_gens: list) -> torch.Tensor:
+        """Run the batch whole, or in chunks of *chunk* rows."""
+        rows = torch.arange(batch)
+        if chunk >= batch:
+            return run(rows, shot_gens)
+        return memory.execute_chunked(run, (rows, shot_gens), (0, 0), batch, chunk,
+                                      clear_caches=memory.CLEAR_CACHES_BETWEEN_CHUNKS)

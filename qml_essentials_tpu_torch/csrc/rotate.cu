@@ -29,10 +29,11 @@ rotate_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t X, int64_t R,
 }
 
 template <class T>
-int launch(const void* x, void* y, long long X, long long R, void* stream) {
+int launch(const void* x, void* y, long long X, long long R, void* stream,
+           long long planes = 2) {
   int64_t tiles_r, tiles_per_plane;
   qml::transpose_tiles(X, R, &tiles_r, &tiles_per_plane);
-  const int64_t blocks = 2 * tiles_per_plane;
+  const int64_t blocks = planes * tiles_per_plane;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   rotate_kernel<T><<<(unsigned)blocks, dim3(qml::TILE, qml::ROWS), 0, (cudaStream_t)stream>>>(
       (const T*)x, (T*)y, X, R, tiles_r, tiles_per_plane);
@@ -52,4 +53,12 @@ extern "C" int qml_rotate(const float* x, float* y, long long X, long long R,
 extern "C" int qml_rotate_b16(const void* x, void* y, long long X, long long R,
                               void* stream) {
   return launch<uint16_t>(x, y, X, R, stream);
+}
+
+// The batch entry: x, y: (planes, X*R) float32 (float64 when f64), the same
+// transpose on every plane; a batched (2, Bt, X*R) state is 2*Bt planes.
+extern "C" int qml_rotate_batch(const void* x, void* y, long long planes, long long X,
+                                long long R, int f64, void* stream) {
+  if (f64) return launch<uint64_t>(x, y, X, R, stream, planes);
+  return launch<uint32_t>(x, y, X, R, stream, planes);
 }

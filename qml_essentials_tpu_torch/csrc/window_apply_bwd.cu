@@ -37,6 +37,7 @@
 // once, plus the workspace (at most 64 MB, chosen by the caller) written and
 // read once.  One fused pass is later work.
 #include "adjoint_tc.cuh"
+#include "window_batch.cuh"
 
 namespace {
 
@@ -64,4 +65,22 @@ extern "C" int qml_window_apply_bwd(const float* w, const void* g, const float* 
   return qml::with_cotangent_types(g, gp, g_bf16, gp_bf16, [&](auto gt, auto pt) {
     return run(w, gt, x, pt, gw, ws, A, K, B, splits, (cudaStream_t)stream);
   });
+}
+
+// The batch entry (window_batch.cuh): w: one (2, K, K) window (w_stride =
+// 0; gw (2, K, K), the grams summed over the batch) or E of them (w_stride
+// = 2*K*K; gw (E, 2, K, K), one gram an element); g, x, gp: (2, E*A*K*B);
+// ws: E * qml_window_batch_splits(E, K, A*B) * 2*K*K elements; every array
+// float32, or float64 when f64.
+extern "C" int qml_window_apply_bwd_batch(const void* w, const void* g, const void* x,
+                                          void* gp, void* gw, void* ws, long long E,
+                                          long long A, long long K, long long B,
+                                          long long w_stride, int f64, void* stream) {
+  return qml::batch::backward(w, g, x, gp, gw, ws, E, A, K, B, w_stride, w_stride != 0, f64,
+                              (cudaStream_t)stream);
+}
+
+// Column splits of a batch gram (the workspace's second dimension).
+extern "C" long long qml_window_batch_splits(long long E, long long K, long long C) {
+  return qml::batch::gram_splits(E, K, C);
 }

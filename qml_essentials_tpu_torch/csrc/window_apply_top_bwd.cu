@@ -30,6 +30,7 @@
 // the copies need K >= 8 (a bfloat16 g's 16 bytes are 8 elements),
 // whatever A is; K = 2 and 4 take the tile's scalar staging.
 #include "adjoint_tc.cuh"
+#include "window_batch.cuh"
 
 // w: (2, K, K) float32; g: (2, A*K) float32 (g_bf16 = 0) or bfloat16;
 // x: (2, A*K) float32; gp: (2, A*K) float32 (gp_bf16 = 0) or bfloat16;
@@ -44,4 +45,14 @@ extern "C" int qml_window_apply_top_bwd(const float* w, const void* g, const flo
                                     qml::tc_vec_shape(K, K), qml::TopPullbackMap{K},
                                     qml::TopGramMap{K}, (cudaStream_t)stream);
   });
+}
+
+// The batch entry (window_batch.cuh): the top window's backward on E
+// elements; shapes as qml_window_apply_bwd_batch with B = 1.
+extern "C" int qml_window_apply_top_bwd_batch(const void* w, const void* g, const void* x,
+                                              void* gp, void* gw, void* ws, long long E,
+                                              long long A, long long K, long long w_stride,
+                                              int f64, void* stream) {
+  return qml::batch::backward(w, g, x, gp, gw, ws, E, A, K, 1, w_stride, w_stride != 0, f64,
+                              (cudaStream_t)stream);
 }

@@ -88,7 +88,7 @@ class Circuit(ABC):
         if spec is None:
             return w.new_zeros(0)
         is_slice = len(spec) == 3 and None in spec
-        return w[slice(*spec)] if is_slice else w[torch.as_tensor(spec, device=w.device)]
+        return w[..., slice(*spec)] if is_slice else w[..., torch.as_tensor(spec, device=w.device)]
 
     def _build(self, w: torch.Tensor, n_qubits: int, **kwargs: Any) -> Any:
         """Entry point used by the Model (pulse mode comes with the pulse slice)."""
@@ -206,7 +206,7 @@ class Block:
                 assert w_idx is not None, (
                     "w_idx must be provided for rotational gates"
                 )
-                angles = (w[w_idx + k] for k in range(wps))
+                angles = (w[..., w_idx + k] for k in range(wps))
                 self.gate(*angles, wires=wires, **kwargs)
                 w_idx += wps
             else:

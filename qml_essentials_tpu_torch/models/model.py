@@ -46,7 +46,7 @@ from qml_essentials_tpu_torch.models.gates import Gates
 from qml_essentials_tpu_torch.ops import operations as op
 from qml_essentials_tpu_torch.ops.operations import KrausChannel
 from qml_essentials_tpu_torch.ops.tape import recording
-from qml_essentials_tpu_torch.utils import safe_random_split
+from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
 
 log = logging.getLogger(__name__)
 
@@ -68,9 +68,17 @@ _NOISE_DEFAULTS: Dict[str, Union[float, None]] = {
 _THERMAL_KEYS = ("t1", "t2", "t_factor")
 
 
+def _f64_limit() -> int:
+    from qml_essentials_tpu_torch.ops import simulation
+
+    return simulation.LARGE_STATE_MIN_N // 2  # a noisy tape runs on 2n wires
+
+
 class _KeyStream:
     """Hands out one child generator per call, split off one parent
-    (``None`` flows through: noise-free circuits never draw)."""
+    (``None`` flows through: noise-free circuits never draw).  A
+    :class:`~qml_essentials_tpu_torch.utils.GeneratorBatch` parent splits
+    each element's generator."""
 
     __slots__ = ("key",)
 
@@ -126,12 +134,17 @@ class Model(nn.Module):
                 the flat execution batch.
             device: Device of the parameters and the simulation: the card
                 by default (raises without CUDA); ``"cpu"`` on request.
-            dtype: Real dtype of the simulation (float32 or float64).
+            dtype: Real dtype of the simulation (float32 or float64; on the
+                card float64 below ``LARGE_STATE_MIN_N`` qubits, where the
+                window kernels' batch entries carry it; forward and the
+                kernels' own autograd backwards, not the adjoint executor).
         """
         super().__init__()
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError("the CUDA kernels take float32 only so far")
+        if self.device.type == "cuda" and n_qubits >= _f64_limit() and dtype != torch.float32:
+            raise NotImplementedError(
+                "on the card float64 runs below LARGE_STATE_MIN_N qubits (the batch entries of "
+                "the window kernels); the large-state kernels take float32 only")
         self.dtype = dtype
         self.n_qubits: int = n_qubits
         self.n_layers: int = n_layers
@@ -491,7 +504,13 @@ class Model(nn.Module):
     ) -> None:
         """Interpret the segment program, emitting gates (and, with noise,
         channels) onto the active tape.  *random_key* is the generator of
-        this circuit's noise: each segment gets a child of it."""
+        this circuit's noise: each segment gets a child of it (no child is
+        split off without noise: nothing would draw from it).
+
+        A batch recorded as one tape passes *params* ``(Bt, impl_layers,
+        n_params_per_layer)`` and/or *inputs* ``(Bt, n_input_feat)``, and
+        *random_key* a ``GeneratorBatch``: every per-element index counts
+        from the right, so each gate receives ``(Bt,)`` angles."""
         if params.ndim > 2 and params.shape[0] == 1:
             params = params[0]
         if inputs.ndim > 1 and inputs.shape[0] == 1:
@@ -507,7 +526,7 @@ class Model(nn.Module):
                           "active; reusing the model generator.", RuntimeWarning)
             random_key = self.random_key
 
-        keys = _KeyStream(random_key)
+        keys = _KeyStream(random_key if noise_params is not None else None)
         elide_encoding = (
             self.remove_zero_encoding and self._zero_inputs and self.batch_shape[0] == 1
         )
@@ -527,7 +546,7 @@ class Model(nn.Module):
             elif kind == "pqc":
                 layer = segment[1]
                 self.pqc(
-                    params[layer],
+                    params[..., layer, :],
                     self.n_qubits,
                     noise_params=noise_params,
                     random_key=keys(),
@@ -757,12 +776,16 @@ class Model(nn.Module):
 
         if B > 1:
             axes = tuple(0 if b > 1 else None for b in self.batch_shape)
+            # One noise generator per element; none without noise (nothing
+            # draws from them).
+            keys = (GeneratorBatch(safe_random_split(call_key, B))
+                    if self.noise_params is not None else None)
             result = self.script.execute(
                 type=meas_type,
                 obs=obs,
-                args=(params, inputs, enc_params, list(safe_random_split(call_key, B))),
+                args=(params, inputs, enc_params, keys),
                 kwargs=run_kwargs,
-                in_axes=(axes[1], axes[0], None, 0),
+                in_axes=(axes[1], axes[0], None, None if keys is None else 0),
                 shots=self.shots,
                 generator=shot_key,
             )

@@ -25,6 +25,7 @@ import torch
 
 from qml_essentials_tpu_torch.ops import operations as op
 from qml_essentials_tpu_torch.ops.operations import _param
+from qml_essentials_tpu_torch.utils import GeneratorBatch
 
 Wires = Union[int, List[int]]
 
@@ -116,15 +117,25 @@ class UnitaryGates:
         The sample is drawn in float64 on the generator's device (the CPU
         for the model's generators) and cast to the angle's dtype and
         device, so one seed perturbs a float32 model on the card as it does a
-        float64 one on the CPU."""
+        float64 one on the CPU.  A :class:`~qml_essentials_tpu_torch.utils.GeneratorBatch`
+        (a batch recorded as one tape) draws each element's sample on its own
+        generator, shaped as that element's angle."""
         sigma = (noise_params or {}).get("GateError")
         if sigma is None:
             return w, random_key
         if random_key is None:
             raise ValueError("A random_key (torch.Generator) must be provided when using GateError")
-        gen = random_key if UnitaryGates.batch_gate_error else torch.Generator().manual_seed(0)
         w = _param(w)
-        draw = torch.randn(w.shape, generator=gen, dtype=torch.float64, device=gen.device)
+        if isinstance(random_key, GeneratorBatch):
+            own = w.shape[1:] if w.dim() and w.shape[0] == len(random_key) else w.shape
+            if UnitaryGates.batch_gate_error:
+                draw = random_key.randn(tuple(own), torch.float64)
+            else:
+                draw = torch.randn(tuple(own), generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.float64).expand((len(random_key),) + tuple(own))
+        else:
+            gen = random_key if UnitaryGates.batch_gate_error else torch.Generator().manual_seed(0)
+            draw = torch.randn(w.shape, generator=gen, dtype=torch.float64, device=gen.device)
         return w + sigma * draw.to(device=w.device, dtype=w.dtype), random_key
 
     # --------------------------------------------------------------- gates
@@ -154,7 +165,7 @@ class UnitaryGates:
         marks = torch.tensor(
             golomb_ruler(2 ** len(wires_list)), dtype=w.dtype, device=w.device
         )
-        op.DiagonalQubitUnitary(torch.exp(-1j * marks * w), wires=wires_list)
+        op.DiagonalQubitUnitary(torch.exp(-1j * marks * w[..., None]), wires=wires_list)
         UnitaryGates.Noise(wires_list, noise_params)
 
 

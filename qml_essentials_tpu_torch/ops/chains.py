@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.ops import cuda_kernels
+from qml_essentials_tpu_torch.ops.kernels import bkron
+from qml_essentials_tpu_torch.ops.recipes import lazy
 from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
     DiagonalQubitUnitary,
@@ -92,6 +94,24 @@ def _conjugator_letters(op: Operation) -> Optional[List[str]]:
     return None
 
 
+def _seam_diagonal(kron: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """The diagonal of ``kron^dag mat kron`` (per element of a batched
+    gate), with the conjugators in the gate's dtype and on its device."""
+    kron = kron.to(device=mat.device, dtype=mat.dtype)
+    return torch.diagonal(kron.conj().T @ mat @ kron, dim1=-2, dim2=-1)
+
+
+def _diag_sorted(d: torch.Tensor, order: Optional[list], k: int, device, dtype) -> torch.Tensor:
+    """A diagonal in *dtype* on *device*, its wires reordered ascending."""
+    d = d.to(device=device, dtype=dtype)
+    if order is not None:
+        lead = tuple(d.shape[:-1])
+        o = len(lead)
+        d = d.reshape(lead + (2,) * k).permute(*range(o), *[o + i for i in order])
+        d = d.reshape(lead + (-1,))
+    return d
+
+
 def _decompose_seam(op: Operation) -> Optional[list]:
     """Split a two-qubit gate into (conjugators, diagonal, conjugators^dag).
 
@@ -105,13 +125,11 @@ def _decompose_seam(op: Operation) -> Optional[list]:
     letters = _conjugator_letters(op)
     if letters is None:
         return None
-    mat = op.matrix
-    ks = [None if _CONJ[c] is None else torch.as_tensor(_CONJ[c], dtype=mat.dtype,
-                                                         device=mat.device)
+    ks = [None if _CONJ[c] is None else torch.as_tensor(_CONJ[c], dtype=torch.complex128)
           for c in letters]
-    kmats = [torch.eye(2, dtype=mat.dtype, device=mat.device) if k is None else k for k in ks]
+    kmats = [torch.eye(2, dtype=torch.complex128) if k is None else k for k in ks]
     kron = torch.kron(kmats[0], kmats[1])
-    d4 = torch.diagonal(kron.conj().T @ mat @ kron)
+    d4 = lazy(_seam_diagonal, kron, op.matrix)
 
     items: list = []
     for w, k in zip(op.wires, ks):
@@ -221,35 +239,42 @@ def _compose_bits(group: list, lo: int, hi: int, n: int, dtype, device) -> torch
     return mat
 
 
-def _lift_window(mat: torch.Tensor, lo: int, hi: int, region: str, n: int):
-    """Lift a window to the kernels' shapes; returns (mat, lo, hi).
+def _lift_span(lo: int, hi: int, region: str, n: int) -> Tuple[int, int, list]:
+    """Lift a window's span to the kernels' shapes; returns ``(lo, hi,
+    pads)``, *pads* the identity extensions in order, each ``("high", bits)``
+    (new high bits: ``kron(eye, W)``) or ``("low", bits)`` (``kron(W, eye)``).
 
     Minor windows lift to exactly [0, 8) (or keep [0, 9)); row windows lift
     to width >= 7 (K >= 128) by identity-extension.
     """
-
-    def eye(bits: int) -> torch.Tensor:
-        return torch.eye(2**bits, dtype=mat.dtype, device=mat.device)
-
+    pads: list = []
     if region == "L" and lo == 0:
         target = 8 if hi <= 8 else 9
         if hi < target:
-            mat = torch.kron(eye(target - hi), mat)  # new bits are HIGH bits
+            pads.append(("high", target - hi))  # new bits are HIGH bits
             hi = target
-        return mat, lo, hi
+        return lo, hi, pads
     if hi - lo < 7:
         base = 7 if region == "L" else n - CHAIN_HB
         top = CHAIN_SL if region == "L" else n
         new_lo = max(base, hi - 7)
         if new_lo < lo:
-            mat = torch.kron(mat, eye(lo - new_lo))
+            pads.append(("low", lo - new_lo))
             lo = new_lo
         if hi - lo < 7:
             new_hi = min(top, lo + 7)
             if new_hi > hi:
-                mat = torch.kron(eye(new_hi - hi), mat)
+                pads.append(("high", new_hi - hi))
                 hi = new_hi
-    return mat, lo, hi
+    return lo, hi, pads
+
+
+def _pad_window(mat: torch.Tensor, pads: list) -> torch.Tensor:
+    """Apply :func:`_lift_span`'s identity extensions to a window."""
+    for side, bits in pads:
+        eye = torch.eye(2**bits, dtype=mat.dtype, device=mat.device)
+        mat = bkron(eye, mat) if side == "high" else bkron(mat, eye)
+    return mat
 
 
 def _fuse_group(g: _Group, n: int, dtype, device) -> Optional[Tuple[tuple, list]]:
@@ -266,9 +291,9 @@ def _fuse_group(g: _Group, n: int, dtype, device) -> Optional[Tuple[tuple, list]
 
     def emit_window(ops: list, lo: int, hi: int) -> None:
         mat = _compose_bits(ops, lo, hi, n, dtype, device)
-        mat, lo2, hi2 = _lift_window(mat, lo, hi, region, n)
+        lo2, hi2, pads = _lift_span(lo, hi, region, n)
         descs.append(("win", lo2, hi2))
-        payloads.append(mat)
+        payloads.append(lazy(_pad_window, mat, pads) if pads else mat)
 
     def flush(idxs: Optional[List[int]] = None) -> None:
         if idxs is None:
@@ -287,12 +312,9 @@ def _fuse_group(g: _Group, n: int, dtype, device) -> Optional[Tuple[tuple, list]
             # (= bits descending) if recorded otherwise.
             k = len(wires)
             srt_w = sorted(wires)
-            d = payload.to(device=device, dtype=dtype)
-            if list(wires) != srt_w:
-                order = [list(wires).index(w) for w in srt_w]
-                d = d.reshape((2,) * k).permute(*order).reshape(-1)
+            order = [list(wires).index(w) for w in srt_w] if list(wires) != srt_w else None
             descs.append(("diag", tuple(sorted(bits, reverse=True))))
-            payloads.append(d)
+            payloads.append(lazy(_diag_sorted, payload, order, k, device, dtype))
             continue
 
         op = payload  # a _GateShim: ("mat", matrix, wires)

@@ -44,6 +44,17 @@ under the wgmma shape rule); the adjoint
 steps' ``gw = G0 W`` multiplies in float32 on the CUDA cores
 (``csrc/cgemm_tile.cuh``).
 
+B1-B4 also have batch entries (``csrc/window_batch.cuh``, compiled into
+their sources; launch counts ``window_apply_batch``,
+``window_apply_bwd_batch``, ``window_apply_top_batch``,
+``window_apply_top_bwd_batch``): the same wrappers given a batched ``(2, Bt,
+2**n)`` state launch one kernel for the whole batch, with a shared ``(2, K,
+K)`` window or one per element ``(Bt, 2, K, K)``, in float32 or float64 on
+the CUDA cores (the backward's gram per element, or summed over the batch
+for a shared window, in a fixed order); ``rotate`` takes a batched state
+as ``2 * Bt`` planes.  A float64 state without a batch axis runs the batch
+entries as a batch of one.
+
 The library is built at first use into ``build/kernels/`` at the repository
 root and rebuilt whenever a source (or the compiler flags) changes: its file
 name carries a hash of both.  Nothing is compiled or loaded at import time.
@@ -97,15 +108,22 @@ SOURCES = (
     "rotate_pair.cu", "chain_apply.cu", "adjoint_chain.cu",
 )
 HEADERS = ("cgemm_tile.cuh", "adjoint_tc.cuh", "forward_wgmma.cuh", "transpose_tile.cuh",
-           "chain_block.cuh")
+           "chain_block.cuh", "window_batch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The batch entries of B1-B4 (``csrc/window_batch.cuh``, compiled into their
+# kernels' sources): a batched ``(2, Bt, 2**n)`` state in one launch, with a
+# shared or a per-element window; each counts its own launches.
+BATCH_KERNELS = ("window_apply_batch", "window_apply_bwd_batch", "window_apply_top_batch",
+                 "window_apply_top_bwd_batch")
+
 # Launches per wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {Path(s).stem: 0 for s in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*(Path(s).stem for s in SOURCES),
+                                                 *BATCH_KERNELS)}
 
 # Compiler output (ptxas register and shared-memory use) of the last build.
 BUILD_LOG: str = ""
@@ -202,7 +220,15 @@ def _argtypes() -> Dict[str, list]:
         "window_apply_top": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, A, K, stream
         "window_apply_top_tile": [ptr] * 3 + [i64] * 2 + [ptr],  # x, w, y, A, K, stream
         "window_apply_top_bwd": bwd + [i64] * 3 + flags,
+        # x, w, y, E, A, K, [B,] w_stride, f64, stream
+        "window_apply_batch": [ptr] * 3 + [i64] * 5 + [i32, ptr],
+        "window_apply_top_batch": [ptr] * 3 + [i64] * 4 + [i32, ptr],
+        # w, g, x, gp, gw, ws, E, A, K, [B,] w_stride, f64, stream
+        "window_apply_bwd_batch": [ptr] * 6 + [i64] * 5 + [i32, ptr],
+        "window_apply_top_bwd_batch": [ptr] * 6 + [i64] * 4 + [i32, ptr],
+        "window_batch_splits": [i64] * 3,
         "rotate": [ptr, ptr, i64, i64, ptr],
+        "rotate_batch": [ptr, ptr, i64, i64, i64, i32, ptr],
         "rotate_b16": [ptr, ptr, i64, i64, ptr],
         "rotmat_apply": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, K, X, stream
         "rotmat_apply_bwd": bwd + [i64] * 3 + flags,
@@ -237,7 +263,7 @@ def _load() -> ctypes.CDLL:
             for name, args in _argtypes().items():
                 fn = getattr(lib, f"qml_{name}")
                 fn.argtypes = args
-                fn.restype = ctypes.c_int
+                fn.restype = ctypes.c_longlong if name == "window_batch_splits" else ctypes.c_int
             _lib = lib
     return _lib
 
@@ -272,6 +298,18 @@ def _check(name: str, label: str, t: torch.Tensor, shape: tuple, dtypes=(torch.f
         raise ValueError(f"{name}: {label} must be contiguous")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != {shape}")
+
+
+def _check_out_dtype_batch(name: str, x: torch.Tensor, out_dtype: torch.dtype) -> None:
+    if out_dtype != x.dtype:
+        raise TypeError(f"{name}: the batch entries give the cotangent in the state's dtype "
+                        f"{x.dtype}, not {out_dtype}")
+
+
+def _single(x: torch.Tensor) -> bool:
+    """A float64 state on the card without a batch axis: it runs the batch
+    entries as a batch of one (the single-state kernels take float32)."""
+    return x.dtype == torch.float64 and not kernels.is_batched(x)
 
 
 def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
@@ -355,6 +393,79 @@ def _launch_window_apply_top(psi2, w2, k, n):
                           split_w=True)
 
 
+_BATCH_DTYPES = (torch.float32, torch.float64)
+
+
+def _batch_window(name: str, psi2: torch.Tensor, w2: torch.Tensor, K: int, n: int) -> int:
+    """Checks a batch entry's state ``(2, Bt, 2**n)`` and window (shared
+    ``(2, K, K)`` or per element ``(Bt, 2, K, K)``), float32 or float64 both;
+    returns the window's stride between elements (0 when shared)."""
+    E = psi2.shape[1]
+    _check(name, "state", psi2, (2, E, 2**n), _BATCH_DTYPES)
+    if w2.dim() == 4:
+        _check(name, "window", w2, (E, 2, K, K), (psi2.dtype,))
+        return 2 * K * K
+    _check(name, "window", w2, (2, K, K), (psi2.dtype,))
+    return 0
+
+
+def _f64(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.float64)
+
+
+def _launch_window_apply_batch(psi2, w2, a, k, n):
+    if not (0 <= a and 1 <= k and a + k < n):
+        raise ValueError(f"window_apply: support [{a}, {a + k}) needs B > 1 in n={n}")
+    stride = _batch_window("window_apply_batch", psi2, w2, 2**k, n)
+    y = torch.empty_like(psi2)
+    with torch.cuda.device(psi2.device):
+        code = _load().qml_window_apply_batch(
+            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), psi2.shape[1], 2**a, 2**k,
+            2 ** (n - a - k), stride, _f64(psi2), _stream(psi2))
+    _raise_on("window_apply_batch", code)
+    LAUNCHES["window_apply_batch"] += 1
+    return y
+
+
+def _launch_window_apply_top_batch(psi2, w2, k, n):
+    if not 1 <= k <= n:
+        raise ValueError(f"window_apply_top: k={k} out of range for n={n}")
+    stride = _batch_window("window_apply_top_batch", psi2, w2, 2**k, n)
+    y = torch.empty_like(psi2)
+    with torch.cuda.device(psi2.device):
+        code = _load().qml_window_apply_top_batch(
+            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), psi2.shape[1], 2 ** (n - k), 2**k,
+            stride, _f64(psi2), _stream(psi2))
+    _raise_on("window_apply_top_batch", code)
+    LAUNCHES["window_apply_top_batch"] += 1
+    return y
+
+
+def _launch_bwd_batch(name, w2, g, x, a, k, n):
+    """One batched backward ``qml_<name>(w, g, x, gp, gw, ws, E, A, K, [B,]
+    w_stride, f64, stream)`` (float32 or float64 throughout): ``gp`` and
+    ``gw`` (one gram an element for a per-element window, their sum for a
+    shared one)."""
+    K = 2**k
+    stride = _batch_window(name, x, w2, K, n)
+    E = x.shape[1]
+    _check(name, "cotangent", g, tuple(x.shape), (x.dtype,))
+    lib = _load()
+    B = 2 ** (n - a - k)
+    splits = lib.qml_window_batch_splits(E, K, 2**n // K)
+    gp = torch.empty_like(x)
+    gw = torch.empty_like(w2)
+    ws = torch.empty((E * splits, 2, K, K), dtype=x.dtype, device=x.device)
+    geometry = (E, 2**a, K, B) if B > 1 else (E, 2**a, K)
+    with torch.cuda.device(x.device):
+        code = getattr(lib, f"qml_{name}")(
+            w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
+            ws.data_ptr(), *geometry, stride, _f64(x), _stream(x))
+    _raise_on(name, code)
+    LAUNCHES[name] += 1
+    return gp, gw
+
+
 def _check_rotation(name, r, n):
     if not 1 <= r < n:
         raise ValueError(f"{name}: r={r} out of range for n={n}")
@@ -399,6 +510,15 @@ def _launch_rotwin_apply(psi2, w2, r, k, n):
 
 def _launch_rotate(psi2, r, n):
     _check_rotation("rotate", r, n)
+    if kernels.is_batched(psi2):
+        _check("rotate", "state", psi2, (2, psi2.shape[1], 2**n), _BATCH_DTYPES)
+        y = torch.empty_like(psi2)
+        with torch.cuda.device(psi2.device):
+            code = _load().qml_rotate_batch(psi2.data_ptr(), y.data_ptr(), 2 * psi2.shape[1],
+                                            2 ** (n - r), 2**r, _f64(psi2), _stream(psi2))
+        _raise_on("rotate", code)
+        LAUNCHES["rotate"] += 1
+        return y
     _check("rotate", "state", psi2, (2, 2**n), _COTANGENT_DTYPES)
     lib = _load()
     fn = lib.qml_rotate if psi2.dtype == torch.float32 else lib.qml_rotate_b16
@@ -452,7 +572,8 @@ class _WindowFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         psi2, w2 = ctx.saved_tensors
-        gp, gw = ctx.bwd(w2, g.contiguous(), psi2, *ctx.geom, torch.float32)
+        out = torch.float64 if psi2.dtype == torch.float64 else torch.float32
+        gp, gw = ctx.bwd(w2, g.to(psi2.dtype).contiguous(), psi2, *ctx.geom, out)
         return (gp, gw, None, None) + (None,) * len(ctx.geom)
 
 
@@ -479,6 +600,10 @@ def window_apply(psi2: torch.Tensor, w2: torch.Tensor, a: int, k: int, n: int) -
     real-split state, support ``[a, a+k)`` with ``B = 2**(n-a-k) > 1``."""
     if _on_cpu(psi2, w2):
         return kernels.window_apply_plain(psi2, w2, a, k, n)
+    if _single(psi2):
+        return window_apply(psi2.unsqueeze(1), w2, a, k, n).squeeze(1)
+    if kernels.is_batched(psi2):
+        return _WindowFn.apply(psi2, w2, _launch_window_apply_batch, window_apply_bwd, a, k, n)
     return _WindowFn.apply(psi2, w2, _launch_window_apply, window_apply_bwd, a, k, n)
 
 
@@ -486,6 +611,11 @@ def window_apply_top(psi2: torch.Tensor, w2: torch.Tensor, k: int, n: int) -> to
     """``y[a,i] = sum_j x[a,j] W[i,j]`` for a window on ``[n-k, n)``."""
     if _on_cpu(psi2, w2):
         return kernels.window_apply_top_plain(psi2, w2, k, n)
+    if _single(psi2):
+        return window_apply_top(psi2.unsqueeze(1), w2, k, n).squeeze(1)
+    if kernels.is_batched(psi2):
+        return _WindowFn.apply(psi2, w2, _launch_window_apply_top_batch, window_apply_top_bwd,
+                               k, n)
     return _WindowFn.apply(psi2, w2, _launch_window_apply_top, window_apply_top_bwd, k, n)
 
 
@@ -495,6 +625,8 @@ def rotate(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
     state is float32 or bfloat16 (a cotangent of the saved backward)."""
     if _on_cpu(psi2):
         return kernels.rotate_plain(psi2, r, n)
+    if _single(psi2):
+        return rotate(psi2.unsqueeze(1), r, n).squeeze(1)
     return _Rotate.apply(psi2, r, n)
 
 
@@ -533,6 +665,12 @@ def window_apply_bwd(
         return kernels.window_apply_bwd_plain(w2, g, x, a, k, n, out_dtype)
     if not (0 <= a and 1 <= k and a + k < n):
         raise ValueError(f"window_apply_bwd: support [{a}, {a + k}) needs B > 1 in n={n}")
+    if _single(x):
+        gp, gw = window_apply_bwd(w2, g.unsqueeze(1), x.unsqueeze(1), a, k, n, out_dtype)
+        return gp.squeeze(1), gw
+    if kernels.is_batched(x):
+        _check_out_dtype_batch("window_apply_bwd_batch", x, out_dtype)
+        return _launch_bwd_batch("window_apply_bwd_batch", w2, g, x, a, k, n)
     K = 2**k
     return _launch_bwd("window_apply_bwd", w2, g, x, K, n, gram_splits(K, 2**n // K),
                        out_dtype, (2**a, K, 2 ** (n - a - k)))
@@ -548,6 +686,12 @@ def window_apply_top_bwd(
         return kernels.window_apply_top_bwd_plain(w2, g, x, k, n, out_dtype)
     if not 1 <= k <= n:
         raise ValueError(f"window_apply_top_bwd: k={k} out of range for n={n}")
+    if _single(x):
+        gp, gw = window_apply_top_bwd(w2, g.unsqueeze(1), x.unsqueeze(1), k, n, out_dtype)
+        return gp.squeeze(1), gw
+    if kernels.is_batched(x):
+        _check_out_dtype_batch("window_apply_top_bwd_batch", x, out_dtype)
+        return _launch_bwd_batch("window_apply_top_bwd_batch", w2, g, x, n - k, k, n)
     A = 2 ** (n - k)
     return _launch_bwd("window_apply_top_bwd", w2, g, x, 2**k, n, gram_splits(2**k, A),
                        out_dtype, (A, 2**k))

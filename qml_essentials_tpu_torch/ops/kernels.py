@@ -14,6 +14,11 @@ the real-split pair ``psi2`` of shape ``(2, 2**n)`` (``psi2[0] = Re``,
   ``[0, k)``, and move back;
 * diagonal gates broadcast-multiply against the same view.
 
+A batch of states is ``(2, Bt, 2**n)`` (Re/Im outermost, the batch folded
+into the view's A axis); its gates may carry a leading batch axis too
+(``(Bt, K, K)``, a pair ``(Bt, 2, K, K)``), and every function here takes
+both.
+
 ``window_apply_plain`` / ``window_apply_top_plain`` / ``rotate_plain``, the
 backward versions ``window_apply_bwd_plain`` / ``window_apply_top_bwd_plain``
 and the adjoint-state steps ``adjoint_step_plain`` /
@@ -45,14 +50,37 @@ from qml_essentials_tpu_torch.ops import cuda_kernels
 
 
 def permute_gate_qubits(mat: torch.Tensor, perm: Sequence[int], k: int) -> torch.Tensor:
-    """Reorder the qubits of a ``(2**k, 2**k)`` gate so qubit i -> perm[i]."""
+    """Reorder the qubits of a ``(..., 2**k, 2**k)`` gate so qubit i ->
+    perm[i] (leading dimensions, such as a batch, are kept)."""
     perm = list(perm)
     if perm == list(range(k)):
         return mat
-    t = mat.reshape((2,) * (2 * k))
-    inv = [int(i) for i in np.argsort(perm)]
-    t = t.permute(*inv, *[p + k for p in inv])
-    return t.reshape(2**k, 2**k)
+    lead = tuple(mat.shape[:-2])
+    t = mat.reshape(lead + (2,) * (2 * k))
+    o = len(lead)
+    inv = [int(i) + o for i in np.argsort(perm)]
+    t = t.permute(*range(o), *inv, *[p + k for p in inv])
+    return t.reshape(lead + (2**k, 2**k))
+
+
+def bkron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kronecker product of the last two dimensions of *a* and *b*, their
+    leading (batch) dimensions broadcast; ``torch.kron`` when both are
+    plain matrices."""
+    if a.dim() == 2 and b.dim() == 2:
+        return torch.kron(a, b)
+    (m, p), (q, r) = a.shape[-2:], b.shape[-2:]
+    out = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return out.reshape(out.shape[:-4] + (m * q, p * r))
+
+
+def bouter(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Outer product of the last dimensions of *a* and *b*, flattened
+    (``torch.kron`` of vectors), their leading dimensions broadcast."""
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.kron(a, b)
+    out = a[..., :, None] * b[..., None, :]
+    return out.reshape(out.shape[:-2] + (-1,))
 
 
 def lift_matrix(
@@ -68,7 +96,7 @@ def lift_matrix(
     full = mat
     if missing:
         eye = torch.eye(2 ** len(missing), dtype=mat.dtype, device=mat.device)
-        full = torch.kron(mat, eye)
+        full = bkron(mat, eye)
     current = op_wires + missing
     if current == all_wires:
         return full
@@ -82,12 +110,13 @@ def lift_matrix(
 
 
 def _move_axis_front(flat: torch.Tensor, p: int, n: int) -> torch.Tensor:
-    """Move conceptual qubit axis *p* to the front of a flat state (one pass)."""
+    """Move conceptual qubit axis *p* to the front of a flat state (one pass;
+    leading dimensions are kept)."""
     if p == 0:
         return flat
     A = 2**p
-    B = flat.numel() // (2 * A)
-    return flat.reshape(A, 2, B).transpose(0, 1).reshape(-1)
+    lead = tuple(flat.shape[:-1])
+    return flat.reshape(lead + (A, 2, -1)).transpose(-3, -2).reshape(flat.shape)
 
 
 def _move_front_to(flat: torch.Tensor, p: int, n: int) -> torch.Tensor:
@@ -95,8 +124,8 @@ def _move_front_to(flat: torch.Tensor, p: int, n: int) -> torch.Tensor:
     if p == 0:
         return flat
     A = 2**p
-    B = flat.numel() // (2 * A)
-    return flat.reshape(2, A, B).transpose(0, 1).reshape(-1)
+    lead = tuple(flat.shape[:-1])
+    return flat.reshape(lead + (2, A, -1)).transpose(-3, -2).reshape(flat.shape)
 
 
 @lru_cache(maxsize=4096)
@@ -124,7 +153,11 @@ def apply_matrix_flat(
     psi: torch.Tensor, mat: torch.Tensor, wires: Sequence[int], n: int
 ) -> torch.Tensor:
     """Contract a complex ``(2**k, 2**k)`` gate against *wires* of a flat
-    complex state (used to compose fused windows)."""
+    complex state (used to compose fused windows).
+
+    A batch rides on leading dimensions: a ``(Bt, 2**n)`` state, a
+    ``(Bt, 2**k, 2**k)`` gate, or both (a plain operand is broadcast; a
+    batched gate on a plain state gives a batched state)."""
     mat = mat.to(device=psi.device, dtype=psi.dtype)
     wires = [int(w) for w in wires]
     k = len(wires)
@@ -132,12 +165,16 @@ def apply_matrix_flat(
     if wires != srt:
         rank = {w: i for i, w in enumerate(srt)}
         mat = permute_gate_qubits(mat, [rank[w] for w in wires], k)
+    lead = tuple(psi.shape[:-1])
+    dim = psi.shape[-1]
 
     if _contiguous(srt):
         A = 2 ** srt[0]
-        B = psi.numel() // (A * 2**k)
-        out = torch.einsum("ij,ajb->aib", mat, psi.reshape(A, 2**k, B))
-        return out.reshape(psi.shape)
+        x = psi.reshape(lead + (A, 2**k, dim // (A * 2**k)))
+        if mat.dim() == 2 and not lead:
+            return torch.einsum("ij,ajb->aib", mat, x).reshape(psi.shape)
+        out = mat[..., None, :, :] @ x
+        return out.reshape(out.shape[:-3] + (dim,))
 
     r = _cyclic_run(srt, n)
     if r is not None:
@@ -148,7 +185,8 @@ def apply_matrix_flat(
     pulls, restores = _gather_plan(tuple(srt))
     for p in pulls:
         psi = _move_axis_front(psi, p, n)
-    psi = (mat @ psi.reshape(2**k, -1)).reshape(-1)
+    psi = mat @ psi.reshape(lead + (2**k, -1))
+    psi = psi.reshape(psi.shape[:-2] + (dim,))
     for p in restores:
         psi = _move_front_to(psi, p, n)
     return psi
@@ -164,14 +202,22 @@ def from_ri(psi2: torch.Tensor) -> torch.Tensor:
     return torch.complex(psi2[0], psi2[1])
 
 
-def _pair_of(mat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Complex (or real) matrix -> stacked ``(2, ...)`` Re/Im pair in the
-    dtype and on the device of the state *like*."""
+def _pair_of(mat: torch.Tensor, like: torch.Tensor, vector: bool = False) -> torch.Tensor:
+    """Complex (or real) matrix -> stacked ``(2, K, K)`` Re/Im pair in the
+    dtype and on the device of the state *like*; a batched ``(Bt, K, K)``
+    matrix gives ``(Bt, 2, K, K)``, and with *vector* a ``(d,)`` or
+    ``(Bt, d)`` diagonal gives ``(2, d)`` or ``(Bt, 2, d)``."""
+    axis = -2 if vector else -3
     if mat.is_complex():
-        pair = torch.stack([mat.real, mat.imag])
+        pair = torch.stack([mat.real, mat.imag], dim=axis)
     else:
-        pair = torch.stack([mat, torch.zeros_like(mat)])
+        pair = torch.stack([mat, torch.zeros_like(mat)], dim=axis)
     return pair.to(device=like.device, dtype=like.dtype)
+
+
+def is_batched(psi2: torch.Tensor) -> bool:
+    """Whether a real-split state carries a batch axis: ``(2, Bt, 2**n)``."""
+    return psi2.dim() == 3
 
 
 def apply_matrix_flat_ri(
@@ -183,7 +229,10 @@ def apply_matrix_flat_ri(
 
 def _contract(psi2: torch.Tensor, w2: torch.Tensor, a: int, k: int, n: int) -> torch.Tensor:
     """Contiguous window ``[a, a+k)``: the top-window kernel when the support
-    ends at the register top (B = 1), the window kernel otherwise."""
+    ends at the register top (B = 1), the window kernel otherwise.  A
+    batched state ``(2, Bt, 2**n)`` takes the same wrappers, whose batch
+    entries run one launch for the whole batch with a shared ``(2, K, K)``
+    or a per-element ``(Bt, 2, K, K)`` window."""
     if a + k == n:
         return cuda_kernels.window_apply_top(psi2, w2, k, n)
     return cuda_kernels.window_apply(psi2, w2, a, k, n)
@@ -193,17 +242,15 @@ def apply_matrix_pair_ri(
     psi2: torch.Tensor, w2: torch.Tensor, wires: Sequence[int], n: int
 ) -> torch.Tensor:
     """Gate application with the gate given as a stacked ``(2, K, K)``
-    (Re, Im) pair on the flat real-split state."""
+    (Re, Im) pair on the flat real-split state; on a batched ``(2, Bt,
+    2**n)`` state the gate may be per element, ``(Bt, 2, K, K)``."""
     w2 = w2.to(device=psi2.device, dtype=psi2.dtype)
     wires = [int(w) for w in wires]
     k = len(wires)
     srt = sorted(wires)
     if wires != srt:
         rank = {w: i for i, w in enumerate(srt)}
-        perm = [rank[w] for w in wires]
-        w2 = torch.stack(
-            [permute_gate_qubits(w2[0], perm, k), permute_gate_qubits(w2[1], perm, k)]
-        )
+        w2 = permute_gate_qubits(w2, [rank[w] for w in wires], k)
     w2 = w2.contiguous()
 
     if _contiguous(srt):
@@ -243,10 +290,19 @@ def window_apply_plain(
     psi2: torch.Tensor, w2: torch.Tensor, a: int, k: int, n: int
 ) -> torch.Tensor:
     """Plain version of the window kernel: ``y[a,i,b] = sum_j W[i,j] x[a,j,b]``
-    on the ``(2, A, K, B)`` view, four real matrix products."""
+    on the ``(2, A, K, B)`` view, four real matrix products.
+
+    A batched state ``(2, Bt, 2**n)`` folds its batch into A with a shared
+    ``(2, K, K)`` window, or takes a per-element ``(Bt, 2, K, K)`` one."""
     K = 2**k
     A = 2**a
-    x = psi2.reshape(2, A, K, -1)
+    if is_batched(psi2) and w2.dim() == 4:
+        x = psi2.reshape(2, psi2.shape[1], A, K, -1)
+        wr, wi = w2[:, 0, None], w2[:, 1, None]
+        yr = wr @ x[0] - wi @ x[1]
+        yi = wr @ x[1] + wi @ x[0]
+        return torch.stack([yr, yi]).reshape(psi2.shape)
+    x = psi2.reshape(2, -1, K, 2 ** (n - a - k))
     wr, wi = w2[0], w2[1]
     yr = _real_window_product(wr, x[0]) - _real_window_product(wi, x[1])
     yi = _real_window_product(wr, x[1]) + _real_window_product(wi, x[0])
@@ -257,13 +313,32 @@ def window_apply_top_plain(
     psi2: torch.Tensor, w2: torch.Tensor, k: int, n: int
 ) -> torch.Tensor:
     """Plain version of the top-window kernel: support ``[n-k, n)``, so the
-    window axis is the contiguous one and ``Y = X W^T`` on ``(2, A, K)``."""
+    window axis is the contiguous one and ``Y = X W^T`` on ``(2, A, K)``
+    (``(2, Bt, A, K)`` for a batched state, W shared or per element)."""
     K = 2**k
-    x = psi2.reshape(2, -1, K)
-    wrT, wiT = w2[0].T, w2[1].T
+    x = psi2.reshape(2, -1, K) if w2.dim() == 3 else psi2.reshape(2, psi2.shape[1], -1, K)
+    wrT, wiT = w2[..., 0, :, :].mT, w2[..., 1, :, :].mT
     yr = x[0] @ wrT - x[1] @ wiT
     yi = x[0] @ wiT + x[1] @ wrT
     return torch.stack([yr, yi]).reshape(psi2.shape)
+
+
+def _columns(t: torch.Tensor, K: int, B: int, per_element: bool) -> torch.Tensor:
+    """``(2, [Bt,] 2**n)`` -> the window's columns ``(2, K, C)``, or per
+    element ``(2, Bt, K, C)``: column ``c = a*B + b`` of element e holds
+    ``t[e, a, :, b]``."""
+    if per_element:
+        v = t.reshape(2, t.shape[1], -1, K, B).transpose(2, 3)
+        return v.reshape(2, t.shape[1], K, -1)
+    return t.reshape(2, -1, K, B).transpose(1, 2).reshape(2, K, -1)
+
+
+def _gram(gc: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    """``gw = g conj(x)^T`` over the columns: Re ``gr xr^T + gi xi^T``, Im
+    ``gi xr^T - gr xi^T``, stacked on the third dimension from the right."""
+    gwr = gc[0] @ xc[0].mT + gc[1] @ xc[1].mT
+    gwi = gc[1] @ xc[0].mT - gc[0] @ xc[1].mT
+    return torch.stack([gwr, gwi], dim=-3)
 
 
 def window_apply_bwd_plain(
@@ -279,20 +354,19 @@ def window_apply_bwd_plain(
     * ``gw = g conj(x)^T`` summed over all ``A*B`` columns (Re ``gr xr^T +
       gi xi^T``, Im ``gi xr^T - gr xi^T``), in the working dtype of ``x``.
 
-    ``g`` may be bfloat16; it is upcast to the working dtype first."""
+    On a batched ``(2, Bt, 2**n)`` state a per-element ``(Bt, 2, K, K)``
+    window gets one ``gw`` per element, and a shared one the sum of those
+    over the batch.  ``g`` may be bfloat16; it is upcast to the working
+    dtype first."""
     K = 2**k
-    A = 2**a
+    B = 2 ** (n - a - k)
     g = g.to(x.dtype)
-    gv = g.reshape(2, A, K, -1)
-    wrT, wiT = w2[0].T, w2[1].T
-    gpr = _real_window_product(wrT, gv[0]) + _real_window_product(wiT, gv[1])
-    gpi = _real_window_product(wrT, gv[1]) - _real_window_product(wiT, gv[0])
-    gp = torch.stack([gpr, gpi]).reshape(x.shape).to(out_dtype)
-    gc = gv.transpose(1, 2).reshape(2, K, -1)
-    xc = x.reshape(2, A, K, -1).transpose(1, 2).reshape(2, K, -1)
-    gwr = gc[0] @ xc[0].T + gc[1] @ xc[1].T
-    gwi = gc[1] @ xc[0].T - gc[0] @ xc[1].T
-    return gp, torch.stack([gwr, gwi])
+    per_element = w2.dim() == 4
+    gp = window_apply_plain(g, conj_pair_mat(w2), a, k, n).to(out_dtype)
+    if is_batched(x):
+        gw = _gram(_columns(g, K, B, True), _columns(x, K, B, True))
+        return gp, gw if per_element else gw.sum(0)
+    return gp, _gram(_columns(g, K, B, False), _columns(x, K, B, False))
 
 
 def window_apply_top_bwd_plain(
@@ -301,30 +375,23 @@ def window_apply_top_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the top-window backward kernel: for ``Y = X W^T`` on
     ``(2, A, K)``, returns ``gp = g conj(W)`` (in *out_dtype*) and
-    ``gw[i, j] = sum_t g[t, i] conj(x[t, j])`` (in the working dtype)."""
-    K = 2**k
-    g = g.to(x.dtype)
-    gv = g.reshape(2, -1, K)
-    xv = x.reshape(2, -1, K)
-    wr, wi = w2[0], w2[1]
-    gpr = gv[0] @ wr + gv[1] @ wi
-    gpi = gv[1] @ wr - gv[0] @ wi
-    gp = torch.stack([gpr, gpi]).reshape(x.shape).to(out_dtype)
-    gwr = gv[0].T @ xv[0] + gv[1].T @ xv[1]
-    gwi = gv[1].T @ xv[0] - gv[0].T @ xv[1]
-    return gp, torch.stack([gwr, gwi])
+    ``gw[i, j] = sum_t g[t, i] conj(x[t, j])`` (in the working dtype); per
+    element or summed over a batch as :func:`window_apply_bwd_plain`."""
+    return window_apply_bwd_plain(w2, g, x, n - k, k, n, out_dtype)
 
 
 def rotate_plain(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
     """Plain version of the rotation kernel: qubit q -> (q + r) mod n, the
     transpose ``(2, X, R) -> (2, R, X)`` with ``R = 2**r``, in any dtype."""
     R = 2 ** (r % n)
-    return psi2.reshape(2, -1, R).transpose(1, 2).reshape(psi2.shape)
+    lead = tuple(psi2.shape[:-1])
+    return psi2.reshape(lead + (-1, R)).transpose(-1, -2).reshape(psi2.shape)
 
 
 def conj_pair_mat(w2: torch.Tensor) -> torch.Tensor:
-    """Real-split conjugate transpose: (Re, Im) -> (Re^T, -Im^T)."""
-    return torch.stack([w2[0].T, -w2[1].T])
+    """Real-split conjugate transpose: (Re, Im) -> (Re^T, -Im^T), on the
+    last three dimensions (a per-element ``(Bt, 2, K, K)`` window too)."""
+    return torch.stack([w2[..., 0, :, :].mT, -w2[..., 1, :, :].mT], dim=-3)
 
 
 def adjoint_step_plain(
@@ -586,7 +653,8 @@ def _rotate_qubits(psi: torch.Tensor, r: int, n: int) -> torch.Tensor:
     if r % n == 0:
         return psi
     R = 2 ** (r % n)
-    return psi.reshape(-1, R).transpose(0, 1).reshape(psi.shape)
+    lead = tuple(psi.shape[:-1])
+    return psi.reshape(lead + (-1, R)).transpose(-1, -2).reshape(psi.shape)
 
 
 def _rotate_qubits_ri(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
@@ -597,57 +665,57 @@ def _rotate_qubits_ri(psi2: torch.Tensor, r: int, n: int) -> torch.Tensor:
 
 
 def _move_axis_front_ri(psi2: torch.Tensor, p: int) -> torch.Tensor:
-    """Move conceptual qubit axis *p* to the front, per component."""
-    if p == 0:
-        return psi2
-    A = 2**p
-    dim = psi2.shape[-1]
-    return psi2.reshape(2, A, 2, dim // (2 * A)).transpose(1, 2).reshape(2, dim)
+    """Move conceptual qubit axis *p* to the front, per component (and per
+    element of a batched state)."""
+    return _move_axis_front(psi2, p, 0)
 
 
 def _move_front_to_ri(psi2: torch.Tensor, p: int) -> torch.Tensor:
     """Inverse of :func:`_move_axis_front_ri`."""
-    if p == 0:
-        return psi2
-    A = 2**p
-    dim = psi2.shape[-1]
-    return psi2.reshape(2, 2, A, dim // (2 * A)).transpose(1, 2).reshape(2, dim)
+    return _move_front_to(psi2, p, 0)
 
 
 def apply_diagonal_flat_ri(
     psi2: torch.Tensor, diag: torch.Tensor, wires: Sequence[int], n: int
 ) -> torch.Tensor:
     """Real-split diagonal gate: a broadcast complex multiply in real parts."""
-    return apply_diagonal_pair_ri(psi2, _pair_of(diag, psi2), wires, n)
+    return apply_diagonal_pair_ri(psi2, _pair_of(diag, psi2, vector=True), wires, n)
 
 
 def apply_diagonal_pair_ri(
     psi2: torch.Tensor, d2: torch.Tensor, wires: Sequence[int], n: int
 ) -> torch.Tensor:
-    """Diagonal gate given as a stacked ``(2, 2**k)`` (Re, Im) pair."""
+    """Diagonal gate given as a stacked ``(2, 2**k)`` (Re, Im) pair; on a
+    batched ``(2, Bt, 2**n)`` state it may be per element, ``(Bt, 2, 2**k)``."""
     d2 = d2.to(device=psi2.device, dtype=psi2.dtype)
     wires = [int(w) for w in wires]
     k = len(wires)
     srt = sorted(wires)
+    lead = tuple(d2.shape[:-2])
     if wires != srt:
-        order = [0] + [1 + wires.index(w) for w in srt]
-        d2 = d2.reshape((2,) + (2,) * k).permute(*order).reshape(2, -1)
+        o = len(lead) + 1
+        order = [o + wires.index(w) for w in srt]
+        d2 = d2.reshape(lead + (2,) + (2,) * k).permute(*range(o), *order).reshape(d2.shape)
+    if lead:
+        d2 = d2.transpose(0, 1)  # (2, Bt, 2**k) against (2, Bt, ...) states
     dr, di = d2[0], d2[1]
 
     def mul(t, dr_b, di_b):
         tr, ti = t[0], t[1]
         return torch.stack([tr * dr_b - ti * di_b, tr * di_b + ti * dr_b])
 
+    slead = tuple(psi2.shape[1:-1])
     dim = psi2.shape[-1]
     if _contiguous(srt):
         A = 2 ** srt[0]
-        t = psi2.reshape(2, A, 2**k, dim // (A * 2**k))
-        return mul(t, dr[None, :, None], di[None, :, None]).reshape(2, dim)
+        t = psi2.reshape((2,) + slead + (A, 2**k, dim // (A * 2**k)))
+        return mul(t, dr[..., None, :, None], di[..., None, :, None]).reshape(psi2.shape)
 
     pulls, restores = _gather_plan(tuple(srt))
     for p in pulls:
         psi2 = _move_axis_front_ri(psi2, p)
-    psi2 = mul(psi2.reshape(2, 2**k, -1), dr[:, None], di[:, None]).reshape(2, dim)
+    t = psi2.reshape((2,) + slead + (2**k, -1))
+    psi2 = mul(t, dr[..., :, None], di[..., :, None]).reshape((2,) + slead + (dim,))
     for p in restores:
         psi2 = _move_front_to_ri(psi2, p)
     return psi2
@@ -659,19 +727,22 @@ def apply_diagonal_pair_ri(
 
 
 def zero_state_ri(
-    n_qubits: int, dtype: torch.dtype = torch.float32, device=None
+    n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
+    batch: Optional[int] = None,
 ) -> torch.Tensor:
-    """|0...0> as a stacked (2, 2**n) real pair."""
-    psi2 = torch.zeros((2, 2**n_qubits), dtype=dtype, device=device)
-    psi2[0, 0] = 1.0
+    """|0...0> as a stacked (2, 2**n) real pair, or ``(2, batch, 2**n)``."""
+    lead = () if batch is None else (batch,)
+    psi2 = torch.zeros((2,) + lead + (2**n_qubits,), dtype=dtype, device=device)
+    psi2[0, ..., 0] = 1.0
     return psi2
 
 
 def zero_density_ri(
-    n_qubits: int, dtype: torch.dtype = torch.float32, device=None
+    n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
+    batch: Optional[int] = None,
 ) -> torch.Tensor:
-    """|0><0| as a stacked (2, 4**n) real pair."""
-    return zero_state_ri(2 * n_qubits, dtype, device)
+    """|0><0| as a stacked (2, 4**n) real pair, or ``(2, batch, 4**n)``."""
+    return zero_state_ri(2 * n_qubits, dtype, device, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -714,21 +785,24 @@ def reduce_diagonal_expectation(
     support and ``None`` (trace out) elsewhere.  A halving fold: one weighted
     pairwise reduction per qubit, total traffic ``~2 * 2**n``.
     """
-    v = probs.reshape(-1)
+    lead = tuple(probs.shape[:-1]) if probs.dim() > 1 else ()
+    v = probs
     for q in reversed(range(len(qubit_weights))):
-        v = v.reshape(-1, 2)
+        v = v.reshape(lead + (-1, 2))
         w = qubit_weights[q]
         if w is None:
-            v = v[:, 0] + v[:, 1]
+            v = v[..., 0] + v[..., 1]
         else:
-            v = w[0] * v[:, 0] + w[1] * v[:, 1]
-    return v.reshape(())
+            v = w[0] * v[..., 0] + w[1] * v[..., 1]
+    return v.reshape(lead)
 
 
 def marginal_probs_on(probs: torch.Tensor, keep: Sequence[int], n: int) -> torch.Tensor:
-    """Marginal distribution over the *keep* qubits (sorted order)."""
-    v = probs.reshape(-1)
+    """Marginal distribution over the *keep* qubits (sorted order), per row
+    of a ``(Bt, 2**n)`` batch."""
+    lead = tuple(probs.shape[:-1])
+    v = probs
     for q in sorted(set(range(n)) - set(int(k) for k in keep), reverse=True):
         A = 2**q
-        v = v.reshape(A, 2, -1).sum(dim=1).reshape(-1)
+        v = v.reshape(lead + (A, 2, -1)).sum(dim=-2).reshape(lead + (-1,))
     return v

@@ -182,7 +182,7 @@ class Operation:
 
     def dagger(self) -> "Operation":
         """Conjugate transpose, replacing this op on the active tape."""
-        op = Operation(wires=self.wires, matrix=self.matrix.conj().T, record=False)
+        op = Operation(wires=self.wires, matrix=self.matrix.mH, record=False)
         self._replace_on_tape(op)
         return op
 
@@ -346,7 +346,8 @@ class SWAP(Operation):
 
 
 class DiagonalQubitUnitary(Operation):
-    """Diagonal unitary ``U = diag(d_0, ..., d_{2^k-1})``.
+    """Diagonal unitary ``U = diag(d_0, ..., d_{2^k-1})`` (a batch of
+    diagonals ``(Bt, 2^k)`` gives a batch of gates).
 
     Used by the Golomb data encoding (Peters et al., arXiv:2209.05523).
     Application is a broadcast multiply (one state pass) on any wire subset.
@@ -359,13 +360,13 @@ class DiagonalQubitUnitary(Operation):
         self.diag = diag
         wires_list = _as_wire_list(wires)
         expected = 2 ** len(wires_list)
-        if tuple(diag.shape) != (expected,):
+        if diag.dim() not in (1, 2) or diag.shape[-1] != expected:
             raise ValueError(
                 f"DiagonalQubitUnitary expects {expected} diagonal entries "
                 f"for {len(wires_list)} wire(s), got shape {tuple(diag.shape)}"
             )
         kwargs.setdefault("name", "DiagU")
-        super().__init__(wires=wires, matrix=torch.diag(diag), **kwargs)
+        super().__init__(wires=wires, matrix=torch.diag_embed(diag), **kwargs)
 
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
         return kernels.apply_diagonal_flat_ri(psi2, self.diag, self.wires, n_qubits)
@@ -399,13 +400,16 @@ _PAULI_MATS = [_PAULI_MATRICES[label] for label in _PAULI_LABELS]
 
 
 def _pauli_exponential(theta, P: torch.Tensor) -> torch.Tensor:
-    """``exp(-i theta/2 P) = cos(theta/2) I - i sin(theta/2) P`` for P²=I."""
+    """``exp(-i theta/2 P) = cos(theta/2) I - i sin(theta/2) P`` for P²=I;
+    a batch of angles ``(Bt,)`` gives ``(Bt, dim, dim)``."""
     theta = _param(theta)
     cd = cdtype(theta.dtype)
     dim = P.shape[0]
     eye = _placed(_eye(dim), theta.device, cd)
     P = _placed(P, theta.device, cd)
     half = theta / 2
+    if half.dim():
+        half = half[..., None, None]
     return torch.cos(half).to(cd) * eye - 1j * torch.sin(half).to(cd) * P
 
 
@@ -482,9 +486,15 @@ CZ = _make_controlled_gate(PauliZ, "CZ")
 
 
 def _eye_with_block(dim: int, start: int, block: torch.Tensor) -> torch.Tensor:
-    """Identity of size *dim* whose trailing block from *start* is *block*."""
+    """Identity of size *dim* whose trailing block from *start* is *block*
+    (per element of a batched ``(Bt, b, b)`` block)."""
     head = _placed(_eye(start), block.device, block.dtype)
-    return torch.block_diag(head, block)
+    if block.dim() == 2:
+        return torch.block_diag(head, block)
+    b = block.shape[-1]
+    top = torch.cat([head, head.new_zeros(start, b)], dim=1).expand(block.shape[:-2] + (start, dim))
+    bottom = torch.cat([block.new_zeros(block.shape[:-1] + (start,)), block], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 class CCX(Operation):
@@ -520,9 +530,9 @@ class ControlledPhaseShift(Operation):
         self.phi = phi
         p = _param(phi)
         cd = cdtype(p.dtype)
-        ones = torch.ones(3, dtype=cd, device=p.device)
-        diag = torch.cat([ones, torch.exp(1j * p.to(cd)).reshape(1)])
-        super().__init__(wires=wires, matrix=torch.diag(diag), **kwargs)
+        ones = torch.ones(p.shape + (3,), dtype=cd, device=p.device)
+        diag = torch.cat([ones, torch.exp(1j * p.to(cd))[..., None]], dim=-1)
+        super().__init__(wires=wires, matrix=torch.diag_embed(diag), **kwargs)
 
 
 class Rot(Operation):

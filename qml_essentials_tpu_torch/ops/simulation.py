@@ -50,6 +50,15 @@ outer product.  The readout reads the interleaved diagonal with one gather
 *Shots.*  :func:`sample_shots` draws from the exact probabilities with
 ``torch.multinomial`` on an explicit ``torch.Generator`` on their device.
 
+*Batches and the plan cache.*  The planner computes every payload through
+:func:`~qml_essentials_tpu_torch.ops.recipes.lazy`, so planning a tape's
+proxy yields a skeleton that a :class:`PlanSlot` keeps and materializes
+against each tape recorded with the same structure.  A batched tape (gate
+matrices ``(Bt, K, K)``) runs vectorised below the large-state regime: one
+kernel launch per step on the ``(2, Bt, 2**n)`` state; from it (or when its
+gradient goes to the adjoint executor) its elements run one by one on the
+plan's payload rows (:func:`batch_route`).
+
 Counterpart of ``qml_essentials_tpu/ops/simulation.py``.
 """
 
@@ -61,8 +70,9 @@ import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.core import memory
-from qml_essentials_tpu_torch.ops import adjoint, chains, cuda_kernels, kernels, saved
+from qml_essentials_tpu_torch.ops import adjoint, chains, cuda_kernels, kernels, recipes, saved
 from qml_essentials_tpu_torch.ops.dtypes import cdtype
+from qml_essentials_tpu_torch.ops.recipes import lazy
 from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
     DiagonalQubitUnitary,
@@ -125,11 +135,19 @@ def _compose_window(
     flat rank-3 contraction (the column index acts as ``w`` extra qubits).
     """
     w = hi - lo
+    mats = [op.matrix for op in group]
+    local = [[wi - lo for wi in op.wires] for op in group]
+    return lazy(_compose, mats, local, w, dtype, device), list(range(lo, hi))
+
+
+def _compose(mats: List[torch.Tensor], local: List[List[int]], w: int, dtype, device
+             ) -> torch.Tensor:
+    """The product of *mats* on their *local* wires of a ``w``-qubit window
+    (per element of a batch when a matrix is batched)."""
     U = torch.eye(2**w, dtype=dtype, device=device).reshape(-1)
-    for op in group:
-        local = [wi - lo for wi in op.wires]
-        U = kernels.apply_matrix_flat(U, op.matrix, local, 2 * w)
-    return U.reshape(2**w, 2**w), list(range(lo, hi))
+    for m, wires in zip(mats, local):
+        U = kernels.apply_matrix_flat(U, m, wires, 2 * w)
+    return U.reshape(U.shape[:-1] + (2**w, 2**w))
 
 
 def plan_contractions(
@@ -462,6 +480,13 @@ def _refusable_span(lo: int, span: int, n: int) -> bool:
     return 2 ** (n - lo - span) >= 128
 
 
+def _merge_windows(pj: torch.Tensor, wj: List[int], payload: torch.Tensor,
+                   wires: List[int], span: int) -> torch.Tensor:
+    """Window *pj* on local wires *wj*, then *payload* on *wires*, composed
+    into one ``span``-qubit window."""
+    return _compose([pj, payload], [wj, wires], span, pj.dtype, pj.device)
+
+
 def refuse_windows(
     steps: List[Tuple[str, object, List[int]]], n: int
 ) -> List[Tuple[str, object, List[int]]]:
@@ -490,12 +515,9 @@ def refuse_windows(
                 hi = max(max(wj) + 1, hi2)
                 if _refusable_span(lo, hi - lo, n):
                     span = hi - lo
-                    U = torch.eye(2**span, dtype=pj.dtype, device=pj.device).reshape(-1)
-                    U = kernels.apply_matrix_flat(U, pj, [w - lo for w in wj], 2 * span)
-                    U = kernels.apply_matrix_flat(
-                        U, payload, [w - lo for w in wires], 2 * span
-                    )
-                    out[j] = ("mat", U.reshape(2**span, 2**span), list(range(lo, hi)))
+                    U = lazy(_merge_windows, pj, [w - lo for w in wj], payload,
+                             [w - lo for w in wires], span)
+                    out[j] = ("mat", U, list(range(lo, hi)))
                     merged = True
                     break
             if set(wj) & sup:
@@ -538,21 +560,37 @@ def _zero_state_prefix(plan: list, n: int) -> Tuple[list, Optional[torch.Tensor]
     if len(peeled) < 2:
         return [], None
 
-    ref = factors[min(factors)][1]
-    cols = []
+    layout = []  # each factor's first wire, or None for a |0> wire
+    mats = []
     w = 0
-    e0 = None
     while w < n:
         if w in factors:
             hi, mat = factors[w]
-            cols.append(mat[:, 0])
+            layout.append(w)
+            mats.append(mat)
             w = hi
+        else:
+            layout.append(None)
+            w += 1
+    return peeled, lazy(_outer_start, mats, layout, n)
+
+
+def _outer_start(mats: List[torch.Tensor], layout: list, n: int) -> torch.Tensor:
+    """The outer-product start of :func:`_zero_state_prefix`: each peeled
+    window's first column (``layout`` entries not None, in order) or |0>
+    (``None``), kron'ed into the ``(2, 2**n)`` pair."""
+    ref = mats[0]
+    it = iter(mats)
+    cols = []
+    e0 = None
+    for item in layout:
+        if item is not None:
+            cols.append(next(it)[:, 0])
         else:
             if e0 is None:
                 e0 = torch.zeros(2, dtype=ref.dtype, device=ref.device)
                 e0[0] = 1.0
             cols.append(e0)
-            w += 1
 
     # Group the kron into (head, tail) so every complex intermediate stays far
     # below state size; the full-size product is written in real-split form.
@@ -563,7 +601,7 @@ def _zero_state_prefix(plan: list, n: int) -> Tuple[list, Optional[torch.Tensor]
         head = torch.kron(head, cols[i])
         i += 1
     if i == len(cols):
-        return peeled, torch.stack([head.real, head.imag]).contiguous()
+        return torch.stack([head.real, head.imag]).contiguous()
     tail = cols[i]
     for c in cols[i + 1:]:
         tail = torch.kron(tail, c)
@@ -571,7 +609,7 @@ def _zero_state_prefix(plan: list, n: int) -> Tuple[list, Optional[torch.Tensor]
     tr, ti = tail.real, tail.imag
     pr = torch.outer(hr, tr) - torch.outer(hi_, ti)
     pi = torch.outer(hr, ti) + torch.outer(hi_, tr)
-    return peeled, torch.stack([pr.reshape(-1), pi.reshape(-1)])
+    return torch.stack([pr.reshape(-1), pi.reshape(-1)])
 
 
 def _drop_indices(plan: list, indices: list) -> list:
@@ -626,7 +664,8 @@ def set_backward_mode(mode: str) -> None:
     BACKWARD_MODE = mode
 
 
-def _adjoint_pays_off(plan: list, n_qubits: int, batch: int = 1, device=None) -> bool:
+def _adjoint_pays_off(plan: list, n_qubits: int, batch: int = 1, device=None,
+                      free: Optional[int] = None) -> bool:
     """True when the adjoint-state backward should handle gradients."""
     if BACKWARD_MODE == "adjoint":
         return True
@@ -636,7 +675,9 @@ def _adjoint_pays_off(plan: list, n_qubits: int, batch: int = 1, device=None) ->
     # of the batch (the executor keeps every element's residuals alive until
     # the backward).
     residual_bytes = len(plan) * 8 * (2**n_qubits) * batch
-    return residual_bytes > _RESIDUAL_MEM_FRACTION * memory.available_memory_bytes(device)
+    if free is None:
+        free = memory.available_memory_bytes(device)
+    return residual_bytes > _RESIDUAL_MEM_FRACTION * free
 
 
 class BackwardChoice:
@@ -646,14 +687,17 @@ class BackwardChoice:
     :func:`_adjoint_pays_off` (its plan, the whole batch's residuals, the
     memory free before any of them is held); every later element takes the
     same executor without reading free memory again (the JAX package decides
-    once per vmapped trace)."""
+    once per vmapped trace).  *free*: the bytes free before the batch when
+    the caller has read them already (the executor's chunk sizing), so the
+    batch reads free memory once."""
 
-    def __init__(self) -> None:
+    def __init__(self, free: Optional[int] = None) -> None:
         self.adjoint: Optional[bool] = None
+        self.free = free
 
     def use_adjoint(self, plan: list, n_qubits: int, batch: int, device) -> bool:
         if self.adjoint is None:
-            self.adjoint = _adjoint_pays_off(plan, n_qubits, batch, device)
+            self.adjoint = _adjoint_pays_off(plan, n_qubits, batch, device, self.free)
         return self.adjoint
 
 
@@ -678,12 +722,49 @@ def _needs_grad(plan: list, psi2: torch.Tensor) -> bool:
     )
 
 
+class PlanSlot:
+    """The plan skeletons of one tape structure, by engine (``"pure"``,
+    ``"interleaved"``, ``"mixed"``): an entry of the executor's plan cache
+    (:class:`~qml_essentials_tpu_torch.core.executor.Script`), or a
+    throwaway one for a direct call.  A skeleton is built once, by the
+    planner on the tape's proxy (:func:`~qml_essentials_tpu_torch.ops.recipes.proxy_tape`),
+    and materialized against every tape recorded for it."""
+
+    def __init__(self) -> None:
+        self.skeletons: Dict[str, object] = {}
+
+    def skeleton(self, kind: str, build, tape: List[Operation]):
+        if kind not in self.skeletons:
+            self.skeletons[kind] = build(recipes.proxy_tape(tape))
+        return self.skeletons[kind]
+
+    def get(self, kind: str, build, tape: List[Operation], rows=None):
+        """The engine's plan for *tape* (its rows *rows* of a batch)."""
+        return recipes.materialize(self.skeleton(kind, build, tape), tape, rows)
+
+
+def _elements(tape: List[Operation], rows) -> Optional[int]:
+    """Batch size of the state that simulating *rows* of *tape* runs: None
+    for a tape with no batched gate or a single row (an int)."""
+    full = recipes.batch_of(tape)
+    if full is None or isinstance(rows, int):
+        return None
+    return len(range(full)[rows]) if rows is not None else full
+
+
+def _pure_build(n_qubits: int, dtype, device):
+    return lambda t: scheduled_plan(t, n_qubits, dtype, device)
+
+
 def simulate_pure_ri(
     tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
     batch: int = 1, choice: Optional[BackwardChoice] = None,
+    plans: Optional[PlanSlot] = None, rows=None,
 ) -> torch.Tensor:
     """Real-split statevector simulation; returns the ``(2, 2**n)`` pair in
-    real *dtype* on *device*.
+    real *dtype* on *device*, or ``(2, Bt, 2**n)`` for a batched tape (its
+    gates' matrices with a leading batch dimension), which runs every step
+    once for the whole batch.
 
     When autograd needs a gradient, the backward strategy is chosen here:
     the adjoint-state executor (:mod:`~qml_essentials_tpu_torch.ops.adjoint`)
@@ -691,12 +772,21 @@ def simulate_pure_ri(
     saved-residual executor (:mod:`~qml_essentials_tpu_torch.ops.saved`;
     it refuses chain plans), else the per-step loop, whose kernels carry
     their own autograd backwards.  *batch* is the number of simulations whose residuals stay
-    alive together (the executor's batch loop), for the memory estimate;
+    alive together (the executor's batch), for the memory estimate;
     *choice* carries one decision across the elements of that batch (a new
-    one is made for a single simulation)."""
-    plan, psi2 = scheduled_plan(tape, n_qubits, dtype, device)
+    one is made for a single simulation).  *plans*: the plan slot (a
+    throwaway one when None); *rows*: the element (int) or chunk (slice) of
+    a batched tape to simulate."""
+    slot = PlanSlot() if plans is None else plans
+    plan, psi2 = slot.get("pure", _pure_build(n_qubits, dtype, device), tape, rows)
+    return _run_pure(plan, psi2, n_qubits, dtype, device, batch, choice, _elements(tape, rows))
+
+
+def _run_pure(plan: list, psi2: Optional[torch.Tensor], n_qubits: int, dtype, device,
+              batch: int, choice: Optional[BackwardChoice], elements: Optional[int]
+              ) -> torch.Tensor:
     if psi2 is None:
-        psi2 = kernels.zero_state_ri(n_qubits, dtype, device)
+        psi2 = kernels.zero_state_ri(n_qubits, dtype, device, elements)
     if _needs_grad(plan, psi2):
         choice = BackwardChoice() if choice is None else choice
         if choice.use_adjoint(plan, n_qubits, batch, psi2.device):
@@ -706,10 +796,14 @@ def simulate_pure_ri(
                     "(adjoint.set_adjoint(False)); set_backward_mode('autodiff') keeps "
                     "residuals instead"
                 )
+            if elements is not None:
+                raise RuntimeError("the adjoint backward runs one element at a time")
             static, payloads = adjoint.normalize_plan(plan, n_qubits)
             if payloads:
                 return adjoint.execute_plan_ri(psi2, payloads, static, n_qubits)
         elif saved.ENABLED and saved.usable(plan, n_qubits):
+            if elements is not None:
+                raise RuntimeError("the saved executor runs one element at a time")
             static, payloads = adjoint.normalize_plan(plan, n_qubits)
             if payloads:
                 return saved.execute_plan_saved_ri(psi2, payloads, static, n_qubits)
@@ -746,7 +840,7 @@ def _apply_chain_ri(psi2: torch.Tensor, geom: tuple, descs: tuple, pays: tuple,
     autograd Functions (the reference's expansion loop)."""
     if not (torch.is_grad_enabled()
             and (psi2.requires_grad or any(p.requires_grad for p in pays))):
-        pairs = [kernels._pair_of(p, psi2).contiguous() for p in pays]
+        pairs = [kernels._pair_of(p, psi2, vector=p.dim() == 1).contiguous() for p in pays]
         return cuda_kernels.chain_apply(psi2, pairs, geom, descs, n_qubits)
     for (kind, wires), p in zip(chains.expand_chain_step(geom, descs, n_qubits), pays):
         if kind == "mat":
@@ -792,7 +886,7 @@ def _double_plan(
     for kind, payload, wires in plan:
         if kind == "mat":
             out.append(("mat", payload, list(wires)))
-            out.append(("mat", torch.conj_physical(payload), [w + n for w in wires]))
+            out.append(("mat", lazy(torch.conj_physical, payload), [w + n for w in wires]))
             continue
         op = payload
         if isinstance(op, KrausChannel):
@@ -804,13 +898,13 @@ def _double_plan(
                 out.append(("mat", s, kw + [w + n for w in kw]))
         elif isinstance(op, DiagonalQubitUnitary):
             out.append(("diag", op.diag, list(op.wires)))
-            out.append(("diag", torch.conj_physical(op.diag), [w + n for w in op.wires]))
+            out.append(("diag", lazy(torch.conj_physical, op.diag), [w + n for w in op.wires]))
         elif op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri:
             out.append(("dens_op", op, list(wires)))
         else:
             m = op.matrix
             out.append(("mat", m, list(wires)))
-            out.append(("mat", torch.conj_physical(m), [w + n for w in wires]))
+            out.append(("mat", lazy(torch.conj_physical, m), [w + n for w in wires]))
     return out
 
 
@@ -833,19 +927,14 @@ def _schedule_density_segments(
     return out
 
 
-def simulate_mixed_ri(
+def mixed_plan(
     tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None
-) -> torch.Tensor:
-    """Ket-then-bra density simulation from |0><0|; returns the ``(2, 4**n)``
-    pair (row index = ket bits, column index = bra bits).
-
-    The tape's window plan is doubled (:func:`_double_plan`) and runs through
-    the same kernels as the statevector path, one step at a time; in the
-    large-state regime the windows span one side of the register (at most
-    ``LARGE_FUSE_WIDTH`` data qubits), each stretch between channels is
-    layout-scheduled, and every channel applies its Kraus operators in turn.
-    The interleaved engine is preferred; this one takes what it cannot lower.
-    """
+) -> list:
+    """The doubled plan :func:`simulate_mixed_ri` runs (ket wires 0..n-1,
+    bra wires n..2n-1): the tape's window plan doubled
+    (:func:`_double_plan`); in the large-state regime its windows span one
+    side of the register (at most ``LARGE_FUSE_WIDTH`` data qubits) and each
+    stretch between channels is layout-scheduled."""
     n2 = 2 * n_qubits
     large = n2 >= LARGE_STATE_MIN_N
     cd = cdtype(dtype)
@@ -857,8 +946,26 @@ def simulate_mixed_ri(
     plan = _double_plan(base, n_qubits, large)
     if large:
         plan = _schedule_density_segments(plan, n2)
+    return plan
 
-    rho2 = kernels.zero_density_ri(n_qubits, dtype, device)
+
+def simulate_mixed_ri(
+    tape: List[Operation], n_qubits: int, dtype: torch.dtype = torch.float32, device=None,
+    plans: Optional[PlanSlot] = None, rows=None,
+) -> torch.Tensor:
+    """Ket-then-bra density simulation from |0><0|; returns the ``(2, 4**n)``
+    pair (row index = ket bits, column index = bra bits), ``(2, Bt, 4**n)``
+    for a batched tape.
+
+    The plan (:func:`mixed_plan`) runs through the same kernels as the
+    statevector path, one step at a time; every channel applies its Kraus
+    operators in turn.  The interleaved engine is preferred; this one takes
+    what it cannot lower.
+    """
+    slot = PlanSlot() if plans is None else plans
+    plan = slot.get("mixed", lambda t: mixed_plan(t, n_qubits, dtype, device), tape, rows)
+    n2 = 2 * n_qubits
+    rho2 = kernels.zero_density_ri(n_qubits, dtype, device, _elements(tape, rows))
     for kind, payload, wires in plan:
         if kind == "dens_op":
             rho2 = payload.apply_to_density_ri(rho2, n_qubits)
@@ -885,10 +992,18 @@ def _interleaved_wires(wires: Sequence[int]) -> List[int]:
 
 
 def _interleave_diag(d: torch.Tensor, m: int) -> torch.Tensor:
-    """``d ⊗ conj(d)`` with its bits shuffled to (k0, b0, k1, b1, ...)."""
-    dd = torch.outer(d, torch.conj_physical(d)).reshape((2,) * (2 * m))
-    order = [ax for i in range(m) for ax in (i, m + i)]
-    return dd.permute(*order).reshape(-1)
+    """``d ⊗ conj(d)`` with its bits shuffled to (k0, b0, k1, b1, ...), per
+    element of a batched ``(Bt, 2**m)`` diagonal."""
+    lead = tuple(d.shape[:-1])
+    o = len(lead)
+    dd = kernels.bouter(d, torch.conj_physical(d)).reshape(lead + (2,) * (2 * m))
+    order = [o + ax for i in range(m) for ax in (i, m + i)]
+    return dd.permute(*range(o), *order).reshape(lead + (-1,))
+
+
+def _doubled(u: torch.Tensor) -> torch.Tensor:
+    """``U ⊗ conj(U)`` (per element of a batched gate)."""
+    return kernels.bkron(u, torch.conj_physical(u))
 
 
 def _lower_interleaved_tape(
@@ -917,18 +1032,17 @@ def _lower_interleaved_tape(
             if m > _DOUBLE_DIAG_MAX_WIRES or ws != list(range(ws[0], ws[0] + m)):
                 return None
             # Diagonal entries follow sorted wire order by construction.
-            out.append(DiagonalQubitUnitary(_interleave_diag(op.diag, m),
-                                            wires=list(range(2 * ws[0], 2 * (ws[0] + m))),
-                                            record=False))
+            d = lazy(_interleave_diag, op.diag, m)
+            out.append(recipes.derived(DiagonalQubitUnitary, "DiagU",
+                                       list(range(2 * ws[0], 2 * (ws[0] + m))),
+                                       _matrix=lazy(torch.diag_embed, d), diag=d))
             continue
         if op.__class__.apply_to_state_ri is not Operation.apply_to_state_ri:
             return None
         if m > _DOUBLE_MAX_WIRES:
             return None
-        u = op.matrix
-        out.append(Operation(wires=_interleaved_wires(op.wires),
-                             matrix=torch.kron(u, torch.conj_physical(u)), record=False,
-                             name=f"D[{op.name}]"))
+        out.append(recipes.derived(Operation, f"D[{op.name}]", _interleaved_wires(op.wires),
+                                   _matrix=lazy(_doubled, op.matrix)))
     return out
 
 
@@ -944,20 +1058,35 @@ def interleaved_plan(
     return _scheduled(plan, n2)
 
 
+def _interleaved_build(n_qubits: int, dtype, device):
+    """Planner of the interleaved engine: the lowered tape's plan, or None
+    when the tape has no interleaved form."""
+    def build(t):
+        dtape = _lower_interleaved_tape(t, n_qubits)
+        return None if dtape is None else interleaved_plan(dtape, 2 * n_qubits, dtype, device)
+    return build
+
+
 def _simulate_interleaved_ri(
     dtape: List[Operation], n2: int, dtype: torch.dtype = torch.float32, device=None
 ) -> torch.Tensor:
     """Pure-state simulation of a lowered doubled tape; returns the
-    interleaved ``(2, 2**n2)`` density pair.
+    interleaved ``(2, 2**n2)`` density pair."""
+    plan, psi2 = interleaved_plan(dtape, n2, dtype, device)
+    return _run_interleaved(plan, psi2, n2, dtype, device, _elements(dtape, None))
+
+
+def _run_interleaved(plan: list, psi2: Optional[torch.Tensor], n2: int, dtype, device,
+                     elements: Optional[int]) -> torch.Tensor:
+    """Run an interleaved plan (``(2, [Bt,] 2**n2)``).
 
     A gradient runs through the saved-residual executor in the large-state
     regime (its pullback ``W†λ`` needs no unitarity) and the kernels' own
     backwards below it; ``BACKWARD_MODE`` and the 0.35 residual rule do not
     apply, since the adjoint backward would undo a superoperator with its
     dagger.  A forward alone runs the per-step loop."""
-    plan, psi2 = interleaved_plan(dtape, n2, dtype, device)
     if psi2 is None:
-        psi2 = kernels.zero_state_ri(n2, dtype, device)
+        psi2 = kernels.zero_state_ri(n2, dtype, device, elements)
     if _needs_grad(plan, psi2) and saved.ENABLED and saved.usable(plan, n2):
         static, payloads = adjoint.normalize_plan(plan, n2)
         if payloads:
@@ -1029,7 +1158,7 @@ def _deinterleave_index(n_qubits: int, device) -> torch.Tensor:
 
 def _deinterleave_ri(rho2il: torch.Tensor, n_qubits: int) -> torch.Tensor:
     """Interleaved flat density pair -> ket-then-bra flat pair (one gather)."""
-    return rho2il.index_select(1, _deinterleave_index(n_qubits, rho2il.device))
+    return rho2il.index_select(-1, _deinterleave_index(n_qubits, rho2il.device))
 
 
 def _measure_interleaved_ri(
@@ -1049,11 +1178,12 @@ def _measure_interleaved_ri(
 
 
 def _outer_ri(psi2: torch.Tensor) -> torch.Tensor:
-    """Real-split outer product ``rho = |psi><psi|`` as a flat (2, 4**n) pair."""
+    """Real-split outer product ``rho = |psi><psi|`` as a flat (2, 4**n)
+    pair (``(2, Bt, 4**n)`` for a batched state)."""
     r, i = psi2[0], psi2[1]
-    rho_r = torch.outer(r, r) + torch.outer(i, i)
-    rho_i = torch.outer(i, r) - torch.outer(r, i)
-    return torch.stack([rho_r.reshape(-1), rho_i.reshape(-1)])
+    rho_r = kernels.bouter(r, r) + kernels.bouter(i, i)
+    rho_i = kernels.bouter(i, r) - kernels.bouter(r, i)
+    return torch.stack([rho_r, rho_i])
 
 
 # ---------------------------------------------------------------------------
@@ -1069,11 +1199,13 @@ def simulate_and_measure(
     use_density: bool = False,
     *,
     shots: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     dtype: torch.dtype = torch.float32,
     device=None,
     batch: int = 1,
     choice: Optional[BackwardChoice] = None,
+    plans: Optional[PlanSlot] = None,
+    rows=None,
 ) -> torch.Tensor:
     """Simulate the tape and measure ``expval`` / ``probs`` / ``state`` /
     ``density``.
@@ -1083,27 +1215,133 @@ def simulate_and_measure(
     statevector and one outer product.  With *shots*, ``probs`` and
     ``expval`` are estimated from that many draws of the exact probabilities
     (:func:`sample_shots`, on *generator*); other types ignore them.
-    *batch* and *choice*: see :func:`simulate_pure_ri`."""
+    *batch* and *choice*: see :func:`simulate_pure_ri`; *plans*: the plan
+    slot (see :class:`PlanSlot`).
+
+    A batched tape (its gates' matrices with a leading batch dimension,
+    :func:`~qml_essentials_tpu_torch.ops.recipes.batch_of`) answers with a
+    leading batch axis; *rows* picks a chunk (a slice) of it, and with shots
+    *generator* is a list of one generator per element of the chunk.  Below
+    the large-state regime the batch runs vectorised: each plan step once on
+    the ``(2, Bt, 2**n)`` state (:func:`batch_route`).  From
+    ``LARGE_STATE_MIN_N`` qubits (doubled wires for a density), or when its
+    gradient goes to the adjoint or the saved executor, the plan built once
+    for the batch runs element by element on the payloads' rows."""
+    slot = PlanSlot() if plans is None else plans
+    elements = _elements(tape, rows)
+    if elements is None:
+        return _simulate(tape, slot, rows, None, n_qubits, type, obs, use_density, shots,
+                         generator, dtype, device, batch, choice)
+    choice = BackwardChoice() if choice is None else choice
+    first = 0 if rows is None else range(recipes.batch_of(tape))[rows][0]
+    gens = [None] * elements if generator is None else list(generator)
+    if batch_route(tape, slot, n_qubits, type, use_density, dtype, device, batch, choice
+                   ) == "vectorised":
+        return _simulate(tape, slot, rows, elements, n_qubits, type, obs, use_density, shots,
+                         gens, dtype, device, batch, choice)
+    return torch.stack([
+        _simulate(tape, slot, first + i, None, n_qubits, type, obs, use_density, shots,
+                  gens[i], dtype, device, batch, choice)
+        for i in range(elements)
+    ])
+
+
+def _engine(tape: List[Operation], slot: PlanSlot, n_qubits: int, use_density: bool,
+            dtype, device) -> Tuple[str, int]:
+    """The engine a tape runs on and its register width: ``"pure"`` (n),
+    ``"outer"`` (a noise-free density: the statevector, n), ``"interleaved"``
+    or ``"mixed"`` (2n)."""
+    if not use_density:
+        return "pure", n_qubits
+    if not any(isinstance(o, KrausChannel) for o in tape):
+        return "outer", n_qubits
+    if slot.skeleton("interleaved", _interleaved_build(n_qubits, dtype, device), tape) is None:
+        return "mixed", 2 * n_qubits
+    return "interleaved", 2 * n_qubits
+
+
+def payload_bytes(slot: PlanSlot, tape: List[Operation], n_qubits: int, use_density: bool,
+                  dtype, device) -> int:
+    """Bytes of one element's payloads in the plan a batch of *tape* runs:
+    each step's complex matrix (or diagonal) and its real-split pair, alive
+    for the whole run (the executor's memory estimate adds them per
+    element)."""
+    engine, _ = _engine(tape, slot, n_qubits, use_density, dtype, device)
+    if engine in ("pure", "outer"):
+        plan = slot.skeleton("pure", _pure_build(n_qubits, dtype, device), tape)[0]
+    elif engine == "interleaved":
+        plan = slot.skeleton("interleaved", _interleaved_build(n_qubits, dtype, device),
+                             tape)[0]
+    else:
+        plan = slot.skeleton("mixed", lambda t: mixed_plan(t, n_qubits, dtype, device), tape)
+    per = 4 * torch.empty((), dtype=dtype).element_size()  # complex + real-split pair
+    total = 0
+    for kind, payload, wires in plan:
+        if kind == "chain":  # its descriptors' windows and diagonals
+            total += per * sum(4 ** (d[2] - d[1]) if d[0] == "win" else 2 ** len(d[1])
+                               for d in payload[1])
+        elif kind in ("rot", "dens_op") or not wires:
+            continue
+        elif kind == "diag" or isinstance(payload, DiagonalQubitUnitary):
+            total += per * 2 ** len(wires)
+        else:
+            total += per * 4 ** len(wires)
+    return total
+
+
+def _tape_needs_grad(tape: List[Operation]) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad
+        for op in tape for v in op.__dict__.values())
+
+
+def batch_route(tape: List[Operation], slot: PlanSlot, n_qubits: int, type: str,
+                use_density: bool, dtype, device, batch: int,
+                choice: BackwardChoice) -> str:
+    """``"vectorised"`` or ``"per element: <reason>"`` for a batched tape:
+    per element from ``LARGE_STATE_MIN_N`` wires of the register it runs on,
+    and for a statevector gradient that the batch's one backward decision
+    (*choice*, made here from the plan's length and *batch*) sends to the
+    adjoint executor.  The executor logs what this returns, and
+    :func:`simulate_and_measure` runs it."""
+    engine, width = _engine(tape, slot, n_qubits, use_density, dtype, device)
+    if width >= LARGE_STATE_MIN_N:
+        return f"per element: {width} wires, from LARGE_STATE_MIN_N = {LARGE_STATE_MIN_N}"
+    if engine in ("pure", "outer") and _tape_needs_grad(tape):
+        plan, _ = slot.skeleton("pure", _pure_build(n_qubits, dtype, device), tape)
+        if choice.use_adjoint(plan, n_qubits, batch, device):
+            return "per element: the adjoint backward"
+    return "vectorised"
+
+
+def _simulate(tape, slot, rows, elements, n_qubits, type, obs, use_density, shots, generator,
+              dtype, device, batch, choice) -> torch.Tensor:
+    """One simulation: a single tape, one row of a batched tape (*rows* an
+    int), or a batch of *elements* rows run vectorised."""
     dim = 2**n_qubits
     sampled = shots is not None and type in ("probs", "expval")
     if use_density:
-        if any(isinstance(o, KrausChannel) for o in tape):
-            dtape = _lower_interleaved_tape(tape, n_qubits)
-            if dtape is not None:
-                rho2il = _simulate_interleaved_ri(dtape, 2 * n_qubits, dtype, device)
-                if sampled:
-                    exact = _pair_diag(rho2il[0], n_qubits)
-                    return sample_shots(exact, n_qubits, type, obs, shots, generator)
-                return _measure_interleaved_ri(rho2il, n_qubits, type, obs)
-            rho2 = simulate_mixed_ri(tape, n_qubits, dtype, device)
+        engine, _ = _engine(tape, slot, n_qubits, use_density, dtype, device)
+        if engine == "interleaved":
+            plan, psi2 = slot.get("interleaved", _interleaved_build(n_qubits, dtype, device),
+                                  tape, rows)
+            rho2il = _run_interleaved(plan, psi2, 2 * n_qubits, dtype, device, elements)
+            if sampled:
+                exact = _pair_diag(rho2il[0], n_qubits)
+                return sample_shots(exact, n_qubits, type, obs, shots, generator)
+            return _measure_interleaved_ri(rho2il, n_qubits, type, obs)
+        if engine == "mixed":
+            rho2 = simulate_mixed_ri(tape, n_qubits, dtype, device, slot, rows)
         else:
-            rho2 = _outer_ri(simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice))
+            rho2 = _outer_ri(simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice,
+                                              slot, rows))
         if sampled:
-            exact = torch.diagonal(rho2[0].reshape(dim, dim))
+            exact = torch.diagonal(rho2[0].reshape(rho2.shape[1:-1] + (dim, dim)),
+                                   dim1=-2, dim2=-1)
             return sample_shots(exact, n_qubits, type, obs, shots, generator)
         return measure_density_ri(rho2, n_qubits, type, obs)
 
-    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice)
+    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice, slot, rows)
     if sampled:
         exact = psi2[0] ** 2 + psi2[1] ** 2
         return sample_shots(exact, n_qubits, type, obs, shots, generator)
@@ -1146,6 +1384,7 @@ def _expval_from_probs(
     """
     h = (n_qubits + 1) // 2
     low = n_qubits - h
+    lead = tuple(probs.shape[:-1])
     row_marg = col_marg = None
     use_halves = n_qubits >= 8 and len(obs) >= 2
 
@@ -1167,11 +1406,11 @@ def _expval_from_probs(
         if factorised:
             if use_halves and wires and max(wires) < h:
                 if row_marg is None:
-                    row_marg = probs.reshape(2**h, 2**low).sum(dim=1)
+                    row_marg = probs.reshape(lead + (2**h, 2**low)).sum(dim=-1)
                 results.append(kernels.reduce_diagonal_expectation(row_marg, weights[:h]))
             elif use_halves and wires and min(wires) >= h:
                 if col_marg is None:
-                    col_marg = probs.reshape(2**h, 2**low).sum(dim=0)
+                    col_marg = probs.reshape(lead + (2**h, 2**low)).sum(dim=-2)
                 results.append(kernels.reduce_diagonal_expectation(col_marg, weights[h:]))
             else:
                 results.append(kernels.reduce_diagonal_expectation(probs, weights))
@@ -1183,7 +1422,7 @@ def _expval_from_probs(
         order = [wires.index(w) for w in srt]
         d_sorted = np.transpose(np.asarray(d).reshape((2,) * k), order).reshape(-1)
         results.append(marg @ torch.as_tensor(d_sorted, dtype=marg.dtype, device=marg.device))
-    return torch.stack(results)
+    return torch.stack(results, dim=-1)
 
 
 def measure_state(
@@ -1201,8 +1440,8 @@ def measure_state(
         obs_mats = torch.stack(
             [ob.lifted_matrix(n_qubits).to(device=state.device, dtype=state.dtype) for ob in obs]
         )
-        O_states = torch.einsum("oij,j->oi", obs_mats, state)
-        return torch.einsum("i,oi->o", state.conj(), O_states).real
+        O_states = torch.einsum("oij,...j->...oi", obs_mats, state)
+        return torch.einsum("...i,...oi->...o", state.conj(), O_states).real
     raise ValueError(f"Unknown measurement type: {type!r}")
 
 
@@ -1231,15 +1470,16 @@ def measure_density(
     if type == "density":
         return rho
     if type == "probs":
-        return torch.diagonal(rho).real
+        return torch.diagonal(rho, dim1=-2, dim2=-1).real
     if type == "expval":
         diags = [_diagonal_real(ob) for ob in obs]
         if obs and all(d is not None for d in diags):
-            return _expval_from_probs(torch.diagonal(rho).real, n_qubits, obs, diags)
+            probs = torch.diagonal(rho, dim1=-2, dim2=-1).real
+            return _expval_from_probs(probs, n_qubits, obs, diags)
         obs_mats = torch.stack(
             [ob.lifted_matrix(n_qubits).to(device=rho.device, dtype=rho.dtype) for ob in obs]
         )
-        return torch.einsum("oij,ji->o", obs_mats, rho).real
+        return torch.einsum("oij,...ji->...o", obs_mats, rho).real
     raise ValueError(
         "Measurement type 'state' is not defined for mixed (noisy) circuits. "
         "Use 'density' instead."
@@ -1252,16 +1492,17 @@ def measure_density_ri(
     """Measure a real-split ket-then-bra density pair; complex only at the
     boundary."""
     dim = 2**n_qubits
+    square = tuple(rho2.shape[1:-1]) + (dim, dim)
     if type == "density":
-        return kernels.from_ri(rho2).reshape(dim, dim)
-    probs = torch.diagonal(rho2[0].reshape(dim, dim))
+        return kernels.from_ri(rho2).reshape(square)
+    probs = torch.diagonal(rho2[0].reshape(square), dim1=-2, dim2=-1)
     if type == "probs":
         return probs
     if type == "expval":
         diags = [_diagonal_real(ob) for ob in obs]
         if obs and all(d is not None for d in diags):
             return _expval_from_probs(probs, n_qubits, obs, diags)
-        return measure_density(kernels.from_ri(rho2).reshape(dim, dim), n_qubits, type, obs)
+        return measure_density(kernels.from_ri(rho2).reshape(square), n_qubits, type, obs)
     raise ValueError(
         "Measurement type 'state' is not defined for mixed (noisy) circuits. "
         "Use 'density' instead."
@@ -1279,7 +1520,7 @@ def sample_shots(
     type: str,
     obs: List[Operation],
     shots: int,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
 ) -> torch.Tensor:
     """Finite-shot estimate from an exact probability vector.
 
@@ -1288,17 +1529,17 @@ def sample_shots(
     ``2**n`` probabilities and a search per shot (a Gumbel-max draw, the
     JAX package's, would make ``shots x 2**n`` uniforms).  The draw runs on
     *generator*, on the probabilities' device; a generator on another device
-    (or ``None``: seed 0) seeds one there.  Rounding leaves float32
+    (or ``None``: seed 0) seeds one there.  A batch ``(Bt, 2**n)`` of
+    probabilities draws each row on its own generator (*generator* a list of
+    ``Bt``), as the elements of a loop would.  Rounding leaves float32
     probabilities a hair below zero at times; they are clipped.  The
     estimate carries no gradient."""
     dim = 2**n_qubits
-    p = probs.detach().reshape(-1).clamp_min(0)
-    if generator is None:
-        generator = torch.Generator(device=p.device).manual_seed(0)
-    elif generator.device != p.device:
-        generator = safe_random_split(generator, 1, device=p.device)[0]
-    samples = torch.multinomial(p, shots, replacement=True, generator=generator)
-    estimated = torch.bincount(samples, minlength=dim).to(probs.dtype) / shots
+    if probs.dim() > 1:
+        estimated = torch.stack([_draw(p, shots, g, dim) for p, g in zip(probs, generator)])
+    else:
+        estimated = _draw(probs, shots, generator, dim)
+    estimated = estimated.to(probs.dtype)
 
     if type == "probs":
         return estimated
@@ -1307,9 +1548,20 @@ def sample_shots(
         if obs and all(d is not None for d in diags):
             return _expval_from_probs(estimated, n_qubits, obs, diags)
         return torch.stack([
-            torch.diagonal(ob.lifted_matrix(n_qubits)).real.to(estimated) @ estimated
+            estimated @ torch.diagonal(ob.lifted_matrix(n_qubits)).real.to(estimated)
             for ob in obs
-        ])
+        ], dim=-1)
     raise ValueError(
         f"Shot simulation is only supported for 'probs' and 'expval', got {type!r}."
     )
+
+
+def _draw(probs: torch.Tensor, shots: int, generator, dim: int) -> torch.Tensor:
+    """Outcome frequencies of *shots* draws from one probability vector."""
+    p = probs.detach().reshape(-1).clamp_min(0)
+    if generator is None:
+        generator = torch.Generator(device=p.device).manual_seed(0)
+    elif generator.device != p.device:
+        generator = safe_random_split(generator, 1, device=p.device)[0]
+    samples = torch.multinomial(p, shots, replacement=True, generator=generator)
+    return torch.bincount(samples, minlength=dim).to(probs.dtype) / shots

@@ -200,6 +200,8 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
         "rotmat_apply", "rotmat_apply_bwd", "matrot_apply", "matrot_apply_bwd", "rotwin_apply",
         "rotwin_apply_bwd", "adjoint_step", "adjoint_step_top", "adjoint_rotmat",
         "adjoint_matrot", "rotate_pair", "chain_apply", "adjoint_chain",
+        "window_apply_batch", "window_apply_bwd_batch", "window_apply_top_batch",
+        "window_apply_top_bwd_batch",
     }
 
 
@@ -634,7 +636,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.from_numpy(_state(8, 0)).to(cuda)
     w = torch.from_numpy(_unitary_pair(2, 0)).to(cuda)
     with pytest.raises(TypeError):
-        cuda_kernels.window_apply(x.double(), w.double(), 1, 2, 8)
+        cuda_kernels.window_apply(x.half(), w.half(), 1, 2, 8)
+    # A float64 state runs the batch entry as a batch of one.
+    before = cuda_kernels.launch_counts()["window_apply_batch"]
+    got = cuda_kernels.window_apply(x.double(), w.double(), 1, 2, 8)
+    assert cuda_kernels.launch_counts()["window_apply_batch"] == before + 1
+    assert _rel(got.cpu(), kernels.window_apply_plain(x.double(), w.double(), 1, 2, 8).cpu()) <= 1e-12
     with pytest.raises(ValueError):
         cuda_kernels.window_apply(x, w, 6, 2, 8)  # B = 1: the top kernel's case
     with pytest.raises(ValueError):
@@ -1186,3 +1193,203 @@ def test_cuda_chain_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="no autograd backward"):
         cuda_kernels.chain_apply(x, [w.clone().requires_grad_()], ("L", 17),
                                  (("win", 7, 14),), n)
+
+
+# ---------------------------------------------------------------------------
+# Batch entries of B1-B4 (csrc/window_batch.cuh): a (2, Bt, 2**n) state, a
+# shared (2, K, K) or a per-element (Bt, 2, K, K) window
+# ---------------------------------------------------------------------------
+
+
+def _batch_inputs(n, k, bt, seed, shared):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, bt, 2**n))
+    x /= np.linalg.norm(x, axis=(0, 2), keepdims=True)
+    g = rng.normal(size=(2, bt, 2**n))
+    if shared:
+        w = _unitary_pair(k, seed)
+    else:
+        w = np.stack([_unitary_pair(k, seed + e).transpose(0, 1, 2) for e in range(bt)])
+    return (torch.from_numpy(x.astype(np.float32)), torch.from_numpy(w.astype(np.float32)),
+            torch.from_numpy((g / np.linalg.norm(g)).astype(np.float32)))
+
+
+def _jax_batch(n, a, k, x, w, g, shared):
+    """The JAX package's Pallas kernels (interpret mode) under jax.vmap over
+    the batch, as tests/test_pallas.py runs them: forward, pullback, gram."""
+    import jax
+    import jax.numpy as jnp
+
+    from qml_essentials_tpu.ops import pallas_kernels
+
+    xs = jnp.asarray(x.numpy().transpose(1, 0, 2))
+    gs = jnp.asarray(g.numpy().transpose(1, 0, 2))
+    ws = jnp.asarray(np.broadcast_to(w.numpy(), (x.shape[1], 2, 2**k, 2**k))
+                     if shared else w.numpy())
+    top = a + k == n
+    if top:
+        fwd = jax.vmap(lambda p, m: pallas_kernels.window_apply_top_ri(p, m, k, n, True))
+        bwd = jax.vmap(lambda m, c, p: pallas_kernels._apply_top_bwd(m, c, p, k, n, True))
+    else:
+        fwd = jax.vmap(lambda p, m: pallas_kernels.window_apply_ri(p, m, a, k, n, True))
+        bwd = jax.vmap(lambda m, c, p: pallas_kernels._apply_bwd(m, c, p, a, k, n, True))
+    y = np.asarray(fwd(xs, ws)).transpose(1, 0, 2)
+    prev = pallas_kernels.GRAM_MODE
+    pallas_kernels.set_gram_mode("split3")  # the gram at float32 grade, as test_pallas.py pins
+    try:
+        gp, gw = (np.asarray(t) for t in bwd(ws, gs, xs))
+    finally:
+        pallas_kernels.set_gram_mode(prev)
+    return y, gp.transpose(1, 0, 2), gw.sum(0) if shared else gw
+
+
+# n <= 10, per-element and shared W, windows inside the register and on top.
+BATCH_PLAIN_CASES = [(6, 1, 3, 5), (6, 3, 3, 4), (8, 0, 2, 3), (10, 2, 5, 3), (5, 4, 1, 6)]
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", BATCH_PLAIN_CASES)
+def test_batched_plain_matches_vmapped_pallas(n, a, k, bt, shared):
+    """The plain versions of B1-B4 on a batched state against jax.vmap of
+    the Pallas kernels: outputs, state cotangents and matrix cotangents (one
+    an element, or their sum for a shared window)."""
+    x, w, g = _batch_inputs(n, k, bt, 10 * n + a + k, shared)
+    ref_y, ref_gp, ref_gw = _jax_batch(n, a, k, x, w, g, shared)
+    if a + k == n:
+        y = kernels.window_apply_top_plain(x, w, k, n)
+        gp, gw = kernels.window_apply_top_bwd_plain(w, g, x, k, n, torch.float32)
+    else:
+        y = kernels.window_apply_plain(x, w, a, k, n)
+        gp, gw = kernels.window_apply_bwd_plain(w, g, x, a, k, n, torch.float32)
+    assert tuple(gw.shape) == tuple(w.shape)
+    assert _rel(y, ref_y) <= PALLAS_TOL
+    assert _rel(gp, ref_gp) <= PALLAS_TOL
+    assert _rel(gw, ref_gw) <= 1e-4
+
+
+@pytest.mark.unittest
+def test_batched_plain_is_the_loop_of_single_elements():
+    """Per element, the batched plain versions are the single-state ones."""
+    n, a, k, bt = 7, 2, 3, 4
+    x, w, g = (t.double() for t in _batch_inputs(n, k, bt, 3, False))
+    y = kernels.window_apply_plain(x, w, a, k, n)
+    gp, gw = kernels.window_apply_bwd_plain(w, g, x, a, k, n, torch.float64)
+    for e in range(bt):
+        assert torch.allclose(y[:, e], kernels.window_apply_plain(x[:, e], w[e], a, k, n),
+                              atol=1e-14)
+        gpe, gwe = kernels.window_apply_bwd_plain(w[e], g[:, e], x[:, e], a, k, n, torch.float64)
+        assert torch.allclose(gp[:, e], gpe, atol=1e-14) and torch.allclose(gw[e], gwe, atol=1e-14)
+    rot = kernels.rotate_plain(x, 3, n)
+    for e in range(bt):
+        assert torch.equal(rot[:, e], kernels.rotate_plain(x[:, e], 3, n))
+
+
+# On the card: Bt = 1, 7 and 4096, the 6q FCC plans' windows (K = 8) and the
+# 4q KL plans' single-qubit gates (K = 2, 4), a K = 32 window at 10q.
+BATCH_CUDA_CASES = [(6, 1, 3, 1), (6, 1, 3, 7), (6, 3, 3, 4096), (4, 0, 1, 4096), (4, 2, 2, 7),
+                    (4, 1, 2, 4096), (10, 2, 5, 7), (12, 0, 2, 7)]
+
+
+def _cuda_batch(cuda, n, a, k, bt, shared):
+    x, w, g = (t.to(cuda) for t in _batch_inputs(n, k, bt, n + a + k + bt, shared))
+    return x, w, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", BATCH_CUDA_CASES)
+def test_cuda_window_batch_matches_plain(cuda, n, a, k, bt, shared):
+    """B1 / B3's batch entries (the top window when a + k = n) against the
+    plain version in float64, one launch each."""
+    x, w, _ = _cuda_batch(cuda, n, a, k, bt, shared)
+    name = "window_apply_top_batch" if a + k == n else "window_apply_batch"
+    before = cuda_kernels.launch_counts()[name]
+    if a + k == n:
+        got = cuda_kernels.window_apply_top(x, w, k, n)
+        ref = kernels.window_apply_top_plain(x.double(), w.double(), k, n)
+    else:
+        got = cuda_kernels.window_apply(x, w, a, k, n)
+        ref = kernels.window_apply_plain(x.double(), w.double(), a, k, n)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()[name] == before + 1
+    assert _rel(got.double().cpu(), ref.cpu()) <= CUDA_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", BATCH_CUDA_CASES)
+def test_cuda_window_batch_bwd_matches_plain(cuda, n, a, k, bt, shared):
+    """B2 / B4's batch entries: the state cotangent 1e-5, the matrix
+    cotangent (per element, or summed over the batch) 1e-4, one launch."""
+    x, w, g = _cuda_batch(cuda, n, a, k, bt, shared)
+    top = a + k == n
+    name = "window_apply_top_bwd_batch" if top else "window_apply_bwd_batch"
+    before = cuda_kernels.launch_counts()[name]
+    if top:
+        got = cuda_kernels.window_apply_top_bwd(w, g, x, k, n, torch.float32)
+        ref = kernels.window_apply_top_bwd_plain(w.double(), g.double(), x.double(), k, n,
+                                                 torch.float64)
+    else:
+        got = cuda_kernels.window_apply_bwd(w, g, x, a, k, n, torch.float32)
+        ref = kernels.window_apply_bwd_plain(w.double(), g.double(), x.double(), a, k, n,
+                                             torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()[name] == before + 1
+    assert tuple(got[1].shape) == tuple(w.shape)
+    _assert_bwd_close(got, ref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", BATCH_CUDA_CASES)
+def test_cuda_window_batch_float64_matches_plain(cuda, n, a, k, bt, shared):
+    """B1-B4's batch entries in float64 (the dtype of the FCC goldens):
+    output, state cotangent and matrix cotangent within 1e-12 of the plain
+    version, relative, one launch each."""
+    x, w, g = (t.double() for t in _cuda_batch(cuda, n, a, k, bt, shared))
+    top = a + k == n
+    fwd, bwd = (("window_apply_top_batch", "window_apply_top_bwd_batch") if top else
+                ("window_apply_batch", "window_apply_bwd_batch"))
+    before = cuda_kernels.launch_counts()
+    if top:
+        got = (cuda_kernels.window_apply_top(x, w, k, n),
+               *cuda_kernels.window_apply_top_bwd(w, g, x, k, n, torch.float64))
+        ref = (kernels.window_apply_top_plain(x, w, k, n),
+               *kernels.window_apply_top_bwd_plain(w, g, x, k, n, torch.float64))
+    else:
+        got = (cuda_kernels.window_apply(x, w, a, k, n),
+               *cuda_kernels.window_apply_bwd(w, g, x, a, k, n, torch.float64))
+        ref = (kernels.window_apply_plain(x, w, a, k, n),
+               *kernels.window_apply_bwd_plain(w, g, x, a, k, n, torch.float64))
+    torch.cuda.synchronize()
+    after = cuda_kernels.launch_counts()
+    assert after[fwd] == before[fwd] + 1 and after[bwd] == before[bwd] + 1
+    assert all(t.dtype == torch.float64 for t in got)
+    for y, r in zip(got, ref):
+        assert _rel(y.cpu(), r.cpu()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+def test_cuda_window_batch_gradients_repeat_bit_for_bit(cuda, shared):
+    """Two launches of B2 / B4's batch entries give the same bits: the
+    grams' splits (and a shared window's elements) are summed in a fixed
+    order, with no atomics."""
+    for n, a, k, bt in ((6, 1, 3, 4096), (6, 3, 3, 64), (12, 0, 2, 7)):
+        x, w, g = _cuda_batch(cuda, n, a, k, bt, shared)
+        first, second = (cuda_kernels.window_apply_bwd(w, g, x, a, k, n, torch.float32)
+                         if a + k < n else
+                         cuda_kernels.window_apply_top_bwd(w, g, x, k, n, torch.float32)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_cuda_rotate_batch_is_exact(cuda):
+    """B5 on a batched state: the same transpose on every element, exact."""
+    x = torch.from_numpy(_batch_inputs(16, 1, 5, 1, True)[0].numpy()).to(cuda)
+    got = cuda_kernels.rotate(x, 7, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.rotate_plain(x, 7, 16))
