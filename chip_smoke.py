@@ -13,7 +13,9 @@ models through the chain route (``USE_CHAINS`` on), the reference
 bench's 13-qubit noisy Circuit_19 (``{"Depolarizing": 0.01}``) as a density
 matrix on the 26-wire interleaved doubled register, and the analysis stack
 (the Fourier spectra of both, FourierTree, entanglement, expressibility and
-QFI on small registers) — and checks it phase by phase:
+QFI on small registers), the batch route, and pulse mode (the 24-qubit
+Circuit_19 in ``gate_mode="pulse"``, forward and gradient, a small batch,
+the pulse goldens and a QOC run) — and checks it phase by phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
@@ -189,6 +191,26 @@ QFI on small registers) — and checks it phase by phase:
    its last element alone (the executor's check); phase 3 holds the batch
    entries first at every shape these run (read off them on the CPU),
    float64 ones at 1e-12;
+5h. pulse mode (``gate_mode="pulse"``, the gaussian envelope): the 24q
+   Circuit_19 pulse tape (its operations by name; recorded and planned on
+   the CPU for phase 3, which holds every forward, backward, adjoint and
+   fused shape of its plan and of this phase's small registers first) and
+   a forward request with exact launches per plan step and one batched
+   solve per Hamiltonian family (five: the RX and RY drives, virtual RZ,
+   CZ, H's correction), <Z> within 1e-4 of the CPU's float64 pulse request,
+   its time and where it goes (record, of which the solves, plan, run);
+   forward + gradient in params and pulse_params through the saved
+   executor (f32 lambda; exact backward launches) against the forced
+   adjoint executor (1e-4 max|g| + 1e-6) and a central difference along
+   (g, g_pulse); a 6q batch of 3 inputs x 2 parameter sets x 2 pulse
+   scalers on the vectorised route (one batch record, one of its last
+   element) equal to the loop route (float32 1e-5, float64 1e-12); the
+   goldens (``BASELINE.md:20-21``): every leaf and composite pulse gate
+   over 20 angles, state fidelity >= 0.99 and phase error <= 1e-2 (CPhase's
+   phase excepted: its recipe carries the global phase e^{-iw/4}), and the
+   gaussian RX against the analytic RX, gate fidelity 1 +- 1e-2; a QOC run
+   of RX (tests/test_qoc.py's budget, two restarts) whose loss falls, with
+   its seconds;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
@@ -1083,7 +1105,8 @@ def density_parity_cases(dshapes: list) -> dict:
                      | {("rotwin", n2, r, k) for sh in dshapes for r, k in sh["rotwin_apply"]}))
 
 
-def phase_parity(shapes: dict, dshapes: list, ashapes: dict, bshapes: dict) -> dict:
+def phase_parity(shapes: dict, dshapes: list, ashapes: dict, bshapes: dict,
+                 pshapes: dict) -> dict:
     from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels as kn
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -1200,6 +1223,35 @@ def phase_parity(shapes: dict, dshapes: list, ashapes: dict, bshapes: dict) -> d
     cases = sorted({c[:4] + (bt, c[5]) for c in bshapes["fwd"] + bshapes["bwd"]
                     for bt in (1, 7, c[4])})
     errs.update(check_batch(ck, kn, cases, gen, rng))
+    # Phase 5h: the 24q pulse plan's shapes (forward, the saved executor's
+    # backward, the forced adjoint) and its small registers' (the goldens,
+    # the 6q batch, QOC), read off the same workloads on the CPU.
+    log("  the 24q pulse plan and phase 5h's small registers (from its workloads on the CPU):")
+    ps, pn = pshapes["main"], PULSE_N
+    pw = sorted({(pn, a, k) for a, k in ps["window_apply"]})
+    pt = sorted({(pn, pn - k, k) for k in ps["window_apply_top"]})
+    prot = set(ps["rotate"])
+    pr = sorted({(pn, r) for r in prot | {(pn - r) % pn for r in prot}})
+    padj = sorted(set(pw) | {(pn, 0, k) for _, k in ps["rotwin_apply"]})
+    pf = sorted({("rotmat", pn, r, r) for r in ps["rotmat_apply"]}
+                | {("matrot", pn, r, pn - r) for r in ps["matrot_apply"]}
+                | {("rotwin", pn, r, k) for r, k in ps["rotwin_apply"]})
+    log(f"    24q windows {pw}, top windows {pt}, rotations {pr}, fused {pf}; small windows "
+        f"{pshapes['windows']}, top windows {pshapes['tops']}, batch entries {pshapes['batch']}")
+    for name, e in (("window_apply", check_windows(ck, kn, pw + pshapes["windows"], False, gen,
+                                                   rng)),
+                    ("window_apply_bwd", check_bwd(ck, kn, pw, False, gen, rng)),
+                    ("adjoint_step", check_adjoint(ck, kn, padj, False, gen, rng)),
+                    ("window_apply_top", check_windows(ck, kn, pt + pshapes["tops"], True, gen,
+                                                       rng)),
+                    ("window_apply_top_bwd", check_bwd(ck, kn, pt, True, gen, rng)),
+                    ("adjoint_step_top", check_adjoint(ck, kn, pt, True, gen, rng)),
+                    ("rotate", check_rotations(ck, kn, pr, gen)),
+                    ("rotate_pair", check_rotate_pair(ck, kn, pr, gen)),
+                    *check_fused(ck, kn, pf, gen, rng).items(),
+                    *check_batch(ck, kn, pshapes["batch"], gen, rng).items()):
+        errs[name] = max(errs.get(name, 0.0), e)
+    check_rotations(ck, kn, pr, gen, torch.bfloat16)
     missing = set(KERNELS) - set(errs) - set(CHAIN_KERNELS)  # those in phase 5d
     _check(not missing, f"phase 3 checked no case of {sorted(missing)}")
     return errs
@@ -2232,7 +2284,7 @@ def _element_breakdown(model, n: int, reps: int = 50) -> dict:
         for i in range(reps + 1):
             t = [time.perf_counter()]
             tape = model.script._record(model.params[i % model.params.shape[0]], inputs,
-                                        model.enc_params)
+                                        enc_params=model.enc_params)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
             plan, start = simulation.scheduled_plan(tape, n, device=DEVICE)
@@ -2943,7 +2995,7 @@ def _batch_breakdown(model, bt: int, reps: int = 5) -> dict:
     with torch.no_grad():
         for i in range(reps + 1):
             t = [time.perf_counter()]
-            tape = model.script._record(params, inputs, model.enc_params)
+            tape = model.script._record(params, inputs, enc_params=model.enc_params)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
             slot = simulation.PlanSlot()
@@ -2964,6 +3016,444 @@ def _batch_breakdown(model, bt: int, reps: int = 5) -> dict:
                 parts["run"].append((t[4] - t[3]) * 1e3)
                 parts["total"].append((t[4] - t[0] - (t[3] - t[2])) * 1e3)
     return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5h: pulses
+# ---------------------------------------------------------------------------
+
+PULSE_N = 24
+PULSE_FAMILIES = 5  # the RX and RY drives, virtual RZ, CZ, H's correction phase
+PULSE_BATCH_N = 6  # 3 inputs x 2 parameter sets x 2 pulse scalers
+PULSE_BATCH_SCALES = (1.0, 1.03)
+PULSE_SAMPLES = 20  # golden angles a gate (QOC's default sample)
+GOLDEN_FIDELITY, GOLDEN_PHASE, GOLDEN_RX = 0.99, 1e-2, 1e-2  # BASELINE.md:20-21
+# Composites outside QOC's gate library, probed from |+>|+>.
+GOLDEN_EXTRA = ("RZZ", "RXX", "RYY", "RZX")
+QOC_KNOBS = dict(envelope="gaussian", cost_fns=[("unitary", (0.5, 0.5))], t_target=0.5,
+                 n_steps=15, n_samples=3, learning_rate=5e-3, log_interval=5, n_restarts=2,
+                 scan_steps=0, random_seed=7)  # tests/test_qoc.py:114-126, two restarts
+QOC_INIT_SCALE = 1.15
+
+
+def pulse_model(n: int, device=None, dtype=torch.float32):
+    """The n-qubit Circuit_19 model (bench.py's, seed 7; the pulse envelope
+    the Model's default, gaussian) for pulse-mode requests."""
+    from qml_essentials_tpu_torch.models.model import Model
+
+    return Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED,
+                 device=device or DEVICE, dtype=dtype)
+
+
+def pulse_tape(n: int) -> list:
+    """The pulse-mode tape of one forward of the n-qubit model (on the CPU)."""
+    from qml_essentials_tpu_torch.ops.tape import recording
+
+    model = pulse_model(n, "cpu")
+    with recording() as tape, torch.no_grad():
+        model._variational(model.params[0], torch.tensor([REQUESTS[0]]),
+                           pulse_params=model.pulse_params[0], gate_mode="pulse")
+    return tape
+
+
+def _golden_scripts(name: str, device) -> tuple:
+    """(pulse script, target script, wires) of one gate: QOC's pair with its
+    probe preparation where its gate library has one, else both wires of a
+    two-qubit rotation prepared in |+>; float64 (QOC's precision)."""
+    from qml_essentials_tpu_torch.models.gates import Gates
+    from qml_essentials_tpu_torch.ops import operations as op
+    from qml_essentials_tpu_torch.pulse import qoc
+
+    if name in qoc._GATE_LIBRARY:
+        pulse, target = qoc._pair_from_spec(name)
+        nw = qoc._GATE_LIBRARY[name].wires
+    else:
+        nw = 2
+
+        def pulse(w, pp):
+            op.H(wires=0), op.H(wires=1)
+            getattr(Gates, name)(w, wires=[0, 1], pulse_params=pp, gate_mode="pulse")
+
+        def target(w):
+            op.H(wires=0), op.H(wires=1)
+            getattr(op, name)(w, wires=[0, 1])
+
+    return qoc._script(pulse, nw, device), qoc._script(target, nw, device), nw
+
+
+def pulse_goldens(device) -> dict:
+    """Every leaf and composite pulse gate (gaussian, RWA) over PULSE_SAMPLES
+    angles: min state fidelity and max phase error against its exact gate,
+    from QOC's probes (and the same circuit after a layer of H).  Returns
+    {gate: (min fidelity, max phase error)} and the gaussian RX's min gate
+    fidelity |Tr(U_pulse^dag U_RX)| / 2 against the analytic RX."""
+    from qml_essentials_tpu_torch.ops import operations as op
+    from qml_essentials_tpu_torch.ops.tape import recording
+    from qml_essentials_tpu_torch.pulse import qoc
+    from qml_essentials_tpu_torch.pulse.pulses import PulseGates, PulseInformation
+
+    PulseInformation.set_envelope("gaussian", rwa=True)
+    ws = qoc._sample_rotation_angles(PULSE_SAMPLES, device)
+    out = {}
+    for name in list(qoc._GATE_LIBRARY) + list(GOLDEN_EXTRA):
+        pulse, target, nw = _golden_scripts(name, device)
+        pp = PulseInformation.gate_by_name(name).params.to(device)
+        got = pulse.execute(type="state", args=(ws, pp), in_axes=(0, None))
+        want = target.execute(type="state", args=(ws,), in_axes=(0,))
+        overlap = torch.sum(want.conj() * got, dim=-1)
+        out[name] = (overlap.abs().square().min().item(), torch.angle(overlap).abs().max().item())
+    with recording() as tape:
+        PulseGates.RX(ws, wires=0)
+    with recording() as exact:
+        op.RX(ws, wires=0)
+    fid = torch.einsum("sji,sji->s", exact[0].matrix.conj(), tape[0].matrix).abs() / 2
+    return out, fid.min().item()
+
+
+def _pulse_batch_model(device, dtype):
+    model = pulse_model(PULSE_BATCH_N, device, dtype)
+    gen = torch.Generator().manual_seed(SEED)
+    model.params = torch.rand((2,) + model._params_shape, generator=gen, dtype=dtype) * 2 * np.pi
+    return model
+
+
+def _pulse_batch_args(model) -> tuple:
+    dev, dt = model.device, model.dtype
+    pp = torch.stack([torch.full(model._pulse_params_shape, s, dtype=dt, device=dev)
+                      for s in PULSE_BATCH_SCALES])
+    return torch.tensor(REQUESTS, dtype=dt, device=dev), model.params.detach().clone(), pp
+
+
+def pulse_batch(model, loop: bool = False) -> torch.Tensor:
+    """The 6q batch over all three axes (inputs x params x pulse scalers),
+    one vectorised call, or (*loop*) element by element."""
+    xs, params, pp = _pulse_batch_args(model)
+    if not loop:
+        return model(inputs=xs, params=params, pulse_params=pp, gate_mode="pulse")
+    out = torch.stack([model(inputs=x, params=params[i], pulse_params=pp[j], gate_mode="pulse")
+                       for x in xs for i in range(len(params)) for j in range(len(pp))])
+    model.params = params
+    return out.reshape((len(xs), len(params), len(pp), -1))
+
+
+def qoc_run(device) -> tuple:
+    """QOC of the gaussian RX from 15 % off its calibration: returns the
+    loss history, the best parameters and the seconds."""
+    from qml_essentials_tpu_torch.pulse import qoc
+    from qml_essentials_tpu_torch.pulse.pulses import PulseInformation
+
+    out_dir = ROOT / "build" / "qoc"
+    q = qoc.QOC(**QOC_KNOBS, file_dir=str(out_dir), device=device)
+    init = PulseInformation.gate_by_name("RX").params * QOC_INIT_SCALE
+    t0 = time.perf_counter()
+    best, history = q.optimize(wires=1)(q.create_RX)(init_pulse_params=init)
+    return [float(h) for h in history], best, time.perf_counter() - t0
+
+
+class _PulseSpy:
+    """Records the shapes the forward window wrappers run at while entered:
+    float32 single states as (n, a, k) windows / top windows, and batched
+    or float64 states (the batch entries) as (n, a, k, per-element W,
+    batch, float64)."""
+
+    def __enter__(self):
+        from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+        self.ck = ck
+        self.saved = {name: getattr(ck, name) for name in ("window_apply", "window_apply_top")}
+        self.windows, self.tops, self.batch = set(), set(), set()
+
+        def add(psi2, w2, n, a, k):
+            if psi2.dim() == 3 or psi2.dtype == torch.float64:
+                bt = psi2.shape[1] if psi2.dim() == 3 else 1
+                self.batch.add((n, a, k, w2.dim() == 4, bt, psi2.dtype == torch.float64))
+            else:
+                (self.tops if a + k == n else self.windows).add((n, a, k))
+
+        def window(psi2, w2, a, k, n):
+            add(psi2, w2, n, a, k)
+            return self.saved["window_apply"](psi2, w2, a, k, n)
+
+        def top(psi2, w2, k, n):
+            add(psi2, w2, n, n - k, k)
+            return self.saved["window_apply_top"](psi2, w2, k, n)
+
+        ck.window_apply, ck.window_apply_top = window, top
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ck, name, fn)
+
+
+def pulse_shapes() -> dict:
+    """The 24q pulse plan's kernel calls (its tape: operations by name), and
+    every shape phase 5h's small registers run (the goldens, the 6q batch
+    both routes in float32 and float64, and a QOC cost and gradient), read
+    off the same workloads on the CPU."""
+    from qml_essentials_tpu_torch.ops import simulation
+    from qml_essentials_tpu_torch.pulse import qoc
+    from qml_essentials_tpu_torch.pulse.pulses import PulseInformation
+
+    t0 = time.perf_counter()
+    tape = pulse_tape(PULSE_N)
+    plan, _ = simulation.scheduled_plan(tape, PULSE_N)
+    names = {}
+    for o in tape:
+        names[o.name] = names.get(o.name, 0) + 1
+    main = shapes_of(plan, PULSE_N)
+    record_s = time.perf_counter() - t0
+    with _PulseSpy() as spy:
+        with torch.no_grad():
+            pulse_goldens("cpu")
+            for dtype in (torch.float32, torch.float64):
+                model = _pulse_batch_model("cpu", dtype)
+                pulse_batch(model)
+                pulse_batch(model, loop=True)
+        q = qoc.QOC(**dict(QOC_KNOBS, n_steps=1, n_restarts=1), file_dir=None, device="cpu")
+        pulse, target = q.create_RX()
+        cost = qoc.Cost(qoc.unitary_cost_fn, (0.5, 0.5), dict(
+            pulse_basis_scripts=qoc._basis_scripts(pulse, 1, "cpu"),
+            target_basis_scripts=qoc._basis_scripts(target, 1, "cpu"), n_samples=3,
+            n_qubits=1))
+        qoc._value_and_grad(cost, PulseInformation.RX.params.clone())
+    return dict(main=main, ops=len(tape), by_name=names, record_s=record_s,
+                windows=sorted(spy.windows), tops=sorted(spy.tops), batch=sorted(spy.batch))
+
+
+def _pulse_request(model, x, grad: bool = True) -> tuple:
+    """loss = mean <Z> of a pulse-mode request; with *grad* its gradients
+    with respect to params and pulse_params."""
+    model.params.grad = model.pulse_params.grad = None
+    if not grad:
+        with torch.inference_mode():
+            return model(inputs=x, gate_mode="pulse").mean(), None, None
+    loss = model(inputs=x, gate_mode="pulse").mean()
+    loss.backward()
+    return (loss.detach(), model.params.grad.detach().clone(),
+            model.pulse_params.grad.detach().clone())
+
+
+def _pulse_fd(model, g: torch.Tensor, gp: torch.Tensor, x) -> None:
+    """Central difference of the card's pulse forward along (g, gp)/|(g, gp)|
+    against the gradient's norm."""
+    norm = torch.cat([g.flatten(), gp.flatten()]).norm().item()
+    p0, q0 = model.params.detach().clone(), model.pulse_params.detach().clone()
+    f_pm = []
+    try:
+        for s in (FD_EPS, -FD_EPS):
+            model.params.data = p0 + s * g / norm
+            model.pulse_params.data = q0 + s * gp / norm
+            with torch.inference_mode():
+                f_pm.append(model(inputs=x, gate_mode="pulse").mean().item())
+    finally:
+        model.params.data, model.pulse_params.data = p0, q0
+    fd = (f_pm[0] - f_pm[1]) / (2 * FD_EPS)
+    tol = FD_REL * norm + FD_ABS
+    log(f"  {PULSE_N}q pulse central difference along (g, g_pulse)/|.| (eps {FD_EPS}): {fd:.6f} "
+        f"vs |g| {norm:.6f} (|delta|={abs(fd - norm):.3e}, tol {tol:.3e})")
+    _check(abs(fd - norm) <= tol, f"{PULSE_N}q pulse finite difference {fd} vs |g| {norm}")
+
+
+class _SolveTimer:
+    """Host ms spent in the batched pulse solves while entered (each solve
+    synchronised before and after), and their number."""
+
+    def __enter__(self):
+        from qml_essentials_tpu_torch.pulse.evolution import Evolution
+
+        self.ev, self.real, self.ms, self.calls = Evolution, Evolution.resolve.__func__, 0.0, 0
+        timer = self
+
+        def resolve(cls, ops):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), cls.solve_calls
+            timer.real(cls, ops)
+            torch.cuda.synchronize()
+            timer.ms += (time.perf_counter() - t0) * 1e3
+            timer.calls += cls.solve_calls - c0
+
+        Evolution.resolve = classmethod(resolve)
+        return self
+
+    def __exit__(self, *exc):
+        self.ev.resolve = classmethod(self.real)
+
+
+def _pulse_breakdown(model, n: int) -> None:
+    """Where one pulse-mode forward request's time goes: recording (of which
+    the batched solves), planning and running the plan plus readout."""
+    from qml_essentials_tpu_torch.ops import kernels, simulation
+
+    meas_type, obs = model._build_obs()
+    inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
+
+    def record():
+        return model.script._record(model.params, inputs, pulse_params=model.pulse_params,
+                                    enc_params=model.enc_params, gate_mode="pulse")
+
+    with torch.inference_mode():
+        record()
+        with _SolveTimer() as st:
+            rec_ms, _, tape = _host_ms(record)
+        plan_ms, _, (plan, start) = _host_ms(
+            lambda: simulation.scheduled_plan(tape, n, device=DEVICE))
+
+        def run():
+            psi2 = start if start is not None else kernels.zero_state_ri(n, device=DEVICE)
+            for kind, payload, wires in plan:
+                psi2 = simulation._apply_step_ri(psi2, kind, payload, wires, n)
+            return simulation.measure_state_ri(psi2, n, meas_type, obs)
+
+        run_ms, _, _ = _host_ms(run)
+        slot = simulation.PlanSlot()
+        slot.get("pure", simulation._pure_build(n, torch.float32, DEVICE), tape)
+        hit_ms, _, _ = _host_ms(lambda: slot.get("pure", None, tape))
+    log(f"    pulse forward breakdown {n}q: record {rec_ms:.3f} ms (of which {st.calls // 3} "
+        f"batched solves {st.ms / 3:.3f} ms), plan {plan_ms:.3f} ms (from the plan cache "
+        f"{hit_ms:.3f} ms), run {len(plan)} steps + readout {run_ms:.3f} ms")
+
+
+def phase_pulses(pshapes: dict, smi: str) -> dict:
+    """Pulse mode on the card: the 24q Circuit_19 request (exact launches,
+    one batched solve per Hamiltonian family, <Z> against the CPU's float64
+    pulse request), its gradient in params and pulse_params (saved against
+    forced adjoint and a finite difference), a 6q batch over the three
+    batch axes (vectorised, equal to the loop), the goldens and a QOC run.
+    Returns the launches counted."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, saved, simulation
+    from qml_essentials_tpu_torch.pulse.evolution import Evolution
+
+    t_phase = time.perf_counter()
+    log(f"phase 5h: pulses ({smi})")
+    n, shape = PULSE_N, pshapes["main"]
+    log(f"  {n}q pulse-mode Circuit_19 tape: {pshapes['ops']} operations {pshapes['by_name']} "
+        f"(recorded and planned on the CPU in {pshapes['record_s']:.1f} s)")
+    log(f"  {n}q pulse plan: {describe(shape)}")
+    log(f"    in order: {describe_steps(shape)}")
+    ck.reset_launch_counts()
+    model = pulse_model(n)
+    x = REQUESTS[0]
+
+    # The forward request: exact launches, one solve per family.
+    _pulse_request(model, x, grad=False)  # warm-up: the solvers' first calls
+    torch.cuda.synchronize()
+    c0, before = Evolution.solve_calls, ck.launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = model(inputs=x, gate_mode="pulse")
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t0) * 1e3
+    calls, fwd = Evolution.solve_calls - c0, _diff(ck.launch_counts(), before)
+    want = {name: len(shape[name]) for name in FWD_KERNELS}
+    got = {name: fwd[name] for name in FWD_KERNELS}
+    log(f"  {n}q pulse forward: {req_ms:.1f} ms, {calls} batched solves, launched {got}")
+    _check(got == want and not any(fwd[k] for k in (*BWD_KERNELS, *ADJOINT_KERNELS)),
+           f"{n}q pulse forward launches {fwd}, the plan wants {want}")
+    _check(calls == PULSE_FAMILIES,
+           f"{n}q pulse forward: {calls} solves, want one per family ({PULSE_FAMILIES})")
+    _check(tuple(out.shape) == (n,) and bool(torch.isfinite(out).all()),
+           f"{n}q pulse forward: shape {tuple(out.shape)} or non-finite values")
+    ref_model = pulse_model(n, "cpu", torch.float64)
+    ref_model.load_numpy(model.params.detach().cpu().numpy(),
+                         pulse_params=model.pulse_params.detach().cpu().numpy())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = ref_model(inputs=x, gate_mode="pulse")
+    d_ref = _maxdiff(out, ref)
+    log(f"  {n}q pulse card fp32 vs CPU fp64: max|delta <Z>|={d_ref:.3e} (CPU reference took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    _check(d_ref <= TOL_EXPVAL, f"{n}q pulse: card vs CPU fp64 differ by {d_ref:.3e}")
+    best, med, _ = _host_ms(lambda: _pulse_request(model, x, grad=False), reps=10)
+    log(f"  {n}q pulse forward request: best {best:.3f} ms, median of 10 {med:.3f} ms")
+    _pulse_breakdown(model, n)
+
+    # The gradient in params and pulse_params: saved (f32 lambda) against
+    # forced adjoint, the saved executor's launches, a finite difference.
+    saved.set_lambda_mode("f32")
+    grads = {}
+    try:
+        for mode in ("autodiff", "adjoint"):
+            simulation.set_backward_mode(mode)
+            before = ck.launch_counts()
+            loss, g, gp = _pulse_request(model, x)
+            torch.cuda.synchronize()
+            grads[mode] = (loss, g, gp, _diff(ck.launch_counts(), before))
+    finally:
+        simulation.set_backward_mode("auto")
+        saved.set_lambda_mode("bf16")
+    loss, g, gp, counts = grads["autodiff"]
+    _check(all(bool(torch.isfinite(t).all()) for t in (loss, g, gp)) and gp.abs().max() > 0,
+           f"{n}q pulse gradient: non-finite or vanishing")
+    want = saved_counts(shape)
+    got = {k: counts[k] for k in want}
+    log(f"  {n}q pulse fwd+grad (saved, f32 lambda): loss {loss.item():.6f}, |g| "
+        f"{g.norm().item():.6f}, |g_pulse| {gp.norm().item():.6f}; backward launches {got}")
+    _check(got == want, f"{n}q pulse saved gradient launches {got}, want {want}")
+    _check_adjoint_counts(grads["adjoint"][3], shape, f"{n}q pulse forced adjoint")
+    _within(grads["adjoint"][1], g, f"{n}q pulse d/d params, adjoint vs saved")
+    _within(grads["adjoint"][2], gp, f"{n}q pulse d/d pulse_params, adjoint vs saved")
+    _pulse_fd(model, g, gp, x)
+    best, med, _ = _host_ms(lambda: _pulse_request(model, x), reps=5)
+    log(f"  {n}q pulse forward + gradient (saved, bf16 lambda): best {best:.3f} ms, median of 5 "
+        f"{med:.3f} ms")
+    launches = ck.launch_counts()
+
+    # The 6q batch over the three axes: vectorised, equal to the loop.
+    for dtype, tol in ((torch.float32, TOL_BATCH_LOOP), (torch.float64, TOL_BATCH64)):
+        bmodel = _pulse_batch_model(DEVICE, dtype)
+        with torch.inference_mode(), _RouteCounter() as rc:
+            c0 = Evolution.solve_calls
+            got = pulse_batch(bmodel)
+            calls = Evolution.solve_calls - c0
+            counts = rc.launches()
+        route = bmodel.script.routes[-1]
+        with torch.inference_mode():
+            loop = pulse_batch(bmodel, loop=True)
+        d = _maxdiff(got, loop)
+        log(f"  {PULSE_BATCH_N}q pulse batch {tuple(got.shape[:3])} {_dt(dtype)}: route {route!r}, "
+            f"{rc.records} batch record(s), {rc.alone} single, {calls} batched solves, launched "
+            f"{dict((k, v) for k, v in counts.items() if v)}; vs the loop max|delta|={d:.3e}")
+        _check(route == "vectorised" and rc.records == 1 and rc.alone == 1,
+               f"{PULSE_BATCH_N}q pulse batch: route {route}, {rc.records} records")
+        _check(calls <= 2 * PULSE_FAMILIES, f"{PULSE_BATCH_N}q pulse batch: {calls} solves")
+        _check(d <= tol, f"{PULSE_BATCH_N}q pulse batch vs loop differ by {d:.3e} > {tol}")
+        for k in launches:
+            launches[k] += counts[k]
+
+    # The goldens (BASELINE.md:20-21).
+    with _RouteCounter() as rc, torch.inference_mode():
+        t0 = time.perf_counter()
+        goldens, rx_fid = pulse_goldens(DEVICE)
+        sec = time.perf_counter() - t0
+        counts = rc.launches()
+    for k in launches:
+        launches[k] += counts[k]
+    for name, (fid, phase) in goldens.items():
+        log(f"  golden {name}: min state fidelity {fid:.6f}, max phase error {phase:.3e}")
+        _check(fid >= GOLDEN_FIDELITY, f"golden {name}: fidelity {fid:.6f} < {GOLDEN_FIDELITY}")
+        # CPhase's recipe is ControlledPhaseShift times the global phase
+        # e^{-i w/4}: its phase is not the gate's error.
+        _check(name == "CPhase" or phase <= GOLDEN_PHASE,
+               f"golden {name}: phase error {phase:.3e} > {GOLDEN_PHASE}")
+    log(f"  golden gaussian RX vs analytic RX: min gate fidelity {rx_fid:.6f} over "
+        f"{PULSE_SAMPLES} angles ({sec:.1f} s for the goldens)")
+    _check(abs(rx_fid - 1) <= GOLDEN_RX, f"golden RX: gate fidelity {rx_fid}")
+
+    # QOC.
+    with _RouteCounter() as rc:
+        history, best, sec = qoc_run(DEVICE)
+        counts = rc.launches()
+    for k in launches:
+        launches[k] += counts[k]
+    log(f"  QOC RX (gaussian, {QOC_KNOBS['n_steps']} steps x {QOC_KNOBS['n_restarts']} restarts, "
+        f"{QOC_KNOBS['n_samples']} angles, init x{QOC_INIT_SCALE}): loss {history[0]:.6e} -> "
+        f"{min(history[1:]):.6e} in {sec:.2f} s ({smi}); best {best.tolist()}")
+    _check(min(history[1:]) < history[0] and all(np.isfinite(history)),
+           f"QOC RX: the loss did not fall: {history}")
+    log(f"  launches over phase 5h: {dict((k, v) for k, v in launches.items() if v)}")
+    log(f"  phase 5h took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3040,7 +3530,8 @@ def _log_breakdown(model, n: int) -> None:
 
     meas_type, obs = model._build_obs()
     inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
-    rec_ms, _, tape = _host_ms(lambda: model.script._record(model.params, inputs, model.enc_params))
+    rec_ms, _, tape = _host_ms(lambda: model.script._record(model.params, inputs,
+                                                            enc_params=model.enc_params))
     plan_ms, _, (plan, start) = _host_ms(lambda: simulation.scheduled_plan(tape, n, device=DEVICE))
 
     def run():
@@ -3075,7 +3566,7 @@ def _log_grad_breakdown(model, n: int, executor: str = "saved") -> None:
     for _ in range(4):
         model.params.grad = None
         t = [time.perf_counter()]
-        tape = model.script._record(model.params, inputs, model.enc_params)
+        tape = model.script._record(model.params, inputs, enc_params=model.enc_params)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         plan, start = simulation.scheduled_plan(tape, n, device=DEVICE)
@@ -3140,7 +3631,7 @@ def _plan_run(model, n: int):
 
     inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
     with torch.inference_mode():
-        tape = model.script._record(model.params, inputs, model.enc_params)
+        tape = model.script._record(model.params, inputs, enc_params=model.enc_params)
         plan, start = simulation.scheduled_plan(tape, n, device=DEVICE)
 
     def run():
@@ -3259,7 +3750,7 @@ def _density_times(model, smi: str) -> None:
     inputs = torch.tensor([[REQUESTS[0]]], device=DEVICE)
 
     def record():
-        return model.script._record(model.params, inputs, model.enc_params,
+        return model.script._record(model.params, inputs, enc_params=model.enc_params,
                                     random_key=torch.Generator().manual_seed(SEED),
                                     noise_params=model.noise_params)
 
@@ -3977,11 +4468,16 @@ def main() -> int:
     log(f"  phase 5g's batch shapes (n, a, k, per-element W, batch), from its workloads on the "
         f"CPU ({time.perf_counter() - t0:.1f} s): forward {bshapes['fwd']}, backward "
         f"{bshapes['bwd']}")
-    errs = phase_parity(shapes, list(dshapes.values()), ashapes, bshapes)
+    t0 = time.perf_counter()
+    pshapes = pulse_shapes()
+    log(f"  phase 5h's shapes, from the 24q pulse tape and its small workloads on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): the 24q pulse plan {describe(pshapes['main'])}")
+    errs = phase_parity(shapes, list(dshapes.values()), ashapes, bshapes, pshapes)
     # The main path: serving (phase 4), saved-residual training (5),
     # adjoint training (5b), the chain route (5d), the noisy density
-    # model (5e) and the analysis slice (5f), each with the counts reset
-    # just before it and read just after; every kernel must launch over the six.
+    # model (5e), the analysis slice (5f), the batch route (5g) and pulse
+    # mode (5h), each with the counts reset just before it and read just
+    # after; every kernel must launch over them.
     models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
@@ -3991,9 +4487,10 @@ def main() -> int:
     dmodel, density_launches = phase_density(dshapes)
     analysis_launches = phase_analysis(models, shapes, dmodel, dshapes, smi)
     batch_launches = phase_batch(models, shapes, batch, smi)
+    pulse_launches = phase_pulses(pshapes, smi)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
                 + density_launches[k] + analysis_launches[k] + batch_launches[k]
-                for k in KERNELS}
+                + pulse_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

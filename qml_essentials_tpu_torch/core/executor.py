@@ -49,6 +49,12 @@ backward, from the memory free before the batch.  Finite ``shots`` sample
 each element's exact probabilities on its own generator, split off the one
 passed in.
 
+*Pulse gates.*  A pulse-mode gate records a pending operation; closing the
+recording solves every pending operation of the tape, one batched solve per
+Hamiltonian family (:mod:`~qml_essentials_tpu_torch.pulse.evolution`),
+before the plan key or the planner reads a matrix.  A batch's pulse gates
+carry ``(Bt, d, d)`` matrices like any other gate.
+
 Counterpart of ``qml_essentials_tpu/core/executor.py`` (sharding comes
 later).
 """
@@ -65,7 +71,7 @@ from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import chains, recipes, simulation
 from qml_essentials_tpu_torch.ops.operations import Operation
-from qml_essentials_tpu_torch.ops.tape import recording
+from qml_essentials_tpu_torch.ops.tape import pulse_recording, recording
 from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
 
 logger = logging.getLogger(__name__)
@@ -166,6 +172,13 @@ class Script:
         with recording() as tape:
             self.f(*args, **kwargs)
         return tape
+
+    def pulse_events(self, *args, **kwargs) -> list:
+        """Run the circuit and collect pulse events for schedule drawing."""
+        with pulse_recording() as events:
+            with recording():
+                self.f(*args, **kwargs)
+        return events
 
     def _plan_key(self, tape, n_qubits, type, obs, use_density, shots) -> tuple:
         from qml_essentials_tpu_torch.models.unitary import UnitaryGates

@@ -1,21 +1,39 @@
 """Public circuit-building entry point (the "jaqsi" surface).
 
-Exposes :class:`Script` and quantum-information utilities (partial trace,
-probability marginalisation, parity observables).
+Exposes :class:`Script`, the :func:`Hamiltonian` factory and
+quantum-information utilities (partial trace, probability marginalisation,
+parity observables).
 
-Counterpart of ``qml_essentials_tpu/core/jaqsi.py`` (Hamiltonians come with
-the pulse slice).
+Counterpart of ``qml_essentials_tpu/core/jaqsi.py``.
 """
 
 from __future__ import annotations
 
 from functools import reduce
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import torch
 
 from qml_essentials_tpu_torch.core.executor import Script  # noqa: F401
-from qml_essentials_tpu_torch.ops.operations import Hermitian, PauliZ
+from qml_essentials_tpu_torch.ops.operations import (  # noqa: F401
+    Hermitian,
+    ParametrizedHamiltonian,
+    PauliZ,
+)
+from qml_essentials_tpu_torch.pulse.evolution import Evolution  # noqa: F401
+
+
+def Hamiltonian(
+    matrix,
+    wires: Union[int, List[int]] = 0,
+    record: bool = False,
+) -> Hermitian:
+    """Static Hamiltonian factory — a :class:`Hermitian` with ``record=False``.
+
+    Multiply by a ``f(params, t)`` callable to obtain a time-dependent
+    :class:`ParametrizedHamiltonian`; both expose ``.evolve()``.
+    """
+    return Hermitian(matrix, wires=wires, record=record)
 
 
 def _partial_trace_single(rho: torch.Tensor, n_qubits: int, keep: List[int]) -> torch.Tensor:

@@ -24,8 +24,7 @@ sequences and topology options in ``_STRUCTURES`` are literature facts and
 therefore match the reference's tables entry for entry.
 
 Counterpart of ``qml_essentials_tpu/models/ansaetze.py``: the same
-structure table, gate sequences and encodings.  Pulse-parameter counts come
-with the pulse slice and raise ``NotImplementedError`` here.
+structure table, gate sequences, pulse-parameter counts and encodings.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from qml_essentials_tpu_torch.models.gates import Gates
+from qml_essentials_tpu_torch.models.gates import Gates, PulseInformation
 from qml_essentials_tpu_torch.models.topologies import Topology
 
 log = logging.getLogger(__name__)
@@ -91,10 +90,26 @@ class Circuit(ABC):
         return w[..., slice(*spec)] if is_slice else w[..., torch.as_tensor(spec, device=w.device)]
 
     def _build(self, w: torch.Tensor, n_qubits: int, **kwargs: Any) -> Any:
-        """Entry point used by the Model (pulse mode comes with the pulse slice)."""
-        if kwargs.get("gate_mode", "unitary") == "pulse":
-            raise NotImplementedError("gate_mode='pulse' comes with the pulse slice")
-        return self.build(w, n_qubits, **kwargs)
+        """Entry point used by the Model: wraps :meth:`build` with
+        pulse-parameter validation and manager installation when the layer
+        runs in pulse mode (the layer's pulse parameters ``(n,)``, or
+        ``(Bt, n)`` for a batch recorded as one tape)."""
+        in_pulse_mode = (
+            kwargs.get("gate_mode", "unitary") == "pulse"
+            and "pulse_params" in kwargs
+        )
+        if not in_pulse_mode:
+            return self.build(w, n_qubits, **kwargs)
+
+        given = kwargs["pulse_params"].shape[-1]
+        expected = self.n_pulse_params_per_layer(n_qubits)
+        if given != expected:
+            raise ValueError(
+                f"Pulse params length {given} "
+                f"does not match expected {expected} for {n_qubits} qubits"
+            )
+        with Gates.pulse_manager_context(kwargs["pulse_params"]):
+            return self.build(w, n_qubits, **kwargs)
 
     @abstractmethod
     def build(self, w: torch.Tensor, n_qubits: int, **kwargs: Any) -> Any:
@@ -192,7 +207,8 @@ class Block:
         return wps * len(self.sites(n_qubits)) if wps else 0
 
     def n_pulse_params(self, n_qubits: int) -> int:
-        raise NotImplementedError("pulse parameters come with the pulse slice")
+        assert n_qubits > 0, "Number of qubits must be positive"
+        return PulseInformation.num_params(self.gate) * len(self.sites(n_qubits))
 
     def apply(
         self, n_qubits: int, w: torch.Tensor = None, w_idx: int = None, **kwargs
@@ -413,6 +429,12 @@ class Ansaetze:
             Gates.H(wires=0, **kwargs)
             for q in range(n_qubits - 1):
                 Gates.CX(wires=[q, q + 1], **kwargs)
+
+        @classmethod
+        def n_pulse_params_per_layer(cls, n_qubits: int) -> int:
+            one_h = PulseInformation.num_params("H")
+            ladder = (n_qubits - 1) * PulseInformation.num_params(Gates.CX)
+            return one_h + ladder
 
 
 for _name in _STRUCTURES:

@@ -25,8 +25,17 @@ package threads PRNG keys, the model threads ``torch.Generator`` objects: its
 own (``random_key``, seeded by ``random_seed``) gives each call one
 generator, and each call one per batch element and one for the shots.
 
-Counterpart of ``qml_essentials_tpu/models/model.py`` (pulses come with a
-later slice and raise ``NotImplementedError``).
+``gate_mode="pulse"`` runs every ansatz and state-preparation gate at the
+pulse level (:mod:`~qml_essentials_tpu_torch.pulse.pulses`; the encodings
+stay exact): each gate's matrix solves its drive Hamiltonian, all of a
+request's gates in one batched solve per Hamiltonian family.  The model's
+``pulse_params`` ``[batch, impl_layers, n_pulse_params_per_layer]`` scale
+the gates' calibrated pulse parameters element-wise and are trainable like
+``params``; their batch axis is the third of ``repeat_batch_axis``.  The
+constructor's ``pulse_shape`` sets the process-global pulse envelope, as the
+JAX package's does.
+
+Counterpart of ``qml_essentials_tpu/models/model.py``.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from torch import nn
 from qml_essentials_tpu_torch.core import jaqsi as js
 from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.models.ansaetze import Ansaetze, Circuit, Encoding
-from qml_essentials_tpu_torch.models.gates import Gates
+from qml_essentials_tpu_torch.models.gates import Gates, PulseInformation
 from qml_essentials_tpu_torch.ops import operations as op
 from qml_essentials_tpu_torch.ops.operations import KrausChannel
 from qml_essentials_tpu_torch.ops.tape import recording
@@ -107,7 +116,8 @@ class Model(nn.Module):
         initialization_domain: List[float] = [0, 2 * np.pi],
         output_qubit: Union[List[int], int] = -1, shots: Optional[int] = None,
         random_seed: int = 1000, remove_zero_encoding: bool = True,
-        repeat_batch_axis: List[bool] = [True, True],
+        repeat_batch_axis: List[bool] = [True, True, True],
+        pulse_shape: str = "gaussian",
         device: Union[str, torch.device] = DEFAULT_DEVICE,
         dtype: torch.dtype = torch.float32,
     ) -> None:
@@ -130,8 +140,10 @@ class Model(nn.Module):
             random_seed: Seed of the model's ``torch.Generator``: parameter
                 init, then one generator per call for noise and shots.
             remove_zero_encoding: Elide encoding gates for all-zero inputs.
-            repeat_batch_axis: Which of the (inputs, params) axes fuse into
-                the flat execution batch.
+            repeat_batch_axis: Which of the (inputs, params, pulse) axes fuse
+                into the flat execution batch.
+            pulse_shape: Active pulse envelope for pulse-mode execution
+                (sets the process-global envelope).
             device: Device of the parameters and the simulation: the card
                 by default (raises without CUDA); ``"cpu"`` on request.
             dtype: Real dtype of the simulation (float32 or float64; on the
@@ -156,12 +168,19 @@ class Model(nn.Module):
         self.noise_params = None
         self.execution_type = "expval"
         self._zero_inputs = False
-        self._batch_shape: Optional[Tuple[int, int]] = None
+        self._batch_shape: Optional[Tuple[int, int, int]] = None
 
+        PulseInformation.set_envelope(pulse_shape)
+
+        # State preparation: resolved once into (gate, pulse_params) pairs.
         try:
             self._sp = Gates.parse_gates(state_preparation, Gates)
         except ValueError as e:
             raise ValueError(f"Error parsing encodings: {e}")
+        self.sp_pulse_params = []
+        for g in self._sp:
+            info = PulseInformation.gate_by_name(getattr(g, "__name__", str(g)))
+            self.sp_pulse_params.append(None if info is None else info.params)
 
         self._enc = encoding if isinstance(encoding, Encoding) else Encoding(
             "hamming", encoding
@@ -185,12 +204,15 @@ class Model(nn.Module):
 
         impl_layers = n_layers + (1 if self.has_dru else 0)
         self._params_shape = (impl_layers, self.pqc.n_params_per_layer(n_qubits))
+        self._pulse_params_shape = (impl_layers, self.pqc.n_pulse_params_per_layer(n_qubits))
 
         self._inialization_strategy = initialization
         self._initialization_domain = initialization_domain
         self._params = nn.Parameter(torch.empty((1, *self._params_shape), dtype=dtype,
                                                 device=self.device))
         self.random_key = self.initialize_params(torch.Generator().manual_seed(random_seed))
+        self._pulse_params = nn.Parameter(torch.ones((1, *self._pulse_params_shape),
+                                                     dtype=dtype, device=self.device))
 
         self.script = js.Script(
             f=self._variational, n_qubits=n_qubits, device=self.device, dtype=dtype
@@ -304,6 +326,18 @@ class Model(nn.Module):
         self._params.data = value.detach().clone()
 
     @property
+    def pulse_params(self) -> torch.Tensor:
+        """Pulse-parameter scalers, batch-first (ones: the calibration)."""
+        return self._pulse_params
+
+    @pulse_params.setter
+    def pulse_params(self, value) -> None:
+        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        if value.ndim == 2:
+            value = value[None]
+        self._pulse_params.data = value.detach().clone()
+
+    @property
     def data_reupload(self) -> np.ndarray:
         """Concrete boolean reupload mask, shape (n_layers, n_qubits, n_feat)."""
         return self._data_reupload
@@ -385,8 +419,8 @@ class Model(nn.Module):
 
     @property
     def batch_shape(self) -> Tuple[int, ...]:
-        """(B_inputs, B_params) from the last call; (1, 1) before."""
-        return self._batch_shape or (1, 1)
+        """(B_inputs, B_params, B_pulse) from the last call; (1, 1, 1) before."""
+        return self._batch_shape or (1, 1, 1)
 
     @property
     def eff_batch_shape(self) -> Tuple[int, ...]:
@@ -466,11 +500,14 @@ class Model(nn.Module):
         log.info(f"Initialized parameters {shape} with strategy {strategy}.")
         return gen
 
-    def load_numpy(self, params: np.ndarray, enc_params: Optional[np.ndarray] = None) -> None:
+    def load_numpy(self, params: np.ndarray, enc_params: Optional[np.ndarray] = None,
+                   pulse_params: Optional[np.ndarray] = None) -> None:
         """Install parameters exported from the JAX package's Model
         (``np.asarray(model.params)``, shape ``[batch, impl_layers,
-        n_params_per_layer]``, and ``np.asarray(model.enc_params)``), so both
-        packages compute the same function."""
+        n_params_per_layer]``, ``np.asarray(model.enc_params)`` and
+        ``np.asarray(model.pulse_params)``, ``[batch, impl_layers,
+        n_pulse_params_per_layer]``), so both packages compute the same
+        function."""
         params = np.array(params)
         if params.ndim == 2:
             params = params[None]
@@ -487,6 +524,16 @@ class Model(nn.Module):
                     f"enc_params shape {tuple(enc.shape)} != {tuple(self.enc_params.shape)}"
                 )
             self.enc_params.data = enc
+        if pulse_params is not None:
+            pulse = np.array(pulse_params)
+            if pulse.ndim == 2:
+                pulse = pulse[None]
+            if pulse.shape[1:] != self._pulse_params_shape:
+                raise ValueError(
+                    f"pulse_params shape {pulse.shape} does not match "
+                    f"[batch, {self._pulse_params_shape[0]}, {self._pulse_params_shape[1]}]"
+                )
+            self.pulse_params = torch.as_tensor(pulse)
 
     # ================================================================ circuit
     def transform_input(self, inputs: torch.Tensor, enc_params: torch.Tensor) -> torch.Tensor:
@@ -497,8 +544,9 @@ class Model(nn.Module):
         self,
         params: torch.Tensor,
         inputs: torch.Tensor,
-        enc_params: Optional[torch.Tensor] = None,
+        pulse_params: Optional[torch.Tensor] = None,
         random_key: Optional[torch.Generator] = None,
+        enc_params: Optional[torch.Tensor] = None,
         gate_mode: str = "unitary",
         noise_params: Optional[Dict] = None,
     ) -> None:
@@ -508,13 +556,22 @@ class Model(nn.Module):
         split off without noise: nothing would draw from it).
 
         A batch recorded as one tape passes *params* ``(Bt, impl_layers,
-        n_params_per_layer)`` and/or *inputs* ``(Bt, n_input_feat)``, and
+        n_params_per_layer)``, *inputs* ``(Bt, n_input_feat)`` and/or
+        *pulse_params* ``(Bt, impl_layers, n_pulse_params_per_layer)``, and
         *random_key* a ``GeneratorBatch``: every per-element index counts
-        from the right, so each gate receives ``(Bt,)`` angles."""
+        from the right, so each gate receives ``(Bt,)`` angles and
+        ``(Bt, P)`` pulse parameters."""
         if params.ndim > 2 and params.shape[0] == 1:
             params = params[0]
         if inputs.ndim > 1 and inputs.shape[0] == 1:
             inputs = inputs[0]
+        if pulse_params is None:
+            if gate_mode == "pulse":
+                warnings.warn("_variational called without pulse_params; falling back to "
+                              "the stored self.pulse_params.", RuntimeWarning)
+            pulse_params = self.pulse_params
+        if pulse_params.ndim > 2 and pulse_params.shape[0] == 1:
+            pulse_params = pulse_params[0]
         if enc_params is None:
             enc_params = self.enc_params
         if noise_params is None and self.noise_params is not None:
@@ -540,14 +597,15 @@ class Model(nn.Module):
             kind = segment[0]
             if kind == "prep":
                 for q in range(self.n_qubits):
-                    for gate in self._sp:
-                        gate(wires=q, noise_params=noise_params, random_key=keys(),
-                             gate_mode=gate_mode)
+                    for gate, gate_pp in zip(self._sp, self.sp_pulse_params):
+                        gate(wires=q, pulse_params=gate_pp, noise_params=noise_params,
+                             random_key=keys(), gate_mode=gate_mode)
             elif kind == "pqc":
                 layer = segment[1]
                 self.pqc(
                     params[..., layer, :],
                     self.n_qubits,
+                    pulse_params=pulse_params[..., min(layer, pulse_params.shape[-2] - 1), :],
                     noise_params=noise_params,
                     random_key=keys(),
                     gate_mode=gate_mode,
@@ -655,6 +713,21 @@ class Model(nn.Module):
             self.params = params
         return params
 
+    def _pulse_params_validation(self, pulse_params) -> torch.Tensor:
+        """Normalise pulse params to (batch, impl_layers,
+        n_pulse_params_per_layer); a tensor passed in is used as given and
+        its values are stored."""
+        if pulse_params is None:
+            return self.pulse_params
+        if not isinstance(pulse_params, torch.Tensor):
+            pulse_params = torch.as_tensor(np.asarray(pulse_params), dtype=self.dtype)
+        pulse_params = pulse_params.to(device=self.device, dtype=self.dtype)
+        if pulse_params.ndim == 2:
+            pulse_params = pulse_params[None]
+        if pulse_params is not self._pulse_params:
+            self.pulse_params = pulse_params
+        return pulse_params
+
     def _enc_params_validation(self, enc_params) -> torch.Tensor:
         """Normalise encoding params to (n_layers, n_qubits, n_input_feat)."""
         if enc_params is None:
@@ -707,26 +780,30 @@ class Model(nn.Module):
 
     # =============================================================== batching
     def _assimilate_batch(
-        self, inputs: torch.Tensor, params: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fuse the (inputs × params) batch axes into one flat axis: each
-        tensor whose own axis is enabled is broadcast over the other enabled
-        axis and flattened."""
-        sizes = (inputs.shape[0], 1 if 0 in params.shape else params.shape[0])
+        self, inputs: torch.Tensor, params: torch.Tensor, pulse_params: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Fuse the (inputs × params × pulse) batch axes into one flat axis:
+        each tensor whose own axis is enabled is broadcast over the other
+        enabled axes and flattened."""
+        sizes = (
+            inputs.shape[0],
+            1 if 0 in params.shape else params.shape[0],
+            pulse_params.shape[0],
+        )
         self._batch_shape = sizes
         enabled = self.repeat_batch_axis
 
         def spread(t: torch.Tensor, axis: int) -> torch.Tensor:
             if sizes[axis] <= 1 or not enabled[axis]:
                 return t
-            lead = tuple(sizes[i] if (enabled[i] or i == axis) else 1 for i in range(2))
-            expand = [1, 1]
+            lead = tuple(sizes[i] if (enabled[i] or i == axis) else 1 for i in range(3))
+            expand = [1, 1, 1]
             expand[axis] = sizes[axis]
             t = t.reshape(tuple(expand) + tuple(t.shape[1:]))
-            t = t.expand(lead + tuple(t.shape[2:]))
-            return t.reshape((-1,) + tuple(t.shape[2:]))
+            t = t.expand(lead + tuple(t.shape[3:]))
+            return t.reshape((-1,) + tuple(t.shape[3:]))
 
-        return spread(inputs, 0), spread(params, 1)
+        return spread(inputs, 0), spread(params, 1), spread(pulse_params, 2)
 
     # ================================================================ forward
     def forward(self, params=None, inputs=None, **kwargs) -> torch.Tensor:
@@ -737,6 +814,7 @@ class Model(nn.Module):
         self,
         params: Optional[torch.Tensor] = None,
         inputs=None,
+        pulse_params: Optional[torch.Tensor] = None,
         enc_params: Optional[torch.Tensor] = None,
         data_reupload=None,
         noise_params: Optional[Dict] = None,
@@ -752,18 +830,22 @@ class Model(nn.Module):
         model's, then one per batch element (the circuit's noise) and, with
         shots, one for the draws.
         """
-        if gate_mode == "pulse":
-            raise NotImplementedError("gate_mode='pulse' comes with the pulse slice")
         for knob, value in (("noise_params", noise_params),
                             ("execution_type", execution_type),
                             ("data_reupload", data_reupload)):
             if value is not None:
                 setattr(self, knob, value)
+        if pulse_params is not None and gate_mode != "pulse":
+            raise ValueError(
+                "pulse_params only apply in gate_mode='pulse'; drop them or "
+                "switch the gate mode."
+            )
 
         params = self._params_validation(params)
+        pulse_params = self._pulse_params_validation(pulse_params)
         inputs = self._inputs_validation(inputs)
         enc_params = self._enc_params_validation(enc_params)
-        inputs, params = self._assimilate_batch(inputs, params)
+        inputs, params, pulse_params = self._assimilate_batch(inputs, params, pulse_params)
 
         self.random_key, call_key = safe_random_split(self.random_key)
         shot_key = None
@@ -783,16 +865,16 @@ class Model(nn.Module):
             result = self.script.execute(
                 type=meas_type,
                 obs=obs,
-                args=(params, inputs, enc_params, keys),
+                args=(params, inputs, pulse_params, keys, enc_params),
                 kwargs=run_kwargs,
-                in_axes=(axes[1], axes[0], None, None if keys is None else 0),
+                in_axes=(axes[1], axes[0], axes[2], None if keys is None else 0, None),
                 shots=self.shots,
                 generator=shot_key,
             )
         else:
             result = self.script.execute(
                 type=meas_type, obs=obs, kwargs=run_kwargs,
-                args=(params, inputs, enc_params, call_key),
+                args=(params, inputs, pulse_params, call_key, enc_params),
                 shots=self.shots, generator=shot_key,
             )
         return self._shape_result(result, force_mean)

@@ -25,14 +25,14 @@ symplectic algebra with Clifford conjugation tables, and the dense
 stack; their tables are host numpy, built from the gates' matrices.
 
 Counterpart of ``qml_essentials_tpu/ops/operations.py`` (Operation up to the
-controlled rotations, the Kraus channels and the Pauli helpers).
-Hamiltonians come with the pulse slice.
+controlled rotations, the Hamiltonians, the Kraus channels and the Pauli
+helpers).
 """
 
 from __future__ import annotations
 
 from functools import reduce
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -270,6 +270,94 @@ class Hermitian(Operation):
 
     def __init__(self, matrix, wires: Wires = 0, record: bool = True) -> None:
         super().__init__(wires=wires, matrix=_as_complex(matrix), record=record)
+
+    def __rmul__(self, coeff_fn: Callable) -> "ParametrizedHamiltonian":
+        """``coeff_fn * H`` builds a one-term :class:`ParametrizedHamiltonian`."""
+        if not callable(coeff_fn):
+            raise TypeError(
+                f"Left operand of `* Hermitian` must be callable, got {type(coeff_fn)}"
+            )
+        return ParametrizedHamiltonian(terms=[(coeff_fn, self.matrix, self.wires)])
+
+    def evolve(self, name: Optional[str] = None, **odeint_kwargs) -> Callable:
+        """Gate factory for static evolution ``U = exp(-i t H)``."""
+        from qml_essentials_tpu_torch.pulse.evolution import Evolution
+
+        return Evolution.evolve(self, name=name, **odeint_kwargs)
+
+
+class ParametrizedHamiltonian:
+    """Time-dependent Hamiltonian ``H(t) = sum_i f_i(p_i, t) * H_i``.
+
+    Built from explicit ``(coeff_fn, H_mat, wires)`` triples, usually via the
+    ``coeff_fn * Hermitian(...)`` shorthand; combine instances with ``+``.
+    All terms must currently share the same wire set.  A coefficient
+    function is written for one problem (``p[0]``, ``p[-1]``): the solver
+    maps it over a batch of problems with ``torch.func.vmap``.
+    """
+
+    def __init__(self, terms: List[Tuple[Callable, torch.Tensor, Wires]]) -> None:
+        if len(terms) == 0:
+            raise ValueError("ParametrizedHamiltonian needs at least one term.")
+
+        first_wires = _as_wire_list(terms[0][2])
+        for _, _, w in terms[1:]:
+            if _as_wire_list(w) != first_wires:
+                raise ValueError(
+                    "All terms of a ParametrizedHamiltonian must currently "
+                    f"act on the same wires; got {_as_wire_list(w)} vs. "
+                    f"{first_wires}. Multi-wire broadcasting across terms is "
+                    "not yet supported."
+                )
+
+        mats = [_as_complex(H) for _, H, _ in terms]
+        for H in mats[1:]:
+            if H.shape != mats[0].shape:
+                raise ValueError(
+                    f"All term matrices must have the same shape; got "
+                    f"{tuple(H.shape)} vs. {tuple(mats[0].shape)}."
+                )
+
+        self._terms: Tuple[Tuple[Callable, torch.Tensor, List[int]], ...] = tuple(
+            (fn, H, _as_wire_list(w)) for (fn, _, w), H in zip(terms, mats)
+        )
+        self.wires: List[int] = list(first_wires)
+
+    @property
+    def coeff_fns(self) -> Tuple[Callable, ...]:
+        return tuple(fn for fn, _, _ in self._terms)
+
+    @property
+    def H_mats(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(H for _, H, _ in self._terms)
+
+    @property
+    def n_terms(self) -> int:
+        return len(self._terms)
+
+    def __add__(self, other: "ParametrizedHamiltonian") -> "ParametrizedHamiltonian":
+        if not isinstance(other, ParametrizedHamiltonian):
+            return NotImplemented
+        return ParametrizedHamiltonian(terms=list(self._terms) + list(other._terms))
+
+    def __neg__(self) -> "ParametrizedHamiltonian":
+        return ParametrizedHamiltonian(
+            terms=[
+                ((lambda f: lambda p, t: -f(p, t))(fn), H, w)
+                for fn, H, w in self._terms
+            ]
+        )
+
+    def __sub__(self, other: "ParametrizedHamiltonian") -> "ParametrizedHamiltonian":
+        if not isinstance(other, ParametrizedHamiltonian):
+            return NotImplemented
+        return self + (-other)
+
+    def evolve(self, name: Optional[str] = None, **odeint_kwargs) -> Callable:
+        """Gate factory solving ``dU/dt = -i [sum_i f_i(p_i, t) H_i] U``."""
+        from qml_essentials_tpu_torch.pulse.evolution import Evolution
+
+        return Evolution.evolve(self, name=name, **odeint_kwargs)
 
 
 # ---------------------------------------------------------------------------

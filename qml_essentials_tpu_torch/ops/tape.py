@@ -9,8 +9,15 @@ concurrent threads never interleave.
 :func:`copy_to_tape` replays a recorded body on shifted wires, to build
 multi-register circuits (the analysis stack's Bell and SWAP-test doubling).
 
-Counterpart of ``qml_essentials_tpu/ops/tape.py`` (operation tapes only;
-the pulse-event tape comes with the pulse slice).
+A pulse gate records an operation whose matrix is still to be solved (its
+``_pending`` attribute): closing a recording solves every pending operation
+of the tape together, one batched solve per Hamiltonian family
+(:meth:`~qml_essentials_tpu_torch.pulse.evolution.Evolution.resolve`), so
+whatever reads the tape afterwards sees plain matrices.  A second,
+independent tape collects the pulse events the pulse gates emit, for
+schedule drawing.
+
+Counterpart of ``qml_essentials_tpu/ops/tape.py``.
 """
 
 from __future__ import annotations
@@ -26,11 +33,11 @@ if TYPE_CHECKING:  # pragma: no cover
 _tls = threading.local()
 
 
-def _stack() -> list:
-    stack = getattr(_tls, "ops", None)
+def _stack(attr: str = "ops") -> list:
+    stack = getattr(_tls, attr, None)
     if stack is None:
         stack = []
-        _tls.ops = stack
+        setattr(_tls, attr, stack)
     return stack
 
 
@@ -40,11 +47,41 @@ def active_tape() -> Optional[List["Operation"]]:
     return stack[-1] if stack else None
 
 
+def resolve_pending(tape: List["Operation"]) -> None:
+    """Solve the pending pulse operations of *tape* in place, one batched
+    solve per Hamiltonian family."""
+    pending = [o for o in tape if o.__dict__.get("_pending") is not None]
+    if pending:
+        from qml_essentials_tpu_torch.pulse.evolution import Evolution
+
+        Evolution.resolve(pending)
+
+
 @contextmanager
 def recording() -> Iterator[List["Operation"]]:
-    """Open a fresh operation tape; nested recordings stack independently."""
+    """Open a fresh operation tape; nested recordings stack independently.
+    On a clean exit the tape's pending pulse operations are solved."""
     stack = _stack()
     tape: List["Operation"] = []
+    stack.append(tape)
+    try:
+        yield tape
+    finally:
+        stack.pop()
+    resolve_pending(tape)
+
+
+def active_pulse_tape() -> Optional[list]:
+    """Innermost active pulse-event tape, or ``None``."""
+    stack = _stack("pulse")
+    return stack[-1] if stack else None
+
+
+@contextmanager
+def pulse_recording() -> Iterator[list]:
+    """Collect pulse events emitted by pulse-mode leaf gates."""
+    stack = _stack("pulse")
+    tape: list = []
     stack.append(tape)
     try:
         yield tape

@@ -125,17 +125,13 @@ def test_float64_mode_is_explicit(pair6):
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("what", ["noise", "shots", "density", "pulse"])
+@pytest.mark.parametrize("what", ["noise", "shots", "density"])
 def test_later_slices_raise(what):
-    """Pulses are not ported and raise ``NotImplementedError``; noise, shots
-    and density came with the density slice and now answer
+    """Noise, shots and density came with the density slice and answer
     (tests/test_torch_density.py and tests/test_torch_shots.py hold them to
-    the JAX package)."""
+    the JAX package); pulses came with the pulse slice
+    (tests/test_torch_pulses.py)."""
     tm = Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19", device="cpu")
-    if what == "pulse":
-        with pytest.raises(NotImplementedError):
-            tm(inputs=0.1, gate_mode="pulse")
-        return
     if what == "noise":
         out = tm(inputs=0.1, noise_params={"BitFlip": 0.1})
         assert out.shape == (3,) and bool((out.abs() <= 1).all())

@@ -119,14 +119,14 @@ def main() -> int:
     m = models[top]
     inputs = torch.tensor([[X]], device=dev)
     with torch.inference_mode():
-        tape = m.script._record(m.params, inputs, m.enc_params)
-        out[f"record {top}q"] = median_ms(lambda: m.script._record(m.params, inputs, m.enc_params))
+        tape = m.script._record(m.params, inputs, enc_params=m.enc_params)
+        out[f"record {top}q"] = median_ms(lambda: m.script._record(m.params, inputs, enc_params=m.enc_params))
         out[f"plan {top}q"] = median_ms(lambda: simulation.scheduled_plan(tape, top, device=dev))
 
     d = model(args.density, {"Depolarizing": 0.01})
 
     def drecord():
-        return d.script._record(d.params, inputs, d.enc_params,
+        return d.script._record(d.params, inputs, enc_params=d.enc_params,
                                 random_key=torch.Generator().manual_seed(SEED),
                                 noise_params=d.noise_params)
 
