@@ -190,7 +190,8 @@ the pulse goldens and a QOC run) — and checks it phase by phase:
    under ``"auto"`` reading free memory once; each batch call also records
    its last element alone (the executor's check); phase 3 holds the batch
    entries first at every shape these run (read off them on the CPU),
-   float64 ones at 1e-12;
+   float64 ones at 1e-12, and at the backward's geometry edges
+   (``BATCH_EDGE_CASES``), each backward call repeated for the same bits;
 5h. pulse mode (``gate_mode="pulse"``, the gaussian envelope): the 24q
    Circuit_19 pulse tape (its operations by name; recorded and planned on
    the CPU for phase 3, which holds every forward, backward, adjoint and
@@ -243,7 +244,11 @@ the pulse goldens and a QOC run) — and checks it phase by phase:
    bfloat16; chain_apply 3 a window (its diagonals' 6 flops an amplitude on
    the CUDA cores) and adjoint_chain 9 a window (float32 lambda; the
    diagonals' 20 flops an amplitude and the 8K^3 of G0 W on the CUDA
-   cores).  The float32-core figure is printed beside it.
+   cores).  The float32-core figure is printed beside it.  The batch
+   entries' rows are also timed held behind a spin, beside an empty kernel
+   launched through the same ctypes path (the launch floor), and one B2b and
+   one B4b call must launch exactly one kernel (``torch.profiler``'s device
+   events; "not measured" where it shows none).
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -257,6 +262,7 @@ import math
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -344,6 +350,11 @@ TOL_BATCH_LOOP64 = 1e-12
 # cotangents, relative), and the 6q float64 batch against the CPU's float64
 # model (outputs absolute; gradients relative to max|g|).
 TOL_BATCH64 = 1e-12
+# Edges of the batch backward's geometry held in phase 3 beside phase 5g's
+# shapes, both window modes and both dtypes: an element split over CTAs
+# (20q, K = 32), a wide batch, a K = 32 top window and a whole-register
+# window (K = 1024, read in place in float64); (n, a, k, Bt).
+BATCH_EDGE_CASES = ((20, 3, 5, 2), (6, 3, 3, 65536), (10, 5, 5, 7), (10, 0, 10, 2))
 # BASELINE.md:18: a chunked 10q density batch of 20 in chunks of 5 under 1 GB.
 CHUNK_N, CHUNK_BATCH, CHUNK_ROWS, CHUNK_PEAK = 10, 20, 5, 1e9
 TOL_CHUNK = 1e-6
@@ -1221,7 +1232,9 @@ def phase_parity(shapes: dict, dshapes: list, ashapes: dict, bshapes: dict,
     # it runs (forward and backward shapes both ways), and at Bt = 1 and 7.
     log("  the batch entries at phase 5g's shapes (from its workloads on the CPU):")
     cases = sorted({c[:4] + (bt, c[5]) for c in bshapes["fwd"] + bshapes["bwd"]
-                    for bt in (1, 7, c[4])})
+                    for bt in (1, 7, c[4])}
+                   | {(n, a, k, per, bt, f64) for n, a, k, bt in BATCH_EDGE_CASES
+                      for per in (False, True) for f64 in (False, True)})
     errs.update(check_batch(ck, kn, cases, gen, rng))
     # Phase 5h: the 24q pulse plan's shapes (forward, the saved executor's
     # backward, the forced adjoint) and its small registers' (the goldens,
@@ -2675,7 +2688,8 @@ def check_batch(ck, kn, cases, gen, rng) -> dict:
     """B1-B4's batch entries against their plain versions in float64 at
     every (n, a, k, per-element, batch, float64) of phase 5g, relative: the
     float32 entries' states 1e-5 and matrix cotangents (per element, or
-    summed over the batch) 1e-4, the float64 entries' all three 1e-12."""
+    summed over the batch) 1e-4, the float64 entries' all three 1e-12; and
+    B2b / B4b called again on the same inputs give the same bits."""
     errs = dict.fromkeys(BATCH_KERNELS, 0.0)
     for n, a, k, per_element, bt, f64 in cases:
         x, g = _batch_state(n, bt, gen, f64), _batch_state(n, bt, gen, f64)
@@ -2695,7 +2709,12 @@ def check_batch(ck, kn, cases, gen, rng) -> dict:
             gp, gw = ck.window_apply_bwd(w, g, x, a, k, n, x.dtype)
             rp, rw = kn.window_apply_bwd_plain(w.double(), g.double(), x.double(), a, k, n,
                                                torch.float64)
+        again = (ck.window_apply_top_bwd(w, g, x, k, n, x.dtype) if top else
+                 ck.window_apply_bwd(w, g, x, a, k, n, x.dtype))
         torch.cuda.synchronize()
+        _check(torch.equal(gp, again[0]) and torch.equal(gw, again[1]),
+               f"{bwd} at n={n} a={a} k={k} Bt={bt}: a second call gave other bits")
+        del again
         e = [_maxdiff(got, ref) / ref.abs().max().item(), _maxdiff(gp, rp) / rp.abs().max().item(),
              _maxdiff(gw, rw) / rw.abs().max().item()]
         if not f64:  # the row's max_abs_err: the float32 entries, as every other kernel's
@@ -4354,34 +4373,60 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict, d
                 _chain_lib(x, g, pairs, descs, n), work_chain(descs, n, True),
                 tc=work_chain_tc(descs, n, True))
         # The batch entries: one FCC Circuit_19 request's and one KL request's
-        # forward calls, and the 6q batched gradient's backward calls.
+        # forward calls, and the 6q batched gradient's backward calls, each
+        # also held behind a spin (its device time without the host's
+        # launch gaps), beside an empty kernel launched through the same
+        # ctypes path (the launch floor, unheld and held).
+        lib, stream = ck._load(), ck._stream(x)
+        empty = partial(lib.qml_batch_empty, stream)
+        floor, floor_held = _events_ms(empty), _events_ms(empty, hold=True)
+        log(f"  launch floor: an empty kernel through ctypes {floor * 1e3:.1f} us "
+            f"(held {floor_held * 1e3:.1f} us)")
+        held = dict.fromkeys(BATCH_KERNELS, 0.0)
+        calls = dict.fromkeys(BATCH_KERNELS, 0)
+
+        def batch_held(name, label, kern):
+            t = _events_ms(kern, hold=True)
+            held[name] += t
+            calls[name] += 1
+            log(f"  {name:20s} {label:36s} held   {t * 1e3:9.1f} us  "
+                f"launch floor {floor * 1e3:.1f} us (held {floor_held * 1e3:.1f})")
+
         for label in ("FCC Circuit_19", "KL"):
             for nb, a, k, per, bt, _ in bshapes["calls"][label]:  # in float32
                 xb, wb = _batch_state(nb, bt, gen), _batch_window(k, bt, per, rng)
                 tag = f"{label} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt}"
                 if a + k == nb:
-                    add("window_apply_top_batch", tag, lambda: ck.window_apply_top(xb, wb, k, nb),
-                        lambda: kn.window_apply_top_plain(xb, wb, k, nb),
-                        lib_window_batch(xb, wb, a, k, nb), work_batch(2**k, nb, bt, per, False))
+                    name = "window_apply_top_batch"
+                    kern = partial(ck.window_apply_top, xb, wb, k, nb)
+                    plain = partial(kn.window_apply_top_plain, xb, wb, k, nb)
                 else:
-                    add("window_apply_batch", tag, lambda: ck.window_apply(xb, wb, a, k, nb),
-                        lambda: kn.window_apply_plain(xb, wb, a, k, nb),
-                        lib_window_batch(xb, wb, a, k, nb), work_batch(2**k, nb, bt, per, False))
+                    name = "window_apply_batch"
+                    kern = partial(ck.window_apply, xb, wb, a, k, nb)
+                    plain = partial(kn.window_apply_plain, xb, wb, a, k, nb)
+                add(name, tag, kern, plain, lib_window_batch(xb, wb, a, k, nb),
+                    work_batch(2**k, nb, bt, per, False))
+                batch_held(name, tag, kern)
                 del xb, wb
+        counted = set()
         for nb, a, k, per, bt, _ in reversed(bshapes["calls"]["grad"]):
             xb, gb, wb = _batch_state(nb, bt, gen), _batch_state(nb, bt, gen), \
                 _batch_window(k, bt, per, rng)
             tag = f"6q grad n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt}"
             if a + k == nb:
-                add("window_apply_top_bwd_batch", tag,
-                    lambda: ck.window_apply_top_bwd(wb, gb, xb, k, nb, torch.float32),
-                    lambda: kn.window_apply_top_bwd_plain(wb, gb, xb, k, nb, torch.float32),
-                    lib_window_batch_bwd(wb, gb, xb, a, k, nb), work_batch(2**k, nb, bt, per, True))
+                name = "window_apply_top_bwd_batch"
+                kern = partial(ck.window_apply_top_bwd, wb, gb, xb, k, nb, torch.float32)
+                plain = partial(kn.window_apply_top_bwd_plain, wb, gb, xb, k, nb, torch.float32)
             else:
-                add("window_apply_bwd_batch", tag,
-                    lambda: ck.window_apply_bwd(wb, gb, xb, a, k, nb, torch.float32),
-                    lambda: kn.window_apply_bwd_plain(wb, gb, xb, a, k, nb, torch.float32),
-                    lib_window_batch_bwd(wb, gb, xb, a, k, nb), work_batch(2**k, nb, bt, per, True))
+                name = "window_apply_bwd_batch"
+                kern = partial(ck.window_apply_bwd, wb, gb, xb, a, k, nb, torch.float32)
+                plain = partial(kn.window_apply_bwd_plain, wb, gb, xb, a, k, nb, torch.float32)
+            add(name, tag, kern, plain, lib_window_batch_bwd(wb, gb, xb, a, k, nb),
+                work_batch(2**k, nb, bt, per, True))
+            batch_held(name, tag, kern)
+            if name not in counted:
+                counted.add(name)
+                _kernels_a_call(name, tag, kern)
     log(f"  (per kernel, summed over one request's calls: the forward kernels per {n}q "
         f"forward, the *_bwd kernels per {n}q saved gradient, the adjoint kernels and "
         f"rotate_pair per {n}q adjoint gradient, rotate per {n}q forward + saved gradient, "
@@ -4396,9 +4441,32 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict, d
         f"bytes / 3.35 TB/s))")
     for name, t in totals.items():
         extra = f" (fp32-core bound {t['fp32_bound_ms']:.3f} ms)" if name in TC_KERNELS else ""
+        if name in BATCH_KERNELS:
+            extra = (f"  held {held[name]:.3f} ms  launch floor {calls[name] * floor:.3f} ms "
+                     f"(held {calls[name] * floor_held:.3f}) over {calls[name]} calls")
         log(f"  total {name:20s} kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
             f"library {t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms{extra}")
     return totals
+
+
+def _kernels_a_call(name: str, label: str, fn) -> None:
+    """The CUDA kernels one call of fn() launches, from torch.profiler's
+    device events: exactly one, or "not measured" when the profiler shows
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"  {name} {label}: kernels a call not measured (the profiler shows no device event)")
+        return
+    log(f"  {name} {label}: {len(kernels)} kernel(s) a call: {kernels}")
+    _check(len(kernels) == 1, f"{name}: {len(kernels)} kernels a call, want one: {kernels}")
 
 
 # ---------------------------------------------------------------------------

@@ -67,20 +67,26 @@ extern "C" int qml_window_apply_bwd(const float* w, const void* g, const float* 
   });
 }
 
-// The batch entry (window_batch.cuh): w: one (2, K, K) window (w_stride =
-// 0; gw (2, K, K), the grams summed over the batch) or E of them (w_stride
-// = 2*K*K; gw (E, 2, K, K), one gram an element); g, x, gp: (2, E*A*K*B);
-// ws: E * qml_window_batch_splits(E, K, A*B) * 2*K*K elements; every array
-// float32, or float64 when f64.
-extern "C" int qml_window_apply_bwd_batch(const void* w, const void* g, const void* x,
-                                          void* gp, void* gw, void* ws, long long E,
-                                          long long A, long long K, long long B,
-                                          long long w_stride, int f64, void* stream) {
-  return qml::batch::backward(w, g, x, gp, gw, ws, E, A, K, B, w_stride, w_stride != 0, f64,
-                              (cudaStream_t)stream);
+// The batch entry (window_batch.cuh): one launch a call.  w: one (2, K, K)
+// window (w_stride = 0; gw (2, K, K), the grams summed over the batch) or E
+// of them (w_stride = 2*K*K; gw (E, 2, K, K), one gram an element); g, x,
+// gp: (2, E*A*K*B); geom: the launch's geometry (qml::batch::BwdGeom, from
+// cuda_kernels.batch_bwd_geometry); ws: its partial grams; cnt: its
+// counters (zero, and left zero); every array float32, or float64 when
+// geom's f64.
+extern "C" int qml_window_apply_bwd_batch(const long long* geom, const void* w, const void* g,
+                                          const void* x, void* gp, void* gw, void* ws,
+                                          void* cnt, void* stream) {
+  return qml::batch::backward(geom, w, g, x, gp, gw, ws, cnt, (cudaStream_t)stream);
 }
 
-// Column splits of a batch gram (the workspace's second dimension).
-extern "C" long long qml_window_batch_splits(long long E, long long K, long long C) {
-  return qml::batch::gram_splits(E, K, C);
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// An empty kernel through the same ctypes path: the launch floor that
+// chip_smoke.py prints beside the batch entries' times (no wrapper calls it).
+extern "C" int qml_batch_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

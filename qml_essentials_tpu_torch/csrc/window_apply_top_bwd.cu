@@ -48,11 +48,10 @@ extern "C" int qml_window_apply_top_bwd(const float* w, const void* g, const flo
 }
 
 // The batch entry (window_batch.cuh): the top window's backward on E
-// elements; shapes as qml_window_apply_bwd_batch with B = 1.
-extern "C" int qml_window_apply_top_bwd_batch(const void* w, const void* g, const void* x,
-                                              void* gp, void* gw, void* ws, long long E,
-                                              long long A, long long K, long long w_stride,
-                                              int f64, void* stream) {
-  return qml::batch::backward(w, g, x, gp, gw, ws, E, A, K, 1, w_stride, w_stride != 0, f64,
-                              (cudaStream_t)stream);
+// elements in one launch; arguments as qml_window_apply_bwd_batch's, with
+// B = 1 in geom.
+extern "C" int qml_window_apply_top_bwd_batch(const long long* geom, const void* w,
+                                              const void* g, const void* x, void* gp, void* gw,
+                                              void* ws, void* cnt, void* stream) {
+  return qml::batch::backward(geom, w, g, x, gp, gw, ws, cnt, (cudaStream_t)stream);
 }

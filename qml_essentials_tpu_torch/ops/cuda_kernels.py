@@ -50,9 +50,12 @@ their sources; launch counts ``window_apply_batch``,
 ``window_apply_top_bwd_batch``): the same wrappers given a batched ``(2, Bt,
 2**n)`` state launch one kernel for the whole batch, with a shared ``(2, K,
 K)`` window or one per element ``(Bt, 2, K, K)``, in float32 or float64 on
-the CUDA cores (the backward's gram per element, or summed over the batch
-for a shared window, in a fixed order); ``rotate`` takes a batched state
-as ``2 * Bt`` planes.  A float64 state without a batch axis runs the batch
+the CUDA cores; ``rotate`` takes a batched state as ``2 * Bt`` planes.  The
+backward batch entries are one launch a call: tiles staged in shared
+memory, the gram per element, or summed over the batch for a shared window
+(the last CTA of a gram sums its partials in a fixed order, counted on an
+integer counter per device and stream; :func:`batch_bwd_geometry` chooses
+the tiles).  A float64 state without a batch axis runs the batch
 entries as a batch of one.
 
 The library is built at first use into ``build/kernels/`` at the repository
@@ -63,9 +66,10 @@ Each wrapper takes the plain PyTorch version in
 :mod:`qml_essentials_tpu_torch.ops.kernels` for a tensor on the CPU, and only
 then.  For a CUDA tensor it checks device, dtype, shape and contiguity,
 allocates outputs (and the forward's split-W and the backward's
-split-reduction workspaces) with
-``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to its launch count.  It never falls back to
+split-reduction workspaces) with ``torch.empty`` (the batch backward's
+partial grams and counters are cached per device, stream and dtype),
+launches on the current stream, raises if the launch reports an error, and
+adds one to its launch count.  It never falls back to
 the plain version on the card.
 
 Gradients: on the card the forward wrappers run through
@@ -84,7 +88,9 @@ adjoint's ``adjoint_chain`` or the step's expansion), and raises otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -223,10 +229,10 @@ def _argtypes() -> Dict[str, list]:
         # x, w, y, E, A, K, [B,] w_stride, f64, stream
         "window_apply_batch": [ptr] * 3 + [i64] * 5 + [i32, ptr],
         "window_apply_top_batch": [ptr] * 3 + [i64] * 4 + [i32, ptr],
-        # w, g, x, gp, gw, ws, E, A, K, [B,] w_stride, f64, stream
-        "window_apply_bwd_batch": [ptr] * 6 + [i64] * 5 + [i32, ptr],
-        "window_apply_top_bwd_batch": [ptr] * 6 + [i64] * 4 + [i32, ptr],
-        "window_batch_splits": [i64] * 3,
+        # geometry, w, g, x, gp, gw, ws, counters, stream
+        "window_apply_bwd_batch": [ctypes.POINTER(i64)] + [ptr] * 8,
+        "window_apply_top_bwd_batch": [ctypes.POINTER(i64)] + [ptr] * 8,
+        "batch_empty": [ptr],  # stream: the launch floor, for chip_smoke.py
         "rotate": [ptr, ptr, i64, i64, ptr],
         "rotate_batch": [ptr, ptr, i64, i64, i64, i32, ptr],
         "rotate_b16": [ptr, ptr, i64, i64, ptr],
@@ -263,7 +269,7 @@ def _load() -> ctypes.CDLL:
             for name, args in _argtypes().items():
                 fn = getattr(lib, f"qml_{name}")
                 fn.argtypes = args
-                fn.restype = ctypes.c_longlong if name == "window_batch_splits" else ctypes.c_int
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -318,7 +324,9 @@ def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on t's device (without building a
+    ``torch.cuda.Stream``: microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _raise_on(name: str, code: int) -> None:
@@ -441,26 +449,156 @@ def _launch_window_apply_top_batch(psi2, w2, k, n):
     return y
 
 
+# The batch backward (``csrc/window_batch.cuh``, one launch a call): CTAs of
+# _BWD_THREADS threads, about _BWD_TARGET of them when the batch allows (one
+# an SM on an H100's 132: at the 6q gradient's shapes fewer, fatter CTAs ran
+# faster than two an SM, PERF.md), each with at most _BWD_TILE_BYTES of g
+# and x tiles and _BWD_W_BYTES of windows in shared memory (under the 48 KB
+# a launch may take without asking), at most _BWD_BLOCK gram outputs (4 a
+# thread, in registers), and at most _BWD_FINAL values for the last CTA of
+# a gram block to sum.
+_BWD_THREADS = 256
+_BWD_TARGET = 128
+_BWD_TILE_BYTES = 32 * 1024
+_BWD_W_BYTES = 8 * 1024
+_BWD_BLOCK = 1024
+_BWD_FINAL = 131072
+_BWD_COUNTERS = 256  # counters a device and stream: more than any geometry takes
+
+
+class BatchBwdGeometry(NamedTuple):
+    """One batch backward launch, in the order of the kernel's ``BwdGeom``.
+
+    Columns are the ``Q = E*A*B`` columns of the batch view ``(2, E*A, K,
+    B)``.  Whole-element mode (``group`` > 0, a per-element window): CTA
+    ``b`` takes the ``group`` elements from ``b * group`` (its tile of
+    ``tc = group * A * B`` columns) and writes their grams.  Column mode
+    (``group`` = 0): a gram (the batch's for a shared window, an element's
+    otherwise) is split into ``blocks`` output blocks and its tiles of
+    ``tc`` columns into ``parts`` runs of ``tpc``; CTA ``b`` is (gram ``b //
+    (blocks * parts)``, block ``b // parts % blocks``, part ``b % parts``);
+    with ``parts`` > 1 each writes a partial and the last to arrive sums
+    them."""
+
+    E: int
+    A: int
+    K: int
+    B: int
+    w_stride: int
+    tc: int
+    tpc: int
+    parts: int
+    blocks: int
+    group: int
+    stage: int
+    w_smem: int
+    grid: int
+    smem: int
+    f64: int
+
+    @property
+    def block(self) -> int:
+        """Complex gram outputs a CTA computes (column mode)."""
+        return self.K**2 // self.blocks
+
+    @property
+    def slots(self) -> int:
+        """Partial grams in the workspace (0: none)."""
+        return self.grid if self.parts > 1 else 0
+
+    @property
+    def counters(self) -> int:
+        """Arrival counters the launch uses (one a gram block, 0: none)."""
+        return self.grid // self.parts if self.parts > 1 else 0
+
+
+def _pow2floor(v: int) -> int:
+    return 1 << (max(v, 1).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def batch_bwd_geometry(E: int, A: int, K: int, B: int, per_element: bool,
+                       f64: bool) -> BatchBwdGeometry:
+    """The batch backward's launch for ``E`` elements of the ``(2, A, K, B)``
+    window view: a pure function of the shapes, so the order of every sum,
+    and the gradient's bits, are too."""
+    esize = 8 if f64 else 4
+    C, KK = A * B, K * K
+    Q = E * C
+    wbytes = 2 * KK * esize  # one window
+    col = 4 * (K + 1) * esize  # one column of g and x, Re and Im, with the kernel's pad
+    tc_fit = _pow2floor(_BWD_TILE_BYTES // col) if col <= _BWD_TILE_BYTES else 0
+    tc_par = _pow2floor(Q // _BWD_TARGET)  # tiles enough to fill the card
+    w_stride = 2 * KK if per_element else 0
+    if per_element and KK <= _BWD_BLOCK and C <= tc_fit and wbytes <= _BWD_W_BYTES:
+        group = min(_BWD_BLOCK // KK, tc_fit // C, _pow2floor(_BWD_W_BYTES // wbytes),
+                    max(1, tc_par // C))
+        tc = group * C
+        return BatchBwdGeometry(E, A, K, B, w_stride, tc, 1, 1, 1, group, 1, 1, -(-E // group),
+                                group * wbytes + col * tc, int(f64))
+    stage = int(tc_fit > 0)
+    tc = min(tc_fit, tc_par) if stage else min(tc_par, C)
+    groups, cols = (E, C) if per_element else (1, Q)
+    tc = min(tc, C) if per_element else tc
+    blocks = max(1, KK // _BWD_BLOCK)
+    ntiles = -(-cols // tc)
+    parts = min(ntiles, _BWD_TARGET, max(1, _BWD_FINAL // (2 * KK // blocks)),
+                -(-_BWD_TARGET // (groups * blocks)))
+    tpc = -(-ntiles // parts)
+    parts = -(-ntiles // tpc)
+    w_smem = int(wbytes <= _BWD_W_BYTES)
+    return BatchBwdGeometry(E, A, K, B, w_stride, tc, tpc, parts, blocks, 0, stage, w_smem,
+                            groups * blocks * parts, w_smem * wbytes + stage * col * tc,
+                            int(f64))
+
+
+_GEOM_ARGS: Dict[BatchBwdGeometry, ctypes.Array] = {}
+# Partial grams and arrival counters of the batch backward, per (device,
+# stream, dtype): launches on one stream run in order, so they share them.
+_BWD_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _bwd_workspace(device: torch.device, stream: int, dtype: torch.dtype,
+                   numel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device, stream, dtype)
+    ws, cnt = _BWD_WORKSPACES.get(key, (None, None))
+    if cnt is None:
+        cnt = torch.zeros(_BWD_COUNTERS, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(max(numel, 1), dtype=dtype, device=device)
+    _BWD_WORKSPACES[key] = ws, cnt
+    return ws, cnt
+
+
+def _on_device(t: torch.Tensor):
+    """``torch.cuda.device(t.device)``, or nothing when it is current."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def _launch_bwd_batch(name, w2, g, x, a, k, n):
-    """One batched backward ``qml_<name>(w, g, x, gp, gw, ws, E, A, K, [B,]
-    w_stride, f64, stream)`` (float32 or float64 throughout): ``gp`` and
-    ``gw`` (one gram an element for a per-element window, their sum for a
-    shared one)."""
+    """One batched backward ``qml_<name>(geometry, w, g, x, gp, gw, ws,
+    counters, stream)`` (float32 or float64 throughout): ``gp`` and ``gw``
+    (one gram an element for a per-element window, their sum for a shared
+    one)."""
     K = 2**k
     stride = _batch_window(name, x, w2, K, n)
-    E = x.shape[1]
     _check(name, "cotangent", g, tuple(x.shape), (x.dtype,))
+    geom = batch_bwd_geometry(x.shape[1], 2**a, K, 2 ** (n - a - k), stride != 0,
+                              x.dtype == torch.float64)
+    args = _GEOM_ARGS.get(geom)
+    if args is None:
+        args = _GEOM_ARGS[geom] = (ctypes.c_longlong * len(geom))(*geom)
     lib = _load()
-    B = 2 ** (n - a - k)
-    splits = lib.qml_window_batch_splits(E, K, 2**n // K)
     gp = torch.empty_like(x)
     gw = torch.empty_like(w2)
-    ws = torch.empty((E * splits, 2, K, K), dtype=x.dtype, device=x.device)
-    geometry = (E, 2**a, K, B) if B > 1 else (E, 2**a, K)
-    with torch.cuda.device(x.device):
+    with _on_device(x):
+        stream = _stream(x)
+        ws, cnt = _bwd_workspace(x.device, stream, x.dtype, geom.slots * 2 * geom.block)
         code = getattr(lib, f"qml_{name}")(
-            w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
-            ws.data_ptr(), *geometry, stride, _f64(x), _stream(x))
+            args, w2.data_ptr(), g.data_ptr(), x.data_ptr(), gp.data_ptr(), gw.data_ptr(),
+            ws.data_ptr(), cnt.data_ptr(), stream)
     _raise_on(name, code)
     LAUNCHES[name] += 1
     return gp, gw

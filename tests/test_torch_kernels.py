@@ -1285,10 +1285,185 @@ def test_batched_plain_is_the_loop_of_single_elements():
         assert torch.equal(rot[:, e], kernels.rotate_plain(x[:, e], 3, n))
 
 
+# The batch backward's launch geometry (cuda_kernels.batch_bwd_geometry) and
+# its schedule, as csrc/window_batch.cuh's backward_kernel walks it.
+
+_BWD_STATIC_SMEM = 256 * 16 + 16  # the kernel's tree buffer and flag
+
+
+def _bwd_ctas(geom):
+    """Per CTA of a batch backward launch, in blockIdx order: (gram group,
+    output block, part, [(first column, columns) of each tile it walks])."""
+    C = geom.A * geom.B
+    Q = geom.E * C
+    cg = geom.tc if geom.group else (C if geom.w_stride else Q)
+    for b in range(geom.grid):
+        grp, u, s = b // (geom.blocks * geom.parts), b // geom.parts % geom.blocks, b % geom.parts
+        gq0 = grp * cg
+        gcols = min(cg, Q - gq0)
+        k1 = min(-(-gcols // geom.tc), (s + 1) * geom.tpc)
+        yield grp, u, s, [(gq0 + kt * geom.tc, min(geom.tc, gcols - kt * geom.tc))
+                          for kt in range(s * geom.tpc, k1)]
+
+
+def _check_bwd_geometry(E, A, K, B, per_element, f64):
+    geom = cuda_kernels.batch_bwd_geometry(E, A, K, B, per_element, f64)
+    C = A * B
+    Q = E * C
+    assert geom.smem + _BWD_STATIC_SMEM <= 48 * 1024  # no opt-in, and 227 KB a fortiori
+    assert geom.grid < 2**31 and geom.counters <= cuda_kernels._BWD_COUNTERS
+    assert geom.slots * 2 * geom.block * (8 if f64 else 4) <= 8 * 2**20
+    outputs = geom.group * K * K if geom.group else geom.block
+    assert outputs <= 1024 and (outputs < 256 or outputs % 256 == 0)
+    if geom.parts > 1:
+        assert geom.parts * 2 * geom.block <= cuda_kernels._BWD_FINAL
+    covered = [[] for _ in range(geom.blocks)]
+    for grp, u, s, tiles in _bwd_ctas(geom):
+        assert tiles, f"CTA ({grp}, {u}, {s}) walks no tile"
+        for q0, cols in tiles:
+            assert 0 < cols <= geom.tc
+            if geom.group:  # whole elements
+                assert q0 % C == 0 and cols % C == 0 and cols <= geom.group * C
+            elif per_element:  # inside the CTA's element
+                assert q0 // C == grp and (q0 + cols - 1) // C == grp
+            covered[u].append((q0, cols))
+    for tiles in covered:  # every column once in every output block
+        tiles.sort()
+        ends = [0] + [q0 + cols for q0, cols in tiles]
+        assert [q0 for q0, _ in tiles] == ends[:-1] and ends[-1] == Q
+    return geom
+
+
+# Edges of the geometry: whole elements with a ragged last CTA, a shared
+# batch whose tiles span elements with a ragged last tile, an element split
+# over CTAs (n = 20, K = 32), a wide shared batch, output blocks (K = 64, 128),
+# a window too wide to stage (K = 4096), top windows.
+BWD_GEOMETRY_CASES = [(1001, 1, 4, 4), (20000, 8, 8, 1), (2, 8, 32, 4096), (65536, 8, 8, 1),
+                      (3, 2, 64, 1), (5, 1, 128, 8), (1, 1, 2**12, 1), (7, 32, 32, 1),
+                      (1, 2**19, 2, 1), (1, 1, 2, 2**20)]
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("per_element", [False, True], ids=["shared", "per_element"])
+@pytest.mark.parametrize("E,A,K,B", BWD_GEOMETRY_CASES)
+def test_batch_bwd_geometry_covers_every_column_once(E, A, K, B, per_element, f64):
+    """The batch backward's tiles cover every column of every element once
+    in each output block, a CTA's tiles stay inside its element (or hold
+    whole elements), and a CTA fits the shared memory a launch takes
+    without asking."""
+    _check_bwd_geometry(E, A, K, B, per_element, f64)
+
+
+@pytest.mark.unittest
+def test_batch_bwd_geometry_at_the_smoke_runs_shapes():
+    """Every batch shape chip_smoke.py runs (phase 5g's workloads, read off
+    them on the CPU), both window modes and both dtypes: the geometry covers
+    and fits as above; the 6q gradient's calls take a CTA an SM (128)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = smoke.batch_shapes()
+    for n, a, k, _, bt, _ in shapes["fwd"] + shapes["bwd"]:
+        for per_element in (False, True):
+            for f64 in (False, True):
+                _check_bwd_geometry(bt, 2**a, 2**k, 2 ** (n - a - k), per_element, f64)
+    for n, a, k, per_element, bt, f64 in shapes["bwd"]:
+        geom = cuda_kernels.batch_bwd_geometry(bt, 2**a, 2**k, 2 ** (n - a - k), per_element, f64)
+        assert geom.grid == cuda_kernels._BWD_TARGET, geom
+
+
+def _emulate_bwd(geom, w, g, x):
+    """backward_kernel's schedule in complex128 on the CPU: each CTA's tiles
+    read at the kernel's offsets, its pullback rows written where the kernel
+    writes them, its gram outputs to gw or to their slot, and the last CTA of
+    a gram block summing the slots; unwritten values stay NaN."""
+    E, A, K, B = geom.E, geom.A, geom.K, geom.B
+    C, KK = A * B, K * K
+    gc, xc = (torch.complex(t[0], t[1]).reshape(-1) for t in (g, x))
+    W = torch.complex(w[..., 0, :, :], w[..., 1, :, :]).reshape(-1, K, K)
+    gp = torch.full_like(gc, complex("nan"))
+    gw = torch.full((W.shape[0], KK), complex("nan"), dtype=gc.dtype)
+    slots = torch.full((geom.slots, geom.block), complex("nan"), dtype=gc.dtype)
+    arrived = {}
+    run = min(B, geom.tc)
+    no = geom.group * KK if geom.group else geom.block
+    for grp, u, s, tiles in _bwd_ctas(geom):
+        acc = torch.zeros(no, dtype=gc.dtype)
+        j0, j1 = -(-u * K // geom.blocks), -(-(u + 1) * K // geom.blocks)
+        e0 = tiles[0][0] // C
+        for q0, cols in tiles:
+            c = torch.arange(cols)
+            base = q0 // B * K * B + q0 % B
+            at = base + (c // run * K * B + c % run)[None, :] + (torch.arange(K) * B)[:, None]
+            gt, xt = gc[at], xc[at]
+            e = (q0 + c) // C
+            we = W[e] if geom.w_stride else W[0].expand(cols, K, K)
+            gp[at[j0:j1]] = torch.einsum("cij,ic->jc", we.conj(), gt)[j0:j1]
+            if geom.group:
+                for ge in range(cols // C):
+                    sl = slice(ge * C, (ge + 1) * C)
+                    acc[ge * KK:(ge + 1) * KK] += (gt[:, sl] @ xt[:, sl].conj().T).reshape(-1)
+            else:
+                o = u * no + torch.arange(no)
+                acc += (gt[o // K] * xt[o % K].conj()).sum(1)
+        if geom.group:
+            for ge in range(tiles[0][1] // C):
+                gw[e0 + ge] = acc[ge * KK:(ge + 1) * KK]
+            continue
+        row = grp if geom.w_stride else 0
+        if geom.parts == 1:
+            gw[row, u * no:(u + 1) * no] = acc
+            continue
+        gb = grp * geom.blocks + u
+        slots[gb * geom.parts + s] = acc
+        arrived[gb] = arrived.get(gb, 0) + 1
+        if arrived[gb] == geom.parts:
+            gw[row, u * no:(u + 1) * no] = slots[gb * geom.parts:(gb + 1) * geom.parts].sum(0)
+    gp = gp.reshape(E, -1)
+    gw = gw.reshape(W.shape[0], K, K)
+    return (torch.stack([gp.real, gp.imag]),
+            torch.stack([gw.real, gw.imag], dim=1).reshape(w.shape))
+
+
+# Small shapes of every branch: whole elements (ragged last CTA), a shared
+# batch (ragged last tile, tiles spanning elements), top windows, an element
+# split over CTAs (n = 12, K = 32), output blocks (K = 64), float64 tiles.
+BWD_EMULATION_CASES = [(6, 1, 3, 7), (6, 3, 3, 7), (6, 0, 2, 256), (4, 0, 2, 1001),
+                       (12, 3, 5, 2), (12, 7, 5, 2), (7, 0, 6, 3), (7, 1, 6, 2), (3, 0, 3, 9)]
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", BWD_EMULATION_CASES)
+def test_batch_bwd_schedule_matches_plain(n, a, k, bt, shared, f64):
+    """The batch backward's schedule writes every value of gp and gw once,
+    from the right tiles and windows: its emulation in complex128 against
+    the plain version, 1e-12 relative."""
+    x, w, g = (t.double() for t in _batch_inputs(n, k, bt, n + a + k + bt, shared))
+    geom = cuda_kernels.batch_bwd_geometry(bt, 2**a, 2**k, 2 ** (n - a - k), not shared, f64)
+    gp, gw = _emulate_bwd(geom, w, g, x)
+    if a + k == n:
+        rp, rw = kernels.window_apply_top_bwd_plain(w, g, x, k, n, torch.float64)
+    else:
+        rp, rw = kernels.window_apply_bwd_plain(w, g, x, a, k, n, torch.float64)
+    assert not gp.isnan().any() and not gw.isnan().any()
+    assert _rel(gp, rp) <= 1e-12 and _rel(gw, rw) <= 1e-12
+
+
 # On the card: Bt = 1, 7 and 4096, the 6q FCC plans' windows (K = 8) and the
-# 4q KL plans' single-qubit gates (K = 2, 4), a K = 32 window at 10q.
+# 4q KL plans' single-qubit gates (K = 2, 4), a K = 32 window at 10q; an
+# element split over CTAs (20q, K = 32), a wide batch (Bt = 65536), a K = 32
+# top window, and a whole-register window (K = 1024: one column a tile,
+# 1024 gram blocks; float64 reads its tile in place).
 BATCH_CUDA_CASES = [(6, 1, 3, 1), (6, 1, 3, 7), (6, 3, 3, 4096), (4, 0, 1, 4096), (4, 2, 2, 7),
-                    (4, 1, 2, 4096), (10, 2, 5, 7), (12, 0, 2, 7)]
+                    (4, 1, 2, 4096), (10, 2, 5, 7), (12, 0, 2, 7), (20, 3, 5, 2),
+                    (6, 3, 3, 65536), (10, 5, 5, 7), (10, 0, 10, 2)]
 
 
 def _cuda_batch(cuda, n, a, k, bt, shared):
@@ -1376,7 +1551,8 @@ def test_cuda_window_batch_gradients_repeat_bit_for_bit(cuda, shared):
     """Two launches of B2 / B4's batch entries give the same bits: the
     grams' splits (and a shared window's elements) are summed in a fixed
     order, with no atomics."""
-    for n, a, k, bt in ((6, 1, 3, 4096), (6, 3, 3, 64), (12, 0, 2, 7)):
+    for n, a, k, bt in ((6, 1, 3, 4096), (6, 3, 3, 64), (12, 0, 2, 7), (20, 3, 5, 2),
+                        (6, 3, 3, 65536)):
         x, w, g = _cuda_batch(cuda, n, a, k, bt, shared)
         first, second = (cuda_kernels.window_apply_bwd(w, g, x, a, k, n, torch.float32)
                          if a + k < n else

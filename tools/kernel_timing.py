@@ -7,7 +7,9 @@
 ``rotwin_apply``, B8 ``matrot_apply``, B3 ``window_apply_top``, B15
 ``adjoint_matrot``, B9 ``matrot_apply_bwd``, B11 ``rotwin_apply_bwd``, B4
 ``window_apply_top_bwd``, B13 ``adjoint_step_top``, B17 ``chain_apply``
-and B18 ``adjoint_chain`` (default: the first two); each runs at every call
+and B18 ``adjoint_chain``, and the batch entries B1b ``window_apply_batch``,
+B3b ``window_apply_top_batch``, B2b ``window_apply_bwd_batch`` and B4b
+``window_apply_top_bwd_batch`` (default: the first two); each runs at every call
 of its kind in the n-qubit Circuit_19 plan (B17 and B18 at every step of its
 chain plan, ``chip_smoke.chain_plan``: at 24 qubits ``CHAIN_PLAN_24``)
 (``chip_smoke.plan_shapes``; B4, B9, B11, B13 and B15 with the cotangent
@@ -36,7 +38,16 @@ B17 and B18 are held to float64 as ``chip_smoke.check_chain`` holds them
 library yardstick (``chip_smoke._chain_lib``: the step's window products
 and diagonal multiplies), with the TFLOP/s issued in split TF32 (3 passes x
 8K flops an amplitude a window for B17, 9 for B18), and summed per step
-kind (H, L): one launch is one step.
+kind (H, L): one launch is one step.  The batch entries run at phase 6's
+calls (``chip_smoke.batch_shapes``: one FCC Circuit_19 and one KL request's
+forward calls, the 6q batched gradient's backward calls, float32), held to
+float64 as ``chip_smoke.check_batch`` holds them, beside ``torch.bmm``
+(``chip_smoke.lib_window_batch*``), with each kernel a call launches from
+``torch.profiler`` and, where the tree has ``qml_batch_empty``, an empty
+kernel through the same ctypes path (the launch floor); with
+``--batch-edges`` B2b and B4b also at ``chip_smoke.BATCH_EDGE_CASES`` (an
+element split over CTAs, a wide batch, a K = 32 top window; both window
+modes, float32), left out of the totals.
 Times are ``chip_smoke._events_ms`` (CUDA events, best of 3 means of 10
 after a warm-up, as phase 6 takes them), each also "held": the calls queued
 behind a spinning kernel, device time without the host's launch gaps; and
@@ -63,7 +74,9 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 KINDS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
          "adjoint_matrot", "matrot_apply_bwd", "rotwin_apply_bwd", "window_apply_top_bwd",
-         "adjoint_step_top", "chain_apply", "adjoint_chain")
+         "adjoint_step_top", "chain_apply", "adjoint_chain", "window_apply_batch",
+         "window_apply_top_batch", "window_apply_bwd_batch", "window_apply_top_bwd_batch")
+BATCH_KINDS = KINDS[-4:]
 TOL = 1e-5
 TOL_GW = 1e-4
 
@@ -81,7 +94,7 @@ def _load_chip_smoke(root: Path):
 def _short(kernel: str) -> str:
     """A CUDA kernel's name as the profiler gives it, cut to its function
     and template arguments: tc_cgemm_kernel<TopPullbackMap,f32,bf16,bf16>."""
-    m = re.match(r"(?:void )?(?:qml::)?(?:tc::)?(\w+)(?:<([^>]*)>)?", kernel)
+    m = re.match(r"(?:void )?(?:\w+::|\(anonymous namespace\)::)*(\w+)(?:<([^>]*)>)?", kernel)
     if m is None:
         return kernel[:48]
     name, args = m.group(1)[:48], m.group(2)
@@ -102,6 +115,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=24)
     ap.add_argument("--kernels", default="window_apply,rotmat_apply")
     ap.add_argument("--max-k", type=int, default=2**30, help="largest K (2^k) timed")
+    ap.add_argument("--batch-edges", action="store_true",
+                    help="also time B2b/B4b at chip_smoke.BATCH_EDGE_CASES")
     ap.add_argument("--chain-ranks", default="",
                     help="CTAs a chain cluster, one pass of B17/B18 each (e.g. 8,4); "
                          "default: the package's")
@@ -162,15 +177,16 @@ def main() -> int:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spent = {}
+        spent, launched = {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 key = _short(e.name)
                 spent[key] = spent.get(key, 0.0) + e.time_range.elapsed_us() / reps
+                launched += 1
         if not spent:
             return "    parts: the profiler saw no device time"
         return "    parts: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + \
-            f" (sum {sum(spent.values()):.1f} us)"
+            f" (sum {sum(spent.values()):.1f} us; {launched / reps:g} kernels a call)"
 
     def us(t: tuple) -> str:
         return f"{t[0] * 1e3:8.1f} us (held {t[1] * 1e3:8.1f}, host {t[2] * 1e3:6.1f})"
@@ -365,11 +381,64 @@ def main() -> int:
             kind = by_kind.setdefault((name, r, geom[0]), [0, 0.0])
             kind[0] += 1
             kind[1] += t_k[0]
+    batch = [k for k in BATCH_KINDS if k in kinds]
+    if batch:
+        if hasattr(lib, "qml_batch_empty"):
+            empty = lambda: lib.qml_batch_empty(ck._stream(x))  # noqa: E731
+            print(f"  launch floor: an empty kernel through ctypes {us(times(empty))}", flush=True)
+        else:
+            print("  launch floor: this tree has no qml_batch_empty", flush=True)
+        bshapes = cs.batch_shapes()
+        calls = [c for label in ("FCC Circuit_19", "KL") for c in bshapes["calls"][label]]
+        calls += [c + ("bwd",) for c in reversed(bshapes["calls"]["grad"])]
+        if args.batch_edges:
+            calls += [(nb, a, k, per, bt, False, "bwd", "edge") for nb, a, k, bt in
+                      cs.BATCH_EDGE_CASES for per in (False, True)]
+        for nb, a, k, per, bt, _, *bwd in calls:
+            top = a + k == nb
+            name = ("window_apply_top" if top else "window_apply") + \
+                ("_bwd_batch" if bwd else "_batch")
+            if name not in batch:
+                continue
+            xb, gb = cs._batch_state(nb, bt, gen), cs._batch_state(nb, bt, gen)
+            wb = cs._batch_window(k, bt, per, rng)
+            x64, g64, w64 = xb.double(), gb.double(), wb.double()
+            if bwd:
+                kern = (lambda: ck.window_apply_top_bwd(wb, gb, xb, k, nb, torch.float32)) \
+                    if top else (lambda: ck.window_apply_bwd(wb, gb, xb, a, k, nb, torch.float32))
+                ref = kn.window_apply_top_bwd_plain(w64, g64, x64, k, nb, torch.float64) \
+                    if top else kn.window_apply_bwd_plain(w64, g64, x64, a, k, nb, torch.float64)
+                lib_fn = cs.lib_window_batch_bwd(wb, gb, xb, a, k, nb)
+                rels = [_rel(t, r) for t, r in zip(kern(), ref)]
+                ok &= rels[0] <= TOL and rels[1] <= TOL_GW
+            else:
+                kern = (lambda: ck.window_apply_top(xb, wb, k, nb)) if top else \
+                    (lambda: ck.window_apply(xb, wb, a, k, nb))
+                ref = kn.window_apply_top_plain(x64, w64, k, nb) if top else \
+                    kn.window_apply_plain(x64, w64, a, k, nb)
+                lib_fn = cs.lib_window_batch(xb, wb, a, k, nb)
+                rels = [_rel(kern(), ref)]
+                ok &= rels[0] <= TOL
+            t_k, t_l = times(kern), times(lib_fn)
+            print(f"  {name:26s} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt:6d} "
+                  f"rel {'/'.join(f'{r:.1e}' for r in rels)}  kernel {us(t_k)}  "
+                  f"bmm {us(t_l)}", flush=True)
+            print(parts(kern), flush=True)
+            if "edge" in bwd:
+                del xb, gb, wb, x64, g64, w64, ref
+                continue
+            tot = totals.setdefault(name, [0.0, 0.0, 0.0])
+            tot[0] += t_k[0]
+            tot[1] += t_l[0]
+            tot[2] += t_k[1]
+            del xb, gb, wb, x64, g64, w64, ref
     for (name, r, kind), (steps, ms) in sorted(by_kind.items()):
         print(f"  {name:13s} ranks {r} {kind} steps: {steps}, {ms:.4f} ms "
               f"({ms / steps:.4f} ms a step)")
-    for name, (t_k, t_l) in totals.items():
-        print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms per {n}q request")
+    for name, (t_k, t_l, *held) in totals.items():
+        per = "per batch workload (phase 6's calls)" if name in BATCH_KINDS else f"per {n}q request"
+        held = f"  held {held[0]:.4f} ms" if held else ""
+        print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms{held} {per}")
     print(f"card: {smi}")
     if not ok:
         print("kernel_timing: a kernel missed its bound against float64", file=sys.stderr)
