@@ -246,9 +246,13 @@ the pulse goldens and a QOC run) — and checks it phase by phase:
    diagonals' 20 flops an amplitude and the 8K^3 of G0 W on the CUDA
    cores).  The float32-core figure is printed beside it.  The batch
    entries' rows are also timed held behind a spin, beside an empty kernel
-   launched through the same ctypes path (the launch floor), and one B2b and
-   one B4b call must launch exactly one kernel (``torch.profiler``'s device
-   events; "not measured" where it shows none).
+   launched through the same ctypes path (the launch floor), and one B1b,
+   B2b, B3b and B4b call must launch exactly one kernel
+   (``torch.profiler``'s device events; "not measured" where it shows
+   none).  One FCC Circuit_19 request's forward calls are also timed in
+   float64, the dtype phase 5g runs FCC in, logged beside the kernels line
+   (8 bytes a value; the bound at the fp64 peak, 67 TFLOP/s; ``torch.bmm``
+   in complex128).
 
 Any failed phase exits non-zero.  The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -291,6 +295,7 @@ TOL_FUSE_FWD = 1e-6  # fused vs unfused plan: <Z> (same windows, other pass orde
 TOL_CHAIN_FWD = 1e-5  # chain vs scheduled plan: <Z> (other windows, composed in other groups)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
+PEAK_FP64 = 67e12  # H100 SXM fp64 tensor-core FLOP/s (data sheet; 34 on the CUDA cores)
 # Split TF32 on the tensor cores: csrc/forward_wgmma.cuh (the first five),
 # csrc/adjoint_tc.cuh, and csrc/chain_block.cuh (the last two).
 TC_KERNELS = ("window_apply", "rotmat_apply", "rotwin_apply", "matrot_apply", "window_apply_top",
@@ -2689,7 +2694,7 @@ def check_batch(ck, kn, cases, gen, rng) -> dict:
     every (n, a, k, per-element, batch, float64) of phase 5g, relative: the
     float32 entries' states 1e-5 and matrix cotangents (per element, or
     summed over the batch) 1e-4, the float64 entries' all three 1e-12; and
-    B2b / B4b called again on the same inputs give the same bits."""
+    all four called again on the same inputs give the same bits."""
     errs = dict.fromkeys(BATCH_KERNELS, 0.0)
     for n, a, k, per_element, bt, f64 in cases:
         x, g = _batch_state(n, bt, gen, f64), _batch_state(n, bt, gen, f64)
@@ -2711,10 +2716,13 @@ def check_batch(ck, kn, cases, gen, rng) -> dict:
                                                torch.float64)
         again = (ck.window_apply_top_bwd(w, g, x, k, n, x.dtype) if top else
                  ck.window_apply_bwd(w, g, x, a, k, n, x.dtype))
+        fwd_again = ck.window_apply_top(x, w, k, n) if top else ck.window_apply(x, w, a, k, n)
         torch.cuda.synchronize()
         _check(torch.equal(gp, again[0]) and torch.equal(gw, again[1]),
                f"{bwd} at n={n} a={a} k={k} Bt={bt}: a second call gave other bits")
-        del again
+        _check(torch.equal(got, fwd_again),
+               f"{fwd} at n={n} a={a} k={k} Bt={bt}: a second call gave other bits")
+        del again, fwd_again
         e = [_maxdiff(got, ref) / ref.abs().max().item(), _maxdiff(gp, rp) / rp.abs().max().item(),
              _maxdiff(gw, rw) / rw.abs().max().item()]
         if not f64:  # the row's max_abs_err: the float32 entries, as every other kernel's
@@ -4137,14 +4145,16 @@ def _esize(t: torch.dtype) -> int:
 
 
 def lib_window_batch(x, w, a, k, n):
-    """cuBLAS complex64 batched products of a batch entry's forward: one
-    ``bmm`` of the per-element windows (one product for a shared window)."""
+    """cuBLAS batched products of a batch entry's forward, complex64 (or
+    complex128 for a float64 state): one ``bmm`` of the per-element windows
+    (one product for a shared window)."""
     bt, K = x.shape[1], 2**k
-    X = _c(x).view(bt, 2**a, K, -1).transpose(1, 2).reshape(bt, K, -1).contiguous()
+    X = torch.complex(x[0], x[1]).view(bt, 2**a, K, -1).transpose(1, 2).reshape(
+        bt, K, -1).contiguous()
     if w.dim() == 4:
         W = torch.complex(w[:, 0], w[:, 1]).contiguous()
         return lambda: torch.bmm(W, X)
-    W, X2 = _c(w), X.transpose(0, 1).reshape(K, -1).contiguous()
+    W, X2 = torch.complex(w[0], w[1]), X.transpose(0, 1).reshape(K, -1).contiguous()
     return lambda: W @ X2
 
 
@@ -4167,15 +4177,15 @@ def lib_window_batch_bwd(w, g, x, a, k, n):
     return lambda: (WH @ G2, G2 @ XH2)
 
 
-def work_batch(K, n, bt, per_element, bwd):
+def work_batch(K, n, bt, per_element, bwd, esize=4):
     """A batch entry's work: per element 8K flops an amplitude (16K for the
     backward's pullback and gram), one read and one write of the state (the
     backward reads g and x and writes gp) and the windows (and grams): one
-    an element or one for the batch."""
+    an element or one for the batch; esize bytes a value."""
     mats = bt if per_element else 1
     if bwd:
-        return 16 * K * 2**n * bt, 24 * 2**n * bt + 16 * K * K * mats
-    return 8 * K * 2**n * bt, 16 * 2**n * bt + 8 * K * K * mats
+        return 16 * K * 2**n * bt, 6 * esize * 2**n * bt + 4 * esize * K * K * mats
+    return 8 * K * 2**n * bt, 4 * esize * 2**n * bt + 2 * esize * K * K * mats
 
 
 def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict, dmodel,
@@ -4392,22 +4402,55 @@ def phase_times(models: dict, model26, shapes: dict, batch: list, plans: dict, d
             log(f"  {name:20s} {label:36s} held   {t * 1e3:9.1f} us  "
                 f"launch floor {floor * 1e3:.1f} us (held {floor_held * 1e3:.1f})")
 
-        for label in ("FCC Circuit_19", "KL"):
-            for nb, a, k, per, bt, _ in bshapes["calls"][label]:  # in float32
-                xb, wb = _batch_state(nb, bt, gen), _batch_window(k, bt, per, rng)
-                tag = f"{label} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt}"
-                if a + k == nb:
-                    name = "window_apply_top_batch"
-                    kern = partial(ck.window_apply_top, xb, wb, k, nb)
-                    plain = partial(kn.window_apply_top_plain, xb, wb, k, nb)
-                else:
-                    name = "window_apply_batch"
-                    kern = partial(ck.window_apply, xb, wb, a, k, nb)
-                    plain = partial(kn.window_apply_plain, xb, wb, a, k, nb)
+        # The forward calls in float32 (the kernels line), then one FCC
+        # Circuit_19 request's again in float64, the dtype phase 5g runs
+        # FCC in (logged beside the line: 8 bytes a value, the bound at
+        # the fp64 peak; torch.bmm in complex128).
+        f64_rows = {name: dict(ms=0.0, held=0.0, library_ms=0.0, bound_ms=0.0, calls=0)
+                    for name in ("window_apply_batch", "window_apply_top_batch")}
+        fwd_calls = [(label, c, False) for label in ("FCC Circuit_19", "KL")
+                     for c in bshapes["calls"][label]]
+        fwd_calls += [("FCC Circuit_19", c, True) for c in bshapes["calls"]["FCC Circuit_19"]]
+        counted_fwd = set()
+        for label, (nb, a, k, per, bt, _), f64 in fwd_calls:
+            xb, wb = _batch_state(nb, bt, gen, f64), _batch_window(k, bt, per, rng, f64)
+            tag = (f"{label} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt}"
+                   f"{' float64' if f64 else ''}")
+            if a + k == nb:
+                name = "window_apply_top_batch"
+                kern = partial(ck.window_apply_top, xb, wb, k, nb)
+                plain = partial(kn.window_apply_top_plain, xb, wb, k, nb)
+            else:
+                name = "window_apply_batch"
+                kern = partial(ck.window_apply, xb, wb, a, k, nb)
+                plain = partial(kn.window_apply_plain, xb, wb, a, k, nb)
+            if not f64:
                 add(name, tag, kern, plain, lib_window_batch(xb, wb, a, k, nb),
                     work_batch(2**k, nb, bt, per, False))
                 batch_held(name, tag, kern)
-                del xb, wb
+            else:
+                flops, bytes_ = work_batch(2**k, nb, bt, per, False, esize=8)
+                bound = max(flops / PEAK_FP64, bytes_ / PEAK_HBM) * 1e3
+                t_k, t_l = _events_ms(kern), _events_ms(lib_window_batch(xb, wb, a, k, nb))
+                t_h = _events_ms(kern, hold=True)
+                row = f64_rows[name]
+                row["ms"] += t_k
+                row["held"] += t_h
+                row["library_ms"] += t_l
+                row["bound_ms"] += bound
+                row["calls"] += 1
+                log(f"  {name:20s} {tag:36s} kernel {t_k * 1e3:9.1f} us  held {t_h * 1e3:9.1f} us"
+                    f"  library {t_l * 1e3:9.1f} us  bound {bound * 1e3:8.1f} us "
+                    f"({bytes_ / t_k / 1e9:.2f} TB/s; held {bytes_ / t_h / 1e9:.2f})")
+            if (name, f64) not in counted_fwd and label == "FCC Circuit_19":
+                counted_fwd.add((name, f64))
+                _kernels_a_call(name, tag, kern)
+            del xb, wb
+        for name, row in f64_rows.items():
+            log(f"  total {name:20s} float64, one FCC Circuit_19 request: kernel "
+                f"{row['ms']:.3f} ms  held {row['held']:.3f} ms  library (complex128 bmm) "
+                f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms over "
+                f"{row['calls']} calls")
         counted = set()
         for nb, a, k, per, bt, _ in reversed(bshapes["calls"]["grad"]):
             xb, gb, wb = _batch_state(nb, bt, gen), _batch_state(nb, bt, gen), \

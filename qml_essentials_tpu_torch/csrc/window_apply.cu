@@ -59,12 +59,12 @@ extern "C" int qml_forward_path(long long K, long long run) {
   return qml::forward_wgmma_shape(K, run) ? 1 : 0;
 }
 
-// The batch entry (window_batch.cuh): x, y: (2, E*A*K*B), element e owning
+// The batch entry (window_batch.cuh): geom, the launch's FwdGeom
+// (cuda_kernels.batch_fwd_geometry); x, y: (2, E*A*K*B), element e owning
 // rows [e*A, (e+1)*A) of the (2, E*A, K, B) view; w: one (2, K, K) window
 // (w_stride = 0) or E of them (w_stride = 2*K*K); float32, or float64 when
 // f64.  B > 1.
-extern "C" int qml_window_apply_batch(const void* x, const void* w, void* y, long long E,
-                                      long long A, long long K, long long B,
-                                      long long w_stride, int f64, void* stream) {
-  return qml::batch::forward(x, w, y, E, A, K, B, w_stride, f64, (cudaStream_t)stream);
+extern "C" int qml_window_apply_batch(const long long* geom, const void* x, const void* w,
+                                      void* y, void* stream) {
+  return qml::batch::forward<false>(geom, x, w, y, (cudaStream_t)stream);
 }

@@ -74,11 +74,11 @@ extern "C" int qml_window_apply_top(const float* x, const float* w, float* ws, f
   return qml_window_apply_top_tile(x, w, y, A, K, stream);
 }
 
-// The batch entry (window_batch.cuh): x, y: (2, E*A*K), the top window on
-// each of E elements; w: one (2, K, K) window (w_stride = 0) or E of them
-// (w_stride = 2*K*K); float32, or float64 when f64.
-extern "C" int qml_window_apply_top_batch(const void* x, const void* w, void* y,
-                                          long long E, long long A, long long K,
-                                          long long w_stride, int f64, void* stream) {
-  return qml::batch::forward(x, w, y, E, A, K, 1, w_stride, f64, (cudaStream_t)stream);
+// The batch entry (window_batch.cuh): geom, the launch's FwdGeom
+// (cuda_kernels.batch_fwd_geometry, B = 1); x, y: (2, E*A*K), the top
+// window on each of E elements; w: one (2, K, K) window (w_stride = 0) or E
+// of them (w_stride = 2*K*K); float32, or float64 when f64.
+extern "C" int qml_window_apply_top_batch(const long long* geom, const void* x, const void* w,
+                                          void* y, void* stream) {
+  return qml::batch::forward<true>(geom, x, w, y, (cudaStream_t)stream);
 }

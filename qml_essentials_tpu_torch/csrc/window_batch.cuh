@@ -18,9 +18,27 @@
 // What bounds it on an H100: below LARGE_STATE_MIN_N a batch's windows are
 // small (K <= 32 in a plan, 2**n <= 2**21 amplitudes an element) and the
 // batch is wide, so each launch streams the batched state once through
-// HBM.  The forward runs on the float32 CUDA cores, one output amplitude a
-// thread, W_e's row read through the read-only cache (it is shared by the
-// K*B threads of its element).
+// HBM: at FCC's 6q shapes a float32 element is 512 bytes read and 512
+// written, its own W 128-512 bytes, for at most 8K flops an amplitude.
+//
+// The forward (forward_kernel) is one launch a call, a thread a column
+// (e, a, b) of the Q = Bt*A*B columns, all K outputs from the K inputs it
+// holds in registers, so each input is read from HBM once and each output
+// written once.  Persistent CTAs (the card's residency, cuda_kernels'
+// batch_fwd_geometry and the launcher's occupancy query) walk tiles of tc
+// columns: whole blocks (e, a) of K*B contiguous values when B < tc (the
+// FCC's B = 4-16, the KL's, top windows), kept K*B + pad apart so a warp's
+// column reads fall on distinct banks, else K runs of tc values (stride B).
+// A tile and its elements' windows are copied with 16-byte cp.async into
+// one of two buffers while the CTA computes the other; a shared W is
+// staged once a CTA; a W row is read from shared memory in 16-byte loads,
+// the same address across a column group (a broadcast).  The outputs
+// overwrite the column in shared memory and leave as 16-byte stores.  Each
+// output sums its K terms in order, so a call repeats bit for bit.  K above
+// the register budget (32 in float32, 16 in float64; no plan's window below
+// LARGE_STATE_MIN_N) splits a column's outputs over K/4 threads that read
+// through the caches (forward_wide).  The float32 and float64 CUDA cores do
+// the products: at K <= 8 an amplitude costs 8K flops for 16-32 bytes.
 //
 // The backward (backward_kernel) is one launch a call.  Its columns are the
 // Q = Bt*A*B columns (a, b) of the batch view; a CTA of 256 threads walks
@@ -60,94 +78,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+#include <type_traits>
+
 namespace qml {
 namespace batch {
 namespace {  // internal linkage: every window source includes this header
 
 constexpr int THREADS = 256;
-constexpr int64_t MAX_BLOCKS = 65535LL * 16;
-
-inline unsigned blocks_for(int64_t work) {
-  int64_t b = (work + THREADS - 1) / THREADS;
-  if (b > MAX_BLOCKS) b = MAX_BLOCKS;
-  return (unsigned)(b < 1 ? 1 : b);
-}
 
 __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
-
-// y = W_e x (forward) or y = W_e^dag x (pullback, ADJ) on each element.
-template <bool ADJ, class T>
-__global__ void __launch_bounds__(THREADS)
-window_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-              int64_t plane, int64_t D, int64_t K, int64_t B, int64_t w_stride) {
-  const int64_t KK = K * K;
-  for (int64_t t = blockIdx.x * (int64_t)THREADS + threadIdx.x; t < plane;
-       t += (int64_t)gridDim.x * THREADS) {
-    const int64_t e = t / D;
-    const int64_t i = (t / B) % K;
-    const T* we = w + e * w_stride;
-    const T* xr = x + (t - i * B);  // x[e, a, 0, b]
-    const T* xi = xr + plane;
-    T ar = 0, ai = 0;
-    for (int64_t j = 0; j < K; ++j) {
-      // forward: W[i, j]; pullback: conj(W[j, i])
-      const int64_t at = ADJ ? j * K + i : i * K + j;
-      const T wr = __ldg(we + at);
-      const T wi = ADJ ? -__ldg(we + KK + at) : __ldg(we + KK + at);
-      const T br = xr[j * B], bi = xi[j * B];
-      ar = madd(wr, br, ar);
-      ar = madd(-wi, bi, ar);
-      ai = madd(wr, bi, ai);
-      ai = madd(wi, br, ai);
-    }
-    y[t] = ar;
-    y[t + plane] = ai;
-  }
-}
-
-template <class T>
-int forward_t(const T* x, const T* w, T* y, int64_t E, int64_t A, int64_t K, int64_t B,
-              int64_t w_stride, cudaStream_t stream) {
-  const int64_t D = A * K * B, plane = E * D;
-  window_kernel<false, T><<<blocks_for(plane), THREADS, 0, stream>>>(x, w, y, plane, D, K, B,
-                                                                      w_stride);
-  return (int)cudaGetLastError();
-}
-
-// x, w, y: float32, or float64 when f64.
-inline int forward(const void* x, const void* w, void* y, int64_t E, int64_t A, int64_t K,
-                   int64_t B, int64_t w_stride, int f64, cudaStream_t stream) {
-  if (f64)
-    return forward_t((const double*)x, (const double*)w, (double*)y, E, A, K, B, w_stride,
-                     stream);
-  return forward_t((const float*)x, (const float*)w, (float*)y, E, A, K, B, w_stride, stream);
-}
-
-// ---------------------------------------------------------------------------
-// Backward
-// ---------------------------------------------------------------------------
-
-// Gram outputs a thread: one (RMAX 1) while a CTA has at most THREADS,
-// else up to 4 (RMAX 4; at most 4 * THREADS a CTA).
-constexpr int BWD_RMAX = 4;
-
-// The launch's geometry, as cuda_kernels.BatchBwdGeometry packs it (int64
-// each, in this order).
-struct BwdGeom {
-  int64_t E, A, K, B;  // the batch view (2, E*A, K, B)
-  int64_t w_stride;    // 0: one W; 2*K*K: one an element
-  int64_t tc;          // columns a tile (a power of two)
-  int64_t tpc;         // tiles a CTA walks (column mode)
-  int64_t parts;       // CTAs whose partial grams make one gram block (1: written directly)
-  int64_t blocks;      // gram output blocks of K*K / blocks outputs (column mode)
-  int64_t group;       // elements a CTA (whole-element mode), 0 in column mode
-  int64_t stage;       // 1: g and x tiles through shared memory, 0: read in place
-  int64_t w_smem;      // 1: the CTA's window(s) through shared memory
-  int64_t grid;        // CTAs
-  int64_t smem;        // dynamic shared memory, bytes
-  int64_t f64;         // float64 (else float32)
-};
 
 template <class T> struct Vec;
 template <> struct Vec<float> { using type = float4; };
@@ -203,6 +145,401 @@ __device__ __forceinline__ void stage_runs(T* dst, int sstr, int dim, const T* s
 __device__ __forceinline__ void copies_done() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// A thread holds its column's K complex inputs in registers up to K =
+// fwd_kreg; above it, it computes FWD_WIDE_R of the column's outputs.
+constexpr int FWD_WIDE_R = 4;
+template <class T> constexpr int fwd_kreg() { return sizeof(T) == 4 ? 32 : 16; }
+
+// The launch's geometry, as cuda_kernels.BatchFwdGeometry packs it (int64
+// each, in this order).
+struct FwdGeom {
+  int64_t E, A, K, B;  // the batch view (2, E*A, K, B)
+  int64_t w_stride;    // 0: one W; 2*K*K: one an element
+  int64_t rows;        // outputs a thread: K, or FWD_WIDE_R (K above the register budget)
+  int64_t tc;          // columns a tile (a power of two; one a thread), 0 when wide
+  int64_t pad;         // values after each block of K*B in shared memory (tc > B)
+  int64_t dim;         // values of one plane of a tile in shared memory
+  int64_t wdim;        // values of a tile's windows in shared memory (0: one W, or read in place)
+  int64_t tiles;       // tiles, or the wide path's work items
+  int64_t threads;     // a CTA's threads
+  int64_t grid;        // CTAs at most (the launcher keeps it within the card's residency)
+  int64_t smem;        // dynamic shared memory, bytes
+  int64_t sms;         // the card's SMs
+  int64_t f64;         // float64 (else float32)
+};
+
+// N values from s into r, in 16-byte loads when they fill them.
+template <class T, int N>
+__device__ __forceinline__ void ld_vals(const T* s, T (&r)[N]) {
+  using VT = typename Vec<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (N % V == 0) {
+#pragma unroll
+    for (int v = 0; v < N; v += V) {
+      const VT a = *reinterpret_cast<const VT*>(s + v);
+      if constexpr (V == 4) {
+        r[v] = a.x, r[v + 1] = a.y, r[v + 2] = a.z, r[v + 3] = a.w;
+      } else {
+        r[v] = a.x, r[v + 1] = a.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < N; ++v) r[v] = s[v];
+  }
+}
+
+template <class T, int N>
+__device__ __forceinline__ void st_vals(T* s, const T (&r)[N]) {
+  using VT = typename Vec<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (N % V == 0) {
+#pragma unroll
+    for (int v = 0; v < N; v += V) {
+      VT a;
+      if constexpr (V == 4) {
+        a.x = r[v], a.y = r[v + 1], a.z = r[v + 2], a.w = r[v + 3];
+      } else {
+        a.x = r[v], a.y = r[v + 1];
+      }
+      *reinterpret_cast<VT*>(s + v) = a;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < N; ++v) s[v] = r[v];
+  }
+}
+
+// A tile between device memory and shared memory, CH values a copy: nseg
+// (<= 2^lgseg) segments of 2^lglen values, the first `valid` of each moved
+// (a multiple of CH), segment r at g + r*gstr (the Im plane at +plane) and
+// at s + r*sstr (the Im plane at +dim).  LOAD: cp.async into shared
+// memory; else stores from it.
+template <bool LOAD, int CH, class T>
+__device__ __forceinline__ void move_tile(T* s, int sstr, int dim, T* g, int64_t gstr,
+                                          int64_t plane, int nseg, int lgseg, int lglen,
+                                          int valid) {
+  using VT = typename Vec<T>::type;
+  const int lgper = lglen - ilog2(CH), lgall = lgseg + lgper;
+  const int total = 2 << lgall;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int pl = k >> lgall, r = (k >> lgper) & ((1 << lgseg) - 1);
+    const int o = (k & ((1 << lgper) - 1)) * CH;
+    if (r >= nseg || o >= valid) continue;
+    T* sp = s + pl * dim + r * sstr + o;
+    T* gp = g + pl * plane + r * gstr + o;
+    if constexpr (LOAD) {
+      copy_async<(int)(CH * sizeof(T))>(sp, gp);
+    } else if constexpr (CH * sizeof(T) == 16) {
+      *reinterpret_cast<VT*>(gp) = *reinterpret_cast<const VT*>(sp);
+    } else {
+      *gp = *sp;
+    }
+  }
+}
+
+// n values (a multiple of 16 bytes when vec) from g to s by cp.async.
+template <class T>
+__device__ __forceinline__ void copy_vals(T* s, const T* g, int n, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    for (int k = threadIdx.x * V; k < n; k += blockDim.x * V) copy_async<16>(s + k, g + k);
+  } else {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) copy_async<(int)sizeof(T)>(s + k, g + k);
+  }
+}
+
+// Above the register budget: each of a column's K/R threads computes R of
+// its outputs, reading the column and W's rows through the caches (no
+// plan's window is this wide below LARGE_STATE_MIN_N: the edge shapes).
+// Work item u: lane u % 32 of column group u / (32 S); slice (u / 32) % S.
+template <class T>
+__device__ __forceinline__ void forward_wide(const T* __restrict__ x, const T* __restrict__ w,
+                                             T* __restrict__ y, const FwdGeom& p) {
+  constexpr int R = FWD_WIDE_R;
+  const int K = (int)p.K, lgK = ilog2(p.K), lgS = lgK - ilog2(R);
+  const int B = (int)p.B, lgB = ilog2(p.B), lgA = ilog2(p.A);
+  const int64_t KK = (int64_t)K * K, Q = p.E * p.A * p.B, plane = Q * K;
+  for (int64_t u = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; u < p.tiles;
+       u += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t grp = u >> 5;
+    const int s = (int)(grp & ((1 << lgS) - 1));
+    const int64_t q = ((grp >> lgS) << 5) | (u & 31);
+    if (q >= Q) continue;
+    const int64_t ea = q >> lgB;
+    const int64_t base = ((ea << lgK) << lgB) + (q & (B - 1));  // x[e, a, 0, b]
+    const T* we = w + (ea >> lgA) * p.w_stride + (int64_t)s * R * K;
+    T ar[R], ai[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ar[r] = ai[r] = 0;
+    for (int j = 0; j < K; ++j) {
+      const T br = x[base + (int64_t)j * B], bi = x[plane + base + (int64_t)j * B];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T wr = __ldg(we + r * K + j), wi = __ldg(we + KK + r * K + j);
+        ar[r] = madd(wr, br, ar[r]);
+        ar[r] = madd(-wi, bi, ar[r]);
+        ai[r] = madd(wr, bi, ai[r]);
+        ai[r] = madd(wi, br, ai[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t o = base + (int64_t)(s * R + r) * B;
+      y[o] = ar[r];
+      y[plane + o] = ai[r];
+    }
+  }
+}
+
+// y = W_e x on each element.  KC = K (2..fwd_kreg): a thread a column of the
+// tile, its K inputs in registers; KC = 0: forward_wide.  TOP: B = 1, the
+// column contiguous (window_apply_top's batch entry).
+template <class T, int KC, bool TOP>
+__global__ void __launch_bounds__(THREADS, 2)
+forward_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+               const FwdGeom p) {
+  if constexpr (KC == 0) {
+    forward_wide(x, w, y, p);
+  } else {
+    constexpr int K = KC, KK = K * K, V = 16 / sizeof(T);
+    constexpr int WC = K < V ? K : V;              // W's values a load
+    constexpr int OC = TOP ? (K < V ? K : V) : 1;  // outputs a store
+    constexpr int IU = K <= 8 ? K / OC : 2;        // output groups unrolled
+    extern __shared__ __align__(16) unsigned char batch_smem[];
+    T* const sm = reinterpret_cast<T*>(batch_smem);
+
+    // Every extent is a power of two: shifts and masks on 32-bit indices,
+    // 64-bit only for a tile's offset in the batch.
+    const int t = threadIdx.x;
+    const bool one_w = p.w_stride == 0, w_tile = p.wdim != 0;
+    const int B = (int)p.B, lgB = ilog2(p.B), lgA = ilog2(p.A);
+    const int tc = (int)p.tc, lgtc = ilog2(p.tc);
+    const int64_t EA = p.E * p.A, Q = EA * B, plane = Q * K;
+    // A tile: tc columns.  flat (tc > B): tc / B whole blocks (e, a) of K*B
+    // contiguous values, kept K*B + pad apart (with no pad, one run); else
+    // K runs of tc (stride B).
+    const bool flat = tc > B, contig = flat && p.pad == 0;
+    const int run = flat ? B : tc, lgrun = flat ? lgB : lgtc;
+    const int sstr = flat ? K * B + (int)p.pad : tc;
+    const int lgblk = flat ? ilog2(K) + lgB : lgtc;  // values a block (a run)
+    const int lglen = contig ? lgtc + ilog2(K) : lgblk;
+    const int lgseg = contig ? 0 : flat ? lgtc - lgB : ilog2(K);
+    const int64_t gstr = flat ? (int64_t)K * B : B;
+    const int dim = (int)p.dim, bufsz = 2 * dim + (int)p.wdim;
+    T* const sw1 = sm;                           // the one window (one_w)
+    T* const buf0 = sm + (one_w ? 2 * KK : 0);   // two tile buffers: Re, Im, windows
+    const bool vec_w = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) ==
+                         0 && plane % V == 0 &&
+                     (contig || ((1 << lglen) % V == 0 && gstr % V == 0 && sstr % V == 0));
+
+    // Tile kt: its first value in a plane, its first block, its blocks (K
+    // runs when not flat) and the values of each segment it moves.
+    auto tile_at = [&](int64_t kt, int64_t& ea0, int& nseg, int& nmove, int& valid) {
+      const int64_t q0 = kt << lgtc;
+      ea0 = q0 >> lgB;
+      nseg = flat ? (int)min((int64_t)1 << (lgtc - lgB), EA - ea0) : K;
+      nmove = contig ? 1 : nseg;
+      valid = contig ? nseg << lgblk : 1 << lglen;
+      return ea0 * K * B + (q0 & (B - 1));
+    };
+    auto move = [&](auto load, T* buf, T* g, int nmove, int valid) {
+      if (vec && valid % V == 0)
+        move_tile<decltype(load)::value, V>(buf, sstr, dim, g, gstr, plane, nmove, lgseg, lglen,
+                                            valid);
+      else
+        move_tile<decltype(load)::value, 1>(buf, sstr, dim, g, gstr, plane, nmove, lgseg, lglen,
+                                            valid);
+    };
+    auto issue = [&](int64_t kt, T* buf) {
+      int64_t ea0;
+      int nseg, nmove, valid;
+      const int64_t g0 = tile_at(kt, ea0, nseg, nmove, valid);
+      move(std::true_type{}, buf, const_cast<T*>(x) + g0, nmove, valid);
+      if (w_tile) {  // the windows of the tile's elements
+        const int64_t e0 = ea0 >> lgA, e1 = (ea0 + (flat ? nseg : 1) - 1) >> lgA;
+        copy_vals(buf + 2 * dim, w + e0 * 2 * KK, (int)(e1 - e0 + 1) * 2 * KK, vec_w);
+      }
+    };
+
+    const int64_t G = gridDim.x;
+    int64_t kt = blockIdx.x;
+    if (one_w) copy_vals(sw1, w, 2 * KK, vec_w);
+    if (kt < p.tiles) issue(kt, buf0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int it = 0; kt < p.tiles; ++it, kt += G) {
+      T* const cur = buf0 + (it & 1) * bufsz;
+      if (kt + G < p.tiles) issue(kt + G, buf0 + ((it + 1) & 1) * bufsz);  // in flight meanwhile
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+
+      int64_t ea0;
+      int nseg, nmove, valid;
+      const int64_t g0 = tile_at(kt, ea0, nseg, nmove, valid);
+      const int ncols = (int)min((int64_t)tc, Q - (kt << lgtc));
+      if (t < ncols) {
+        // Column t: value j at off + j * run; its outputs overwrite it there.
+        T* const sr = cur + (t >> lgrun) * sstr + (t & (run - 1));
+        T* const si = sr + dim;
+        const int64_t ea = ea0 + (t >> lgrun);  // the column's block (e, a)
+        const T* we = sw1;
+        if (w_tile)
+          we = cur + 2 * dim + (int)((ea >> lgA) - (ea0 >> lgA)) * 2 * KK;
+        else if (!one_w)
+          we = w + (ea >> lgA) * p.w_stride;  // read in place, through L1
+        T xr[K], xi[K];
+        if constexpr (TOP) {
+          ld_vals(sr, xr);
+          ld_vals(si, xi);
+        } else {
+#pragma unroll
+          for (int j = 0; j < K; ++j) xr[j] = sr[j * run], xi[j] = si[j * run];
+        }
+        // Each output's K terms in order j = 0..K-1: a call repeats bit for bit.
+#pragma unroll IU
+        for (int i0 = 0; i0 < K; i0 += OC) {
+          T yr[OC], yi[OC];
+#pragma unroll
+          for (int o = 0; o < OC; ++o) {
+            const T* wrow = we + (i0 + o) * K;
+            T ar = 0, ai = 0;
+#pragma unroll
+            for (int j0 = 0; j0 < K; j0 += WC) {
+              T wr[WC], wi[WC];
+              if (one_w || w_tile) {
+                ld_vals(wrow + j0, wr);
+                ld_vals(wrow + KK + j0, wi);
+              } else {
+#pragma unroll
+                for (int v = 0; v < WC; ++v)
+                  wr[v] = __ldg(wrow + j0 + v), wi[v] = __ldg(wrow + KK + j0 + v);
+              }
+#pragma unroll
+              for (int v = 0; v < WC; ++v) {
+                ar = madd(wr[v], xr[j0 + v], ar);
+                ar = madd(-wi[v], xi[j0 + v], ar);
+                ai = madd(wr[v], xi[j0 + v], ai);
+                ai = madd(wi[v], xr[j0 + v], ai);
+              }
+            }
+            yr[o] = ar, yi[o] = ai;
+          }
+          if constexpr (TOP) {
+            st_vals(sr + i0, yr);
+            st_vals(si + i0, yi);
+          } else {
+            sr[i0 * run] = yr[0], si[i0 * run] = yi[0];
+          }
+        }
+      }
+      __syncthreads();
+      move(std::false_type{}, cur, y + g0, nmove, valid);
+      __syncthreads();  // the buffer is free for the tile after next
+    }
+  }
+}
+
+// CTAs of `fn` an SM at (threads, smem) on the current device, asked of the
+// runtime once, after allowing `fn` all the shared memory the card offers
+// (a smaller limit set for one geometry would refuse a larger one's launch).
+inline int fwd_residency(const void* fn, int threads, size_t smem) {
+  struct Entry {
+    const void* fn;
+    int device, threads;
+    size_t smem;
+    int ctas;
+  };
+  static std::mutex lock;
+  static Entry seen[256];
+  static int count = 0;
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  std::lock_guard<std::mutex> hold(lock);
+  for (int i = 0; i < count; ++i)
+    if (seen[i].fn == fn && seen[i].device == device && seen[i].threads == threads &&
+        seen[i].smem == smem)
+      return seen[i].ctas;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess ||
+      (size_t)optin < smem ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin) != cudaSuccess)
+    return -1;
+  int ctas = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads, smem) != cudaSuccess ||
+      ctas < 1)
+    return -1;
+  if (count < 256) seen[count++] = Entry{fn, device, threads, smem, ctas};
+  return ctas;
+}
+
+template <class T, int KC, bool TOP>
+int forward_launch(const FwdGeom& p, const T* x, const T* w, T* y, cudaStream_t stream) {
+  const auto fn = forward_kernel<T, KC, TOP>;
+  const int ctas = fwd_residency((const void*)fn, (int)p.threads, (size_t)p.smem);
+  if (ctas < 0) return (int)cudaErrorInvalidConfiguration;
+  const int64_t grid = std::min(p.grid, (int64_t)ctas * p.sms);
+  fn<<<(unsigned)grid, (unsigned)p.threads, (size_t)p.smem, stream>>>(x, w, y, p);
+  return (int)cudaGetLastError();
+}
+
+template <class T, bool TOP>
+int forward_t(const FwdGeom& p, const T* x, const T* w, T* y, cudaStream_t stream) {
+  const bool wide = p.K > fwd_kreg<T>();
+  if (p.rows != (wide ? FWD_WIDE_R : p.K) || (wide && p.tc != 0) || (TOP != (p.B == 1)))
+    return (int)cudaErrorInvalidValue;  // a geometry for another path
+  switch (p.K) {
+    case 2: return forward_launch<T, 2, TOP>(p, x, w, y, stream);
+    case 4: return forward_launch<T, 4, TOP>(p, x, w, y, stream);
+    case 8: return forward_launch<T, 8, TOP>(p, x, w, y, stream);
+    case 16: return forward_launch<T, 16, TOP>(p, x, w, y, stream);
+    case 32:
+      if constexpr (fwd_kreg<T>() >= 32) return forward_launch<T, 32, TOP>(p, x, w, y, stream);
+  }
+  return forward_launch<T, 0, TOP>(p, x, w, y, stream);
+}
+
+// geom: FwdGeom's fields; x, y: (2, E*A*K*B); w: one (2, K, K) window
+// (w_stride 0) or E of them; every array float32, or float64 when f64.
+template <bool TOP>
+inline int forward(const long long* geom, const void* x, const void* w, void* y,
+                   cudaStream_t stream) {
+  const FwdGeom p = *reinterpret_cast<const FwdGeom*>(geom);
+  if (p.f64)
+    return forward_t<double, TOP>(p, (const double*)x, (const double*)w, (double*)y, stream);
+  return forward_t<float, TOP>(p, (const float*)x, (const float*)w, (float*)y, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// Gram outputs a thread: one (RMAX 1) while a CTA has at most THREADS,
+// else up to 4 (RMAX 4; at most 4 * THREADS a CTA).
+constexpr int BWD_RMAX = 4;
+
+// The launch's geometry, as cuda_kernels.BatchBwdGeometry packs it (int64
+// each, in this order).
+struct BwdGeom {
+  int64_t E, A, K, B;  // the batch view (2, E*A, K, B)
+  int64_t w_stride;    // 0: one W; 2*K*K: one an element
+  int64_t tc;          // columns a tile (a power of two)
+  int64_t tpc;         // tiles a CTA walks (column mode)
+  int64_t parts;       // CTAs whose partial grams make one gram block (1: written directly)
+  int64_t blocks;      // gram output blocks of K*K / blocks outputs (column mode)
+  int64_t group;       // elements a CTA (whole-element mode), 0 in column mode
+  int64_t stage;       // 1: g and x tiles through shared memory, 0: read in place
+  int64_t w_smem;      // 1: the CTA's window(s) through shared memory
+  int64_t grid;        // CTAs
+  int64_t smem;        // dynamic shared memory, bytes
+  int64_t f64;         // float64 (else float32)
+};
 
 // a + src[q * stride] for q in [q0, q1), in order, eight loads in flight
 // (the slots lie in L2: a serial chain of loads would wait on each).

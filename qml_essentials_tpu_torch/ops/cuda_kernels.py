@@ -51,6 +51,10 @@ their sources; launch counts ``window_apply_batch``,
 2**n)`` state launch one kernel for the whole batch, with a shared ``(2, K,
 K)`` window or one per element ``(Bt, 2, K, K)``, in float32 or float64 on
 the CUDA cores; ``rotate`` takes a batched state as ``2 * Bt`` planes.  The
+forward batch entries are a thread a column, its K inputs in registers,
+tiles of columns and their windows double-buffered in shared memory by
+persistent CTAs (:func:`batch_fwd_geometry` chooses the tiles); without
+a gradient to record they launch without an autograd Function.  The
 backward batch entries are one launch a call: tiles staged in shared
 memory, the gram per element, or summed over the batch for a shared window
 (the last CTA of a gram sums its partials in a fixed order, counted on an
@@ -226,9 +230,9 @@ def _argtypes() -> Dict[str, list]:
         "window_apply_top": [ptr] * 4 + [i64] * 2 + [ptr],  # x, w, ws, y, A, K, stream
         "window_apply_top_tile": [ptr] * 3 + [i64] * 2 + [ptr],  # x, w, y, A, K, stream
         "window_apply_top_bwd": bwd + [i64] * 3 + flags,
-        # x, w, y, E, A, K, [B,] w_stride, f64, stream
-        "window_apply_batch": [ptr] * 3 + [i64] * 5 + [i32, ptr],
-        "window_apply_top_batch": [ptr] * 3 + [i64] * 4 + [i32, ptr],
+        # geometry, x, w, y, stream
+        "window_apply_batch": [ctypes.POINTER(i64)] + [ptr] * 4,
+        "window_apply_top_batch": [ctypes.POINTER(i64)] + [ptr] * 4,
         # geometry, w, g, x, gp, gw, ws, counters, stream
         "window_apply_bwd_batch": [ctypes.POINTER(i64)] + [ptr] * 8,
         "window_apply_top_bwd_batch": [ctypes.POINTER(i64)] + [ptr] * 8,
@@ -262,6 +266,8 @@ def _argtypes() -> Dict[str, list]:
 
 def _load() -> ctypes.CDLL:
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             path, _ = build()
@@ -421,32 +427,160 @@ def _f64(t: torch.Tensor) -> int:
     return int(t.dtype == torch.float64)
 
 
+# The batch forward (``csrc/window_batch.cuh``, one launch a call): a thread
+# a column, tiles of at most _FWD_TC columns (one a thread; fewer when the
+# batch makes under _FWD_TILES_AN_SM tiles an SM), two tile buffers of a
+# CTA within _FWD_SMEM bytes of shared memory (two CTAs an SM at least);
+# above _FWD_KREG[f64] rows a column's outputs are split over threads of
+# _FWD_WIDE_R each (``forward_wide``).
+_FWD_TC = 256
+_FWD_TILES_AN_SM = 4
+_FWD_SMEM = 96 * 1024
+_FWD_KREG = {False: 32, True: 16}
+_FWD_WIDE_R = 4
+_FWD_WIDE_THREADS = 256
+_H100_SMS = 132
+
+
+class BatchFwdGeometry(NamedTuple):
+    """One batch forward launch, in the order of the kernel's ``FwdGeom``.
+
+    Columns are the ``Q = E*A*B`` columns of the batch view ``(2, E*A, K,
+    B)``.  Staged (``rows == K``): tile ``kt`` is columns ``[kt*tc,
+    (kt+1)*tc)``; CTA ``b`` walks tiles ``b, b + grid, ...``, thread ``t``
+    taking column ``t`` of each.  In shared memory a tile's plane is
+    ``dim`` values: when ``tc > B`` its ``tc / B`` blocks ``(e, a)`` of
+    ``K*B`` values, ``K*B + pad`` apart, else ``K`` runs of ``tc`` values;
+    after both planes, ``wdim`` values of its elements' windows (per-element
+    W; 0 when they are read in place; a shared W is staged once a CTA,
+    before the two buffers).  Wide
+    (``rows == _FWD_WIDE_R``, ``tc == 0``): ``tiles`` work items, item ``u``
+    the outputs ``[s*rows, (s+1)*rows)`` of column ``u // (32*S) * 32 + u %
+    32``, ``s = u // 32 % S``, ``S = K / rows``.  ``grid`` is an upper
+    bound: the launcher keeps it within the card's residency."""
+
+    E: int
+    A: int
+    K: int
+    B: int
+    w_stride: int
+    rows: int
+    tc: int
+    pad: int
+    dim: int
+    wdim: int
+    tiles: int
+    threads: int
+    grid: int
+    smem: int
+    sms: int
+    f64: int
+
+    @property
+    def columns(self) -> int:
+        return self.E * self.A * self.B
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def _fwd_layout(A, K, B, per_element, esize, tc, pad, stage_w) -> Tuple[int, int, int]:
+    """A tile's ``dim`` and ``wdim`` (values) and the CTA's shared memory
+    (bytes) at ``tc`` columns a tile; per-element windows staged with the
+    tile when *stage_w*, else read in place (``wdim`` 0)."""
+    V, KK = 16 // esize, K * K
+    dim = (tc // B) * (K * B + pad) if tc > B else K * tc
+    dim = -(-dim // V) * V
+    wdim = max(1, tc // (A * B)) * 2 * KK if per_element and stage_w else 0
+    return dim, wdim, esize * ((0 if per_element else 2 * KK) + 2 * (2 * dim + wdim))
+
+
+@functools.lru_cache(maxsize=None)
+def batch_fwd_geometry(E: int, A: int, K: int, B: int, per_element: bool, f64: bool,
+                       sms: int = _H100_SMS) -> BatchFwdGeometry:
+    """The batch forward's launch for ``E`` elements of the ``(2, A, K, B)``
+    window view on a card of ``sms`` SMs: a pure function of the shapes."""
+    esize = 8 if f64 else 4
+    V, KK, Q = 16 // esize, K * K, E * A * B
+    w_stride = 2 * KK if per_element else 0
+    if K > _FWD_KREG[f64]:
+        items = -(-Q // 32) * 32 * (K // _FWD_WIDE_R)
+        return BatchFwdGeometry(E, A, K, B, w_stride, _FWD_WIDE_R, 0, 0, 0, 0, items,
+                                _FWD_WIDE_THREADS,
+                                min(-(-items // _FWD_WIDE_THREADS),
+                                    sms * (2048 // _FWD_WIDE_THREADS)),
+                                0, sms, int(f64))
+    # Blocks K*B + pad apart: a warp's (a half-warp's in float64) reads of
+    # one row j fall on distinct banks when the stride is B modulo 128 bytes
+    # (B = 1: an odd number of 16-byte units, the column read in 16-byte
+    # loads); a pad of whole 16-byte units keeps the copies 16-byte.
+    if B == 1:
+        pad = V if K >= V and (K // V) % 2 == 0 else 0
+    elif B * esize % 16 == 0:
+        pad = (B - K * B) % (128 // esize)
+    else:
+        pad = 0
+    # The largest tile within the budget; per-element windows that do not
+    # fit even beside 32 columns (K = 32 over few columns an element) are
+    # read in place instead.
+    stage_w = per_element and _fwd_layout(A, K, B, True, esize, 32, pad, True)[2] <= _FWD_SMEM
+    tc = _FWD_TC
+    while tc > 32 and _fwd_layout(A, K, B, per_element, esize, tc, pad, stage_w)[2] > _FWD_SMEM:
+        tc //= 2
+    # A small batch: tiles enough for _FWD_TILES_AN_SM an SM (the KL's 10,000
+    # 4q elements: 625 tiles of 128 columns rather than 313 of 256).
+    while tc > 32 and -(-Q // tc) < _FWD_TILES_AN_SM * sms:
+        tc //= 2
+    dim, wdim, smem = _fwd_layout(A, K, B, per_element, esize, tc, pad, stage_w)
+    tiles = -(-Q // tc)
+    return BatchFwdGeometry(E, A, K, B, w_stride, K, tc, pad, dim, wdim, tiles, tc,
+                            min(tiles, sms * (2048 // tc)), smem, sms, int(f64))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_args(E: int, A: int, K: int, B: int, per_element: bool, f64: bool,
+              sms: int) -> ctypes.Array:
+    geom = batch_fwd_geometry(E, A, K, B, per_element, f64, sms)
+    return (ctypes.c_longlong * len(geom))(*geom)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def _launch_fwd_batch(name, psi2, w2, A, K, B, n):
+    """One batched forward ``qml_<name>(geometry, x, w, y, stream)`` (float32
+    or float64); returns y, the one allocation."""
+    stride = _batch_window(name, psi2, w2, K, n)
+    args = _fwd_args(psi2.shape[1], A, K, B, stride != 0, psi2.dtype == torch.float64,
+                     _sm_count(psi2.device))
+    lib = _load()
+    y = torch.empty_like(psi2)
+    with _on_device(psi2):
+        code = getattr(lib, f"qml_{name}")(args, psi2.data_ptr(), w2.data_ptr(), y.data_ptr(),
+                                           _stream(psi2))
+    _raise_on(name, code)
+    LAUNCHES[name] += 1
+    return y
+
+
 def _launch_window_apply_batch(psi2, w2, a, k, n):
     if not (0 <= a and 1 <= k and a + k < n):
         raise ValueError(f"window_apply: support [{a}, {a + k}) needs B > 1 in n={n}")
-    stride = _batch_window("window_apply_batch", psi2, w2, 2**k, n)
-    y = torch.empty_like(psi2)
-    with torch.cuda.device(psi2.device):
-        code = _load().qml_window_apply_batch(
-            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), psi2.shape[1], 2**a, 2**k,
-            2 ** (n - a - k), stride, _f64(psi2), _stream(psi2))
-    _raise_on("window_apply_batch", code)
-    LAUNCHES["window_apply_batch"] += 1
-    return y
+    return _launch_fwd_batch("window_apply_batch", psi2, w2, 2**a, 2**k, 2 ** (n - a - k), n)
 
 
 def _launch_window_apply_top_batch(psi2, w2, k, n):
     if not 1 <= k <= n:
         raise ValueError(f"window_apply_top: k={k} out of range for n={n}")
-    stride = _batch_window("window_apply_top_batch", psi2, w2, 2**k, n)
-    y = torch.empty_like(psi2)
-    with torch.cuda.device(psi2.device):
-        code = _load().qml_window_apply_top_batch(
-            psi2.data_ptr(), w2.data_ptr(), y.data_ptr(), psi2.shape[1], 2 ** (n - k), 2**k,
-            stride, _f64(psi2), _stream(psi2))
-    _raise_on("window_apply_top_batch", code)
-    LAUNCHES["window_apply_top_batch"] += 1
-    return y
+    return _launch_fwd_batch("window_apply_top_batch", psi2, w2, 2 ** (n - k), 2**k, 1, n)
 
 
 # The batch backward (``csrc/window_batch.cuh``, one launch a call): CTAs of
@@ -696,6 +830,12 @@ def _launch_bwd(name, w2, g, x, K, n, splits, out_dtype, geometry):
 # ---------------------------------------------------------------------------
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these tensors (else the batch
+    forward launches without an autograd Function around it)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _WindowFn(torch.autograd.Function):
     """``y = launch(psi2, w2, *geom)`` whose backward is the backward kernel
     ``bwd(w2, g, psi2, *geom, float32)``."""
@@ -741,6 +881,8 @@ def window_apply(psi2: torch.Tensor, w2: torch.Tensor, a: int, k: int, n: int) -
     if _single(psi2):
         return window_apply(psi2.unsqueeze(1), w2, a, k, n).squeeze(1)
     if kernels.is_batched(psi2):
+        if not _needs_grad(psi2, w2):
+            return _launch_window_apply_batch(psi2, w2, a, k, n)
         return _WindowFn.apply(psi2, w2, _launch_window_apply_batch, window_apply_bwd, a, k, n)
     return _WindowFn.apply(psi2, w2, _launch_window_apply, window_apply_bwd, a, k, n)
 
@@ -752,6 +894,8 @@ def window_apply_top(psi2: torch.Tensor, w2: torch.Tensor, k: int, n: int) -> to
     if _single(psi2):
         return window_apply_top(psi2.unsqueeze(1), w2, k, n).squeeze(1)
     if kernels.is_batched(psi2):
+        if not _needs_grad(psi2, w2):
+            return _launch_window_apply_top_batch(psi2, w2, k, n)
         return _WindowFn.apply(psi2, w2, _launch_window_apply_top_batch, window_apply_top_bwd,
                                k, n)
     return _WindowFn.apply(psi2, w2, _launch_window_apply_top, window_apply_top_bwd, k, n)

@@ -245,8 +245,30 @@ def test_fourier_tree_spectrum_matches_fft_and_two_features():
         FourierTree(m).get_exact_support("magic")
 
 
+def _leaf_case():
+    """The rotation words of a 3q Circuit_19 and the root Z_1."""
+    words = FourierTree(Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19",
+                              device="cpu", dtype=torch.float64)).rotation_words
+    return words, tcoef.PauliWord.from_pauli_string("Z", [1], 3)
+
+
+def _jax_native_leaves(monkeypatch, words, root, n):
+    """The JAX package's native leaf tables.  Its loader compiles straight
+    into its final path, so a process that loaded while another was still
+    writing the file keeps ``_load_failed`` set for good and returns None
+    (test workers collecting tests/test_native.py at once do that).  The
+    file is complete by now: clear the flag and let the loader try again."""
+    monkeypatch.setattr(jax_native, "_load_failed", False)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    jroot = jo.PauliWord._make(root.xm, root.zm, root.n, root.phase)
+    jwords = [jo.PauliWord._make(w.xm, w.zm, w.n, w.phase) for w in words]
+    tables = jax_native.enumerate_leaves(jwords, jroot, n)
+    assert tables is not None, "the JAX package's native enumerator did not load"
+    return tables
+
+
 @pytest.mark.unittest
-def test_native_enumerator_builds_outside_the_package():
+def test_native_enumerator_builds_outside_the_package(monkeypatch):
     """The library is compiled into build/native at the repository root,
     not beside its source in either package, and is named by a hash."""
     assert native.native_available()
@@ -254,15 +276,23 @@ def test_native_enumerator_builds_outside_the_package():
     assert path.is_file() and path.parent == native.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "native")
     assert "qml_essentials_tpu_torch" not in path.parts
-    words = FourierTree(Model(n_qubits=3, n_layers=1, circuit_type="Circuit_19",
-                              device="cpu", dtype=torch.float64)).rotation_words
-    root = tcoef.PauliWord.from_pauli_string("Z", [1], 3)
+    words, root = _leaf_case()
     S, C, amp = native.enumerate_leaves(words, root, 3)
-    jroot = jo.PauliWord._make(root.xm, root.zm, root.n, root.phase)
-    jwords = [jo.PauliWord._make(w.xm, w.zm, w.n, w.phase) for w in words]
-    jS, jC, jamp = jax_native.enumerate_leaves(jwords, jroot, 3)
+    jS, jC, jamp = _jax_native_leaves(monkeypatch, words, root, 3)
     assert _rows((S, C, amp)) == _rows((jS, jC, jamp))
     assert native.enumerate_leaves(words, root, 65) is None
+
+
+@pytest.mark.unittest
+def test_reference_enumerator_survives_a_lost_build_race(monkeypatch):
+    """A process whose JAX loader lost the build race (``_load_failed`` set)
+    still gets the reference's native tables, equal to the port's."""
+    monkeypatch.setattr(jax_native, "_load_failed", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert jax_native.enumerate_leaves([], None, 3) is None  # the state the race leaves
+    words, root = _leaf_case()
+    assert _rows(native.enumerate_leaves(words, root, 3)) == \
+        _rows(_jax_native_leaves(monkeypatch, words, root, 3))
 
 
 @pytest.mark.unittest

@@ -1456,6 +1456,209 @@ def test_batch_bwd_schedule_matches_plain(n, a, k, bt, shared, f64):
     assert _rel(gp, rp) <= 1e-12 and _rel(gw, rw) <= 1e-12
 
 
+# The batch forward's launch geometry (cuda_kernels.batch_fwd_geometry) and
+# its schedule, as csrc/window_batch.cuh's forward_kernel walks it.
+
+_SMEM_PER_BLOCK = 232448  # an H100 CTA's shared memory at most (227 KB)
+
+
+def _fwd_replay(geom, x, w, grid=None):
+    """forward_kernel's schedule on the CPU, in numpy: each CTA's tiles
+    (``b, b + grid, ...``) copied segment by segment into a shared-memory
+    array (NaN where nothing was copied) with their windows, each thread's
+    column read from its slots, its K outputs written back over them and
+    the tile stored; the wide path's items column slice by column slice.
+    Returns ``y`` (NaN where nothing was written) and how often each
+    output was written."""
+    E, A, K, B = geom.E, geom.A, geom.K, geom.B
+    Q, KK, EA = E * A * B, K * K, E * A
+    plane = Q * K
+    xf = np.asarray(x, dtype=np.float64).reshape(2, plane)
+    wf = np.asarray(w, dtype=np.float64).reshape(-1)
+    y = np.full((2, plane), np.nan)
+    count = np.zeros((2, plane), dtype=np.int64)
+
+    def window(e, rows):  # W_e[rows, :] of elements e, complex: (..., R, K)
+        at = (np.asarray(e) * geom.w_stride)[..., None, None] + \
+            np.asarray(rows)[..., :, None] * K + np.arange(K)
+        return wf[at] + 1j * wf[at + KK]
+
+    if geom.rows < K:  # forward_wide
+        R = geom.rows
+        S = K // R
+        u = np.arange(geom.tiles)
+        grp = u >> 5
+        s = grp % S
+        q = (grp // S) * 32 + u % 32
+        keep = q < Q
+        s, q = s[keep], q[keep]
+        base = q // B * K * B + q % B
+        cols = base[:, None] + np.arange(K)[None, :] * B
+        X = xf[0][cols] + 1j * xf[1][cols]
+        rows = s[:, None] * R + np.arange(R)[None, :]
+        Y = np.einsum("crj,cj->cr", window(q // B // A, rows), X)
+        out = base[:, None] + rows * B
+        np.add.at(count[0], out, 1)
+        np.add.at(count[1], out, 1)
+        y[0][out], y[1][out] = Y.real, Y.imag
+        return y, count
+
+    tc, pad, dim, wdim = geom.tc, geom.pad, geom.dim, geom.wdim
+    flat = tc > B
+    run = B if flat else tc
+    sstr = K * B + pad if flat else tc
+    seglen, gstr, segmax = (K * B, K * B, tc // B) if flat else (tc, B, K)
+    one_w = geom.w_stride == 0
+    grid = grid or geom.grid
+    for b in range(grid):
+        for kt in range(b, geom.tiles, grid):
+            q0 = kt * tc
+            ea0 = q0 // B
+            nseg = min(segmax, EA - ea0) if flat else K
+            g0 = ea0 * K * B + q0 % B
+            sm = np.full(2 * dim + wdim, np.nan)
+            sidx = (np.arange(nseg)[:, None] * sstr + np.arange(seglen)[None, :]).ravel()
+            gidx = (g0 + np.arange(nseg)[:, None] * gstr + np.arange(seglen)[None, :]).ravel()
+            assert sidx.max() < dim and np.unique(sidx).size == sidx.size
+            sm[sidx], sm[dim + sidx] = xf[0][gidx], xf[1][gidx]
+            if wdim:
+                e0, e1 = ea0 // A, (ea0 + (nseg if flat else 1) - 1) // A
+                nw = (e1 - e0 + 1) * 2 * KK
+                assert nw <= wdim
+                sm[2 * dim:2 * dim + nw] = wf[e0 * 2 * KK:e0 * 2 * KK + nw]
+            t = np.arange(min(tc, Q - q0))
+            off = t // run * sstr + t % run
+            rd = off[:, None] + np.arange(K)[None, :] * run
+            X = sm[rd] + 1j * sm[dim + rd]
+            if one_w:
+                W = window(0, np.arange(K))[None]
+            elif not wdim:  # own windows read in place
+                W = window((ea0 + t // run) // A, np.arange(K))
+            else:
+                el = (ea0 + t // B) // A - ea0 // A if flat else np.zeros_like(t)
+                at = (2 * dim + el * 2 * KK)[:, None, None] + \
+                    np.arange(K)[:, None] * K + np.arange(K)[None, :]
+                W = sm[at] + 1j * sm[at + KK]
+            Y = np.einsum("cij,cj->ci", W, X)
+            sm[rd], sm[dim + rd] = Y.real, Y.imag
+            y[0][gidx], y[1][gidx] = sm[sidx], sm[dim + sidx]
+            count[0][gidx] += 1
+            count[1][gidx] += 1
+    return y, count
+
+
+def _fwd_inputs(n, k, bt, per_element, seed):
+    """A float64 batch and windows for the replay: the windows need not be
+    unitary, so no QR per element (K = 1024 at the edges)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, bt, 2**n))
+    K = 2**k
+    wshape = (bt, 2, K, K) if per_element else (2, K, K)
+    return torch.from_numpy(x), torch.from_numpy(rng.normal(size=wshape))
+
+
+def _check_fwd_geometry(n, a, k, bt, per_element, f64):
+    """The launch at the full batch fits the card; its schedule, replayed at
+    a batch cut to at most three tiles' worth of elements more than a
+    multiple of the tile (the same last tile), writes every output once and
+    gives the plain version's values."""
+    A, K, B = 2**a, 2**k, 2 ** (n - a - k)
+    geom = cuda_kernels.batch_fwd_geometry(bt, A, K, B, per_element, f64)
+    Q = bt * A * B
+    assert geom.threads % 32 == 0 and 32 <= geom.threads <= 256 and 1 <= geom.grid
+    assert geom.grid <= max(geom.tiles, 1) and geom.smem <= _SMEM_PER_BLOCK
+    if geom.rows == K:
+        V = 16 // (8 if f64 else 4)
+        assert geom.threads == geom.tc and geom.smem <= cuda_kernels._FWD_SMEM
+        assert (geom.tiles - 1) * geom.tc < Q <= geom.tiles * geom.tc
+        assert geom.dim % V == 0 and geom.pad % V == 0
+    else:
+        assert K > cuda_kernels._FWD_KREG[f64] and geom.tc == 0
+        assert geom.tiles == -(-Q // 32) * 32 * (K // geom.rows)
+    small = geom
+    if geom.tc and bt > 3 * geom.tc:  # the same layout over fewer tiles
+        cut = bt % geom.tc + 2 * geom.tc
+        tiles = -(-cut * A * B // geom.tc)
+        small = geom._replace(E=cut, tiles=tiles, grid=min(tiles, geom.grid))
+    x, w = _fwd_inputs(n, k, small.E, per_element, n + a + k)
+    for grid in (None, 3) if small.tc and small.tiles <= 64 else (None,):
+        y, count = _fwd_replay(small, x, w, grid)
+        assert (count == 1).all()
+        ref = (kernels.window_apply_top_plain(x, w, k, n) if a + k == n else
+               kernels.window_apply_plain(x, w, a, k, n))
+        assert _rel(y.reshape(ref.shape), ref) <= 1e-12
+    return geom
+
+
+# The forward shapes chip_smoke.py's phase 5g runs (n, a, k, Bt:
+# chip_smoke.batch_shapes(), both window modes and dtypes below), its
+# BATCH_EDGE_CASES, and edges of the geometry: a ragged last tile, a K = 64
+# and a K = 1024 window above the register budget, a K = 32 float64 window
+# (wide there), tiles of runs (B >= 256), a top window with A = 2**15.
+FWD_SMOKE_SHAPES = [
+    (4, 0, 1, 10000), (4, 0, 2, 10000), (4, 1, 1, 10000), (4, 1, 2, 10000), (4, 2, 1, 10000),
+    (4, 2, 2, 10000), (4, 3, 1, 10000), (6, 0, 2, 256), (6, 0, 2, 416000), (6, 0, 3, 256),
+    (6, 0, 3, 416000), (6, 1, 2, 416000), (6, 1, 3, 256), (6, 1, 3, 416000), (6, 2, 3, 416000),
+    (6, 3, 3, 256), (6, 3, 3, 416000), (6, 5, 1, 416000), (10, 0, 2, 5), (10, 0, 5, 5),
+    (10, 1, 5, 5), (10, 5, 5, 5)]
+FWD_EDGE_SHAPES = [(20, 3, 5, 2), (6, 3, 3, 65536), (10, 5, 5, 7), (10, 0, 10, 2),
+                   (5, 1, 2, 1001), (8, 1, 6, 3), (11, 0, 10, 2), (7, 1, 5, 9), (12, 0, 2, 7),
+                   (15, 0, 2, 1)]
+FWD_GEOMETRY_SHAPES = FWD_SMOKE_SHAPES + FWD_EDGE_SHAPES
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("per_element", [False, True], ids=["shared", "per_element"])
+@pytest.mark.parametrize("n,a,k,bt", FWD_GEOMETRY_SHAPES)
+def test_batch_fwd_geometry_covers_every_output_once(n, a, k, bt, per_element, f64):
+    """The batch forward's tiles and columns write every output of every
+    element once, from the right window, within the shared memory a CTA
+    may take (two CTAs an SM for the staged path)."""
+    _check_fwd_geometry(n, a, k, bt, per_element, f64)
+
+
+@pytest.mark.unittest
+def test_batch_fwd_geometry_at_the_smoke_runs_shapes():
+    """Every forward shape chip_smoke.py runs in phase 5g (read off its
+    workloads on the CPU) and every one of its edge shapes is among the
+    shapes above."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = smoke.batch_shapes()
+    assert {(n, a, k, bt) for n, a, k, _, bt, _ in shapes["fwd"]} <= set(FWD_SMOKE_SHAPES)
+    assert set(smoke.BATCH_EDGE_CASES) <= set(FWD_EDGE_SHAPES)
+
+
+# Small shapes of every path: blocks of B = 2..16 with a ragged last tile,
+# runs (B = 256), top windows (K = 2, 8, 16), windows straddling elements
+# (A*B < tc), the wide path (K = 64; float64 K = 32).
+FWD_REPLAY_CASES = [(6, 1, 3, 7), (6, 3, 3, 7), (6, 0, 2, 37), (4, 2, 1, 101), (10, 0, 2, 3),
+                    (5, 4, 1, 9), (8, 4, 4, 3), (7, 1, 6, 2), (7, 0, 5, 3)]
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("n,a,k,bt", FWD_REPLAY_CASES)
+def test_batch_fwd_schedule_matches_plain(n, a, k, bt, shared, f64):
+    """The batch forward's schedule, replayed column by column from its
+    shared-memory slots, against the plain version: every output written
+    once, 1e-12 relative in float64."""
+    geom = cuda_kernels.batch_fwd_geometry(bt, 2**a, 2**k, 2 ** (n - a - k), not shared, f64)
+    x, w = (t.double() for t in _batch_inputs(n, k, bt, n + a + k + bt, shared)[:2])
+    y, count = _fwd_replay(geom, x, w)
+    ref = (kernels.window_apply_top_plain(x, w, k, n) if a + k == n else
+           kernels.window_apply_plain(x, w, a, k, n))
+    assert (count == 1).all()
+    assert _rel(y.reshape(ref.shape), ref) <= 1e-12
+
+
 # On the card: Bt = 1, 7 and 4096, the 6q FCC plans' windows (K = 8) and the
 # 4q KL plans' single-qubit gates (K = 2, 4), a K = 32 window at 10q; an
 # element split over CTAs (20q, K = 32), a wide batch (Bt = 65536), a K = 32
@@ -1466,6 +1669,13 @@ BATCH_CUDA_CASES = [(6, 1, 3, 1), (6, 1, 3, 7), (6, 3, 3, 4096), (4, 0, 1, 4096)
                     (6, 3, 3, 65536), (10, 5, 5, 7), (10, 0, 10, 2)]
 
 
+# The forward's own: the FCC's small-B windows over a wide batch (B = 4 at
+# its Bt = 416000; B = 8, 16 and a K = 2 top window at 65536), the KL's
+# B = 2, and a K = 1024 window above the register budget with B = 2.
+FWD_CUDA_CASES = BATCH_CUDA_CASES + [(6, 1, 3, 416000), (6, 0, 3, 65536), (6, 0, 2, 65536),
+                                     (6, 5, 1, 65536), (4, 2, 1, 10000), (11, 0, 10, 2)]
+
+
 def _cuda_batch(cuda, n, a, k, bt, shared):
     x, w, g = (t.to(cuda) for t in _batch_inputs(n, k, bt, n + a + k + bt, shared))
     return x, w, g
@@ -1473,7 +1683,7 @@ def _cuda_batch(cuda, n, a, k, bt, shared):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
-@pytest.mark.parametrize("n,a,k,bt", BATCH_CUDA_CASES)
+@pytest.mark.parametrize("n,a,k,bt", FWD_CUDA_CASES)
 def test_cuda_window_batch_matches_plain(cuda, n, a, k, bt, shared):
     """B1 / B3's batch entries (the top window when a + k = n) against the
     plain version in float64, one launch each."""
@@ -1517,7 +1727,7 @@ def test_cuda_window_batch_bwd_matches_plain(cuda, n, a, k, bt, shared):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
-@pytest.mark.parametrize("n,a,k,bt", BATCH_CUDA_CASES)
+@pytest.mark.parametrize("n,a,k,bt", FWD_CUDA_CASES)
 def test_cuda_window_batch_float64_matches_plain(cuda, n, a, k, bt, shared):
     """B1-B4's batch entries in float64 (the dtype of the FCC goldens):
     output, state cotangent and matrix cotangent within 1e-12 of the plain
@@ -1560,6 +1770,23 @@ def test_cuda_window_batch_gradients_repeat_bit_for_bit(cuda, shared):
                          for _ in range(2))
         torch.cuda.synchronize()
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+def test_cuda_window_batch_forward_repeats_bit_for_bit(cuda, shared, f64):
+    """Two launches of B1 / B3's batch entries give the same bits: each
+    output sums its terms in a fixed order."""
+    for n, a, k, bt in ((6, 1, 3, 4096), (6, 3, 3, 4096), (4, 2, 1, 10000), (20, 3, 5, 2),
+                        (11, 0, 10, 2)):
+        x, w, _ = _cuda_batch(cuda, n, a, k, bt, shared)
+        if f64:
+            x, w = x.double(), w.double()
+        first, second = (cuda_kernels.window_apply(x, w, a, k, n) if a + k < n else
+                         cuda_kernels.window_apply_top(x, w, k, n) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -40,8 +40,10 @@ and diagonal multiplies), with the TFLOP/s issued in split TF32 (3 passes x
 8K flops an amplitude a window for B17, 9 for B18), and summed per step
 kind (H, L): one launch is one step.  The batch entries run at phase 6's
 calls (``chip_smoke.batch_shapes``: one FCC Circuit_19 and one KL request's
-forward calls, the 6q batched gradient's backward calls, float32), held to
-float64 as ``chip_smoke.check_batch`` holds them, beside ``torch.bmm``
+forward calls, the 6q batched gradient's backward calls, float32; the FCC
+request's forward calls again in float64, totalled apart as ``name/f64``),
+held to float64 as ``chip_smoke.check_batch`` holds them (a forward call
+also repeated bit for bit), beside ``torch.bmm``
 (``chip_smoke.lib_window_batch*``), with each kernel a call launches from
 ``torch.profiler`` and, where the tree has ``qml_batch_empty``, an empty
 kernel through the same ctypes path (the launch floor); with
@@ -389,20 +391,24 @@ def main() -> int:
         else:
             print("  launch floor: this tree has no qml_batch_empty", flush=True)
         bshapes = cs.batch_shapes()
-        calls = [c for label in ("FCC Circuit_19", "KL") for c in bshapes["calls"][label]]
-        calls += [c + ("bwd",) for c in reversed(bshapes["calls"]["grad"])]
+        # (n, a, k, per-element W, batch, float64, backward, edge)
+        calls = [(*c[:5], False, False, False) for label in ("FCC Circuit_19", "KL")
+                 for c in bshapes["calls"][label]]
+        calls += [(*c[:5], True, False, False) for c in bshapes["calls"]["FCC Circuit_19"]]
+        calls += [(*c[:5], False, True, False) for c in reversed(bshapes["calls"]["grad"])]
         if args.batch_edges:
-            calls += [(nb, a, k, per, bt, False, "bwd", "edge") for nb, a, k, bt in
+            calls += [(nb, a, k, per, bt, False, True, True) for nb, a, k, bt in
                       cs.BATCH_EDGE_CASES for per in (False, True)]
-        for nb, a, k, per, bt, _, *bwd in calls:
+        for nb, a, k, per, bt, f64, bwd, edge in calls:
             top = a + k == nb
             name = ("window_apply_top" if top else "window_apply") + \
                 ("_bwd_batch" if bwd else "_batch")
             if name not in batch:
                 continue
-            xb, gb = cs._batch_state(nb, bt, gen), cs._batch_state(nb, bt, gen)
-            wb = cs._batch_window(k, bt, per, rng)
+            xb, gb = cs._batch_state(nb, bt, gen, f64), cs._batch_state(nb, bt, gen, f64)
+            wb = cs._batch_window(k, bt, per, rng, f64)
             x64, g64, w64 = xb.double(), gb.double(), wb.double()
+            tol = 1e-12 if f64 else TOL
             if bwd:
                 kern = (lambda: ck.window_apply_top_bwd(wb, gb, xb, k, nb, torch.float32)) \
                     if top else (lambda: ck.window_apply_bwd(wb, gb, xb, a, k, nb, torch.float32))
@@ -417,27 +423,36 @@ def main() -> int:
                 ref = kn.window_apply_top_plain(x64, w64, k, nb) if top else \
                     kn.window_apply_plain(x64, w64, a, k, nb)
                 lib_fn = cs.lib_window_batch(xb, wb, a, k, nb)
-                rels = [_rel(kern(), ref)]
-                ok &= rels[0] <= TOL
+                first = kern()
+                rels = [_rel(first, ref)]
+                ok &= rels[0] <= tol and torch.equal(first, kern())  # bit for bit
+                del first
             t_k, t_l = times(kern), times(lib_fn)
-            print(f"  {name:26s} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt:6d} "
+            dt = "f64" if f64 else "f32"
+            flops, bytes_ = cs.work_batch(2**k, nb, bt, per, bwd, esize=8 if f64 else 4)
+            bound = max(flops / (cs.PEAK_FP64 if f64 else cs.PEAK_FP32), bytes_ / cs.PEAK_HBM) * 1e3
+            print(f"  {name:26s} n={nb} a={a} k={k} {'own' if per else 'one'} W Bt={bt:6d} {dt} "
                   f"rel {'/'.join(f'{r:.1e}' for r in rels)}  kernel {us(t_k)}  "
-                  f"bmm {us(t_l)}", flush=True)
+                  f"bmm {us(t_l)}  bound {bound * 1e3:8.1f} us ({bound / t_k[0]:.0%}; "
+                  f"held {bound / t_k[1]:.0%})", flush=True)
             print(parts(kern), flush=True)
-            if "edge" in bwd:
+            if edge:
                 del xb, gb, wb, x64, g64, w64, ref
                 continue
-            tot = totals.setdefault(name, [0.0, 0.0, 0.0])
+            tot = totals.setdefault(name + ("/f64" if f64 else ""), [0.0, 0.0, 0.0, 0.0])
             tot[0] += t_k[0]
             tot[1] += t_l[0]
             tot[2] += t_k[1]
+            tot[3] += bound
             del xb, gb, wb, x64, g64, w64, ref
     for (name, r, kind), (steps, ms) in sorted(by_kind.items()):
         print(f"  {name:13s} ranks {r} {kind} steps: {steps}, {ms:.4f} ms "
               f"({ms / steps:.4f} ms a step)")
     for name, (t_k, t_l, *held) in totals.items():
-        per = "per batch workload (phase 6's calls)" if name in BATCH_KINDS else f"per {n}q request"
-        held = f"  held {held[0]:.4f} ms" if held else ""
+        f64 = ", FCC in float64" if name.endswith("/f64") else ""
+        per = (f"per batch workload (phase 6's calls{f64})"
+               if name.split("/")[0] in BATCH_KINDS else f"per {n}q request")
+        held = f"  held {held[0]:.4f} ms  bound {held[1]:.4f} ms" if held else ""
         print(f"  total {name:16s} kernel {t_k:.4f} ms  cuBLAS {t_l:.4f} ms{held} {per}")
     print(f"card: {smi}")
     if not ok:
