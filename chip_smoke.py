@@ -13,9 +13,11 @@ models through the chain route (``USE_CHAINS`` on), the reference
 bench's 13-qubit noisy Circuit_19 (``{"Depolarizing": 0.01}``) as a density
 matrix on the 26-wire interleaved doubled register, and the analysis stack
 (the Fourier spectra of both, FourierTree, entanglement, expressibility and
-QFI on small registers), the batch route, and pulse mode (the 24-qubit
+QFI on small registers), the batch route, pulse mode (the 24-qubit
 Circuit_19 in ``gate_mode="pulse"``, forward and gradient, a small batch,
-the pulse goldens and a QOC run) — and checks it phase by phase:
+the pulse goldens and a QOC run), and the API surface (the complex-state
+``simulate_pure`` / ``simulate_mixed`` / ``apply_to_state``, checkpointing,
+drawing, pulse events, profiling) — and checks it phase by phase:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: the eighteen CUDA kernels compile from ``qml_essentials_tpu_torch/csrc``
@@ -212,6 +214,25 @@ the pulse goldens and a QOC run) — and checks it phase by phase:
    gaussian RX against the analytic RX, gate fidelity 1 +- 1e-2; a QOC run
    of RX (tests/test_qoc.py's budget, two restarts) whose loss falls, with
    its seconds;
+5i. utils and the API surface: the 24q Circuit_19 tape (recorded on the
+   card) through the complex-state ``simulate_pure``, with phase 4's
+   launches once per plan step and nothing else, the state equal bit for
+   bit to ``from_ri(simulate_pure_ri(...))`` and <Z> from |psi|^2 (float64
+   marginals) within 1e-6 of the Model's; ``Operation.apply_to_state`` on
+   a 24q state for a mid-register window (one window_apply), a top window
+   (one window_apply_top) and a ring-wrap gate (two rotate, one
+   window_apply), each within 1e-5 of the plain version in float64;
+   ``simulate_mixed`` of a 10q noisy tape (ket-then-bra, 20 wires) against
+   the CPU's float64 (1e-5, Hermitian to 1e-6); a checkpoint round trip of
+   the 24q model (``utils/checkpointing.py``) with bit-identical <Z>; the
+   24q model's text drawing, symbolic and with gate values, equal to the
+   CPU's; the 24q pulse model's ``Script.pulse_events`` equal to the CPU's
+   (no mpl or pulse figure: the card's machine has no matplotlib); the
+   24q ``simulate_pure`` request's ms (host clock, CUDA events), the
+   profiler's kernels and the device's idle share (the union of the
+   kernels' intervals over the traced request, from the Chrome trace of
+   ``utils/profiling.xla_trace``) of one 24q forward request and one 4q KL
+   batch of 10,000 elements, and ``timed``'s mean of the 24q forward;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
@@ -3484,6 +3505,305 @@ def phase_pulses(pshapes: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5i: utils and the API surface
+# ---------------------------------------------------------------------------
+
+API_N = 10  # the ket-then-bra simulate_mixed register (20 wires)
+API_NOISE = {"Depolarizing": 0.01, "AmplitudeDamping": 0.02}
+TOL_ZREAD = 1e-6  # <Z> from |psi|^2 (float64 marginals) vs the Model's float32 readout
+API_GATES = (  # (what, gate, angle, wires mod n, the kernels one application launches)
+    ("mid-register window", "CRY", 0.7, (10, 11), {"window_apply": 1}),
+    ("top window", "RXX", 0.4, (-2, -1), {"window_apply_top": 1}),
+    ("ring-wrap", "CRX", 0.5, (-1, 0), {"rotate": 2, "window_apply": 1}),
+)
+TRACE_DIR = ROOT / "build" / "traces"
+CKPT_DIR = ROOT / "build" / "checkpoints"
+
+
+def _union_ms(intervals: list, lo: float, hi: float) -> float:
+    """Length (ms) of the union of (start, end) intervals in us, clipped to
+    [lo, hi]."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def _traced(label: str, fn) -> dict:
+    """One call of fn() (ending in a synchronize) under the port's profiler
+    trace (``utils.profiling.xla_trace``), inside a ``qml:request`` range;
+    returns the window (the range on the host clock), the union of the
+    kernels' device intervals within it, the idle share and the kernels by
+    name, read off the Chrome trace the profiler wrote."""
+    from qml_essentials_tpu_torch.utils.profiling import TRACE_FILE, xla_trace
+
+    log_dir = TRACE_DIR / label
+    with xla_trace(str(log_dir)):
+        with torch.profiler.record_function("qml:request"):
+            fn()
+            torch.cuda.synchronize()
+    with open(log_dir / TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    windows = [e for e in events if e.get("name") == "qml:request" and e.get("ph") == "X"
+               and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    _check(len(windows) == 1, f"{label}: {len(windows)} qml:request ranges in the trace")
+    lo = float(windows[0]["ts"])
+    hi = lo + float(windows[0]["dur"])
+    out = {"window_ms": (hi - lo) / 1e3, "kernels": len(kernels), "by_name": {}}
+    if not kernels:
+        out.update(busy_ms=None, idle=None)
+        return out
+    out["busy_ms"] = _union_ms([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                                for e in kernels], lo, hi)
+    out["idle"] = 1.0 - out["busy_ms"] / out["window_ms"]
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, us + float(e["dur"]))
+    out["by_name"] = by_name
+    return out
+
+
+def _log_trace(label: str, t: dict, smi: str) -> None:
+    if t["busy_ms"] is None:
+        log(f"  {label}: window {t['window_ms']:.3f} ms; device idle share not measured "
+            f"(the profiler's trace holds no kernel event) ({smi})")
+        return
+    log(f"  {label}: window {t['window_ms']:.3f} ms on the host clock, kernels busy "
+        f"{t['busy_ms']:.3f} ms (union of {t['kernels']} kernel intervals), device idle share "
+        f"{t['idle']:.4f} ({smi})")
+    top = sorted(t["by_name"].items(), key=lambda kv: -kv[1][1])
+    for name, (n, us) in top[:10]:
+        log(f"    {n:6d} x {us / 1e3:9.3f} ms  {name[:110]}")
+    if len(top) > 10:
+        rest = sum(us for _, (_, us) in top[10:]) / 1e3
+        log(f"    ... {len(top) - 10} more kernel names, {rest:.3f} ms")
+
+
+def phase_api(models: dict, shapes: dict, smi: str) -> dict:
+    """The complex-state API and utils on the card: the 24q Circuit_19 tape
+    through ``simulate_pure`` (exact launches per plan step, the state equal
+    to ``from_ri(simulate_pure_ri(...))``, <Z> from |psi|^2 against the
+    Model's), ``Operation.apply_to_state`` on a 24q state (B1, B3, B5 + B1
+    against the plain version in float64), ``simulate_mixed`` of a 10q noisy
+    tape against the CPU's float64, a checkpoint round trip of the 24q model,
+    its text drawing against the CPU's, the 24q pulse model's events against
+    the CPU's, and the measurements: the 24q ``simulate_pure`` request, the
+    profiler's kernels and the device's idle share of a 24q forward request
+    and of the 4q KL batch, and ``timed``'s mean of the 24q forward.  Returns
+    the launches of the API's own calls."""
+    import shutil
+
+    from qml_essentials_tpu_torch.analysis.expressibility import Expressibility
+    from qml_essentials_tpu_torch.models.model import Model
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, kernels, simulation
+    from qml_essentials_tpu_torch.ops import operations as op
+    from qml_essentials_tpu_torch.ops.tape import recording
+    from qml_essentials_tpu_torch.utils import checkpointing, profiling
+
+    t_phase = time.perf_counter()
+    log(f"phase 5i: utils and the API surface ({smi})")
+    ck.reset_launch_counts()
+    launches = dict.fromkeys(KERNELS, 0)
+    n = WIDTHS[-1]
+    model, shape = models[n], shapes[n]
+    x = REQUESTS[0]
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # The 24q tape through simulate_pure: phase 4's kernels, once a plan step.
+    with recording() as tape, torch.no_grad():
+        model._variational(model.params[0], torch.tensor([x], device=DEVICE))
+    with torch.inference_mode():
+        simulation.simulate_pure(tape, n, device=DEVICE)  # warm-up
+        torch.cuda.synchronize()
+        before = ck.launch_counts()
+        psi = simulation.simulate_pure(tape, n, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = _diff(ck.launch_counts(), before)
+        ref = kernels.from_ri(simulation.simulate_pure_ri(tape, n, torch.float32, DEVICE))
+        z_model = model(inputs=x)
+    add(counts)
+    want = {name: len(shape[name]) for name in FWD_KERNELS}
+    got = {name: counts[name] for name in FWD_KERNELS}
+    others = {k: v for k, v in counts.items() if v and k not in FWD_KERNELS}
+    log(f"  {n}q simulate_pure: {tuple(psi.shape)} {psi.dtype} on {psi.device}, launched {got}")
+    _check(got == want and not others,
+           f"{n}q simulate_pure launches {counts}, phase 4's plan wants {want}")
+    _check(psi.shape == (2**n,) and psi.dtype == torch.complex64 and psi.is_cuda,
+           f"{n}q simulate_pure gave {tuple(psi.shape)} {psi.dtype} on {psi.device}")
+    _check(torch.equal(psi, ref), f"{n}q simulate_pure differs from from_ri(simulate_pure_ri)")
+    probs = psi.real.double() ** 2 + psi.imag.double() ** 2
+    marg = torch.stack([kernels.marginal_qubit_probs(probs, q) for q in range(n)])
+    z_psi = marg[:, 0] - marg[:, 1]
+    d_z = _maxdiff(z_psi, z_model)
+    log(f"  {n}q <Z> from |psi|^2 vs the Model's request: max|delta|={d_z:.3e} "
+        f"(tol {TOL_ZREAD}); norm {probs.sum().item():.9f}")
+    _check(d_z <= TOL_ZREAD and torch.isfinite(psi).all(), f"{n}q <Z> from |psi|^2 off by {d_z}")
+    with torch.inference_mode():
+        best, med, _ = _host_ms(lambda: simulation.simulate_pure(tape, n, device=DEVICE), reps=5)
+        ev_ms = _events_ms(lambda: simulation.simulate_pure(tape, n, device=DEVICE), reps=3, trials=3)
+        run_best, run_med, _ = _host_ms(lambda: simulation.simulate_pure_ri(
+            tape, n, torch.float32, DEVICE), reps=5)
+    log(f"  {n}q simulate_pure request (plan + run, the tape recorded): best {best:.2f} ms, "
+        f"median {med:.2f} ms of 5 (host clock); CUDA events {ev_ms:.2f} ms a call; "
+        f"simulate_pure_ri alone best {run_best:.2f} / median {run_med:.2f} ms ({smi})")
+
+    # Gate application on a 24q state: one window, one top window, a ring-wrap.
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    psi0 = torch.complex(torch.randn(2**n, generator=g, device=DEVICE),
+                         torch.randn(2**n, generator=g, device=DEVICE))
+    psi0 = psi0 / torch.linalg.vector_norm(psi0)
+    for what, name, theta, spec, kernels_want in API_GATES:
+        wires = [w % n for w in spec]
+        gate = getattr(op, name)(theta, wires=wires, record=False)
+        with torch.no_grad():
+            before = ck.launch_counts()
+            out = gate.apply_to_state(psi0, n)
+            torch.cuda.synchronize()
+            counts = _diff(ck.launch_counts(), before)
+            plain = kernels.apply_matrix_flat(psi0.to(torch.complex128), gate.matrix, wires, n)
+        add(counts)
+        err = (out.to(torch.complex128) - plain).abs().max().item() / plain.abs().max().item()
+        fired = {k: v for k, v in counts.items() if v}
+        log(f"  {name}{wires} ({what}) apply_to_state on {n}q: launched {fired}, max|err| / "
+            f"max|ref| {err:.3e} against the plain version in float64")
+        _check(fired == kernels_want, f"{name}{wires}: launched {fired}, want {kernels_want}")
+        _check(out.dtype == torch.complex64 and err <= TOL_WINDOW,
+               f"{name}{wires}: {out.dtype}, error {err:.3e}")
+
+    # simulate_mixed of a 10q noisy tape against the CPU's float64.
+    dmodel = Model(n_qubits=API_N, n_layers=N_LAYERS, circuit_type="Circuit_19",
+                   random_seed=SEED, device=DEVICE)
+    ref_model = _cpu_f64_model(dmodel, API_N)
+    tapes = []
+    for m, dt in ((dmodel, torch.float32), (ref_model, torch.float64)):
+        with recording() as t, torch.no_grad():
+            m._variational(m.params[0], torch.tensor([x], dtype=dt, device=m.device),
+                           noise_params=API_NOISE, random_key=torch.Generator().manual_seed(SEED))
+        tapes.append(t)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        before = ck.launch_counts()
+        rho = simulation.simulate_mixed(tapes[0], API_N, device=DEVICE)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _diff(ck.launch_counts(), before)
+    add(counts)
+    t0 = time.perf_counter()
+    rho64 = simulation.simulate_mixed(tapes[1], API_N, torch.float64, device="cpu")
+    cpu_sec = time.perf_counter() - t0
+    d_rho = (rho.cpu().to(torch.complex128) - rho64).abs().max().item()
+    herm = (rho - rho.mH).abs().max().item()
+    fired = {k: v for k, v in counts.items() if v}
+    log(f"  {API_N}q noisy simulate_mixed ({API_NOISE}, {len(tapes[0])} operations, "
+        f"ket-then-bra on {2 * API_N} wires): {sec:.3f} s on the card, launched {fired}; "
+        f"max|delta| vs the CPU's float64 ({cpu_sec:.1f} s) {d_rho:.3e}, max|rho - rho^dag| "
+        f"{herm:.3e}, trace {torch.trace(rho).real.item():.7f}")
+    _check(rho.shape == (2**API_N, 2**API_N) and rho.is_cuda, f"simulate_mixed {rho.shape}")
+    _check(d_rho <= TOL_DENSITY and herm <= TOL_HERMITIAN and counts["window_apply"] > 0,
+           f"{API_N}q simulate_mixed: delta {d_rho:.3e}, hermiticity {herm:.3e}, {fired}")
+
+    # A checkpoint round trip of the 24q model: bit-identical <Z>.
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    with torch.inference_mode():
+        z0 = model(inputs=x)
+    original = model.params.detach().clone()
+    target = checkpointing.save_model(str(CKPT_DIR), model, step=1)
+    model.params = torch.zeros_like(model.params)
+    step = checkpointing.latest_step(str(CKPT_DIR))
+    checkpointing.restore_model(str(CKPT_DIR), model, step=step)
+    with torch.inference_mode():
+        z1 = model(inputs=x)
+    log(f"  {n}q checkpoint: {Path(target).relative_to(ROOT)} "
+        f"({Path(target).stat().st_size} bytes), step {step}, params back on "
+        f"{model.params.device} {model.params.dtype}; <Z> bit-identical: {torch.equal(z0, z1)}")
+    _check(step == 1 and torch.equal(model.params, original) and torch.equal(z0, z1),
+           f"{n}q checkpoint round trip changed the model")
+    shutil.rmtree(CKPT_DIR)
+
+    # The 24q model's text drawing against the CPU's.
+    cpu_model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19",
+                      random_seed=SEED, device="cpu")
+    text, cpu_text = str(model), str(cpu_model)
+    values = model.draw(figure="text", gate_values=True)
+    cpu_values = cpu_model.draw(figure="text", gate_values=True)
+    log(f"  {n}q draw_text: {len(text.splitlines())} lines x {len(text.splitlines()[0])} "
+        f"characters, equal to the CPU's: {text == cpu_text} (symbolic), {values == cpu_values} "
+        f"(gate values)")
+    _check(text == cpu_text and values == cpu_values, f"{n}q drawing differs from the CPU's")
+    try:
+        import matplotlib  # noqa: F401
+
+        have_mpl = "matplotlib is installed on this machine"
+    except ImportError:
+        have_mpl = "this machine has no matplotlib"
+    log(f"  no mpl or pulse figure is rendered on the card ({have_mpl}; draw_mpl and "
+        "draw_pulse_schedule import it when called)")
+
+    # The 24q pulse model's events (Script.pulse_events) against the CPU's.
+    events = {}
+    for where in (DEVICE, "cpu"):
+        pm = pulse_model(n, where)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            events[where] = pm.script.pulse_events(
+                pm.params[0], torch.tensor([x], device=pm.device), pm.pulse_params[0],
+                gate_mode="pulse", noise_params=None)
+        events[where + " s"] = time.perf_counter() - t0
+    card, cpu = events[DEVICE], events["cpu"]
+    same = [(e.gate, e.wires, e.parent, e.carrier_phase) for e in card] == [
+        (e.gate, e.wires, e.parent, e.carrier_phase) for e in cpu]
+    d_ev = max(max(abs(float(a.w) - float(b.w)), abs(float(a.duration) - float(b.duration)))
+               for a, b in zip(card, cpu))
+    log(f"  {n}q pulse model: Script.pulse_events gave {len(card)} events on the card "
+        f"({events[DEVICE + ' s']:.2f} s; the CPU {len(cpu)} in {events['cpu s']:.2f} s), "
+        f"the same gates, wires and carrier phases: {same}, max|delta w, duration| {d_ev:.3e}")
+    _check(same and len(card) > 0 and d_ev <= 1e-6, f"{n}q pulse events differ from the CPU's")
+
+    # Measurements: the profiler's kernels and the device's idle share.
+    with torch.inference_mode():
+        model(inputs=x)
+        torch.cuda.synchronize()
+        t24 = _traced("forward_24q", lambda: model(inputs=x))
+    _log_trace(f"{n}q forward request, one call traced", t24, smi)
+    kl_model = analysis_models()["kl9"]
+    kl_run = partial(Expressibility.kl_divergence_to_haar, kl_model, n_samples=KL_SAMPLES,
+                     n_bins=KL_BINS, random_key=torch.Generator().manual_seed(MW_SEED))
+    with torch.no_grad():
+        kl_run()
+        torch.cuda.synchronize()
+        before = ck.launch_counts()
+        tkl = _traced("kl_4q", kl_run)
+        counts = _diff(ck.launch_counts(), before)
+    fired = {k: v for k, v in counts.items() if v}
+    _log_trace(f"4q KL batch ({2 * KL_SAMPLES} elements, {fired}), one call traced", tkl, smi)
+    with torch.inference_mode():
+        stats = profiling.timed(lambda: model(inputs=x), iters=10, warmup=2)
+    log(f"  timed({n}q forward, iters=10, warmup=2): first call {stats['compile_s'] * 1e3:.2f} ms "
+        f"(warm process), mean {stats['mean_s'] * 1e3:.3f} ms ({smi})")
+    mem = profiling.device_memory_stats()
+    log(f"  device_memory_stats(): {len(mem)} keys, allocated.all.peak "
+        f"{mem.get('allocated_bytes.all.peak', 0) / 1e9:.2f} GB")
+    _check(bool(mem) and stats["mean_s"] > 0, "profiling gave no memory stats or no time")
+    log(f"  launches over phase 5i's API calls: {dict((k, v) for k, v in launches.items() if v)}")
+    log(f"  phase 5i took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -4586,9 +4906,9 @@ def main() -> int:
     errs = phase_parity(shapes, list(dshapes.values()), ashapes, bshapes, pshapes)
     # The main path: serving (phase 4), saved-residual training (5),
     # adjoint training (5b), the chain route (5d), the noisy density
-    # model (5e), the analysis slice (5f), the batch route (5g) and pulse
-    # mode (5h), each with the counts reset just before it and read just
-    # after; every kernel must launch over them.
+    # model (5e), the analysis slice (5f), the batch route (5g), pulse
+    # mode (5h) and the API surface (5i), each with the counts reset just
+    # before it and read just after; every kernel must launch over them.
     models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
@@ -4599,9 +4919,10 @@ def main() -> int:
     analysis_launches = phase_analysis(models, shapes, dmodel, dshapes, smi)
     batch_launches = phase_batch(models, shapes, batch, smi)
     pulse_launches = phase_pulses(pshapes, smi)
+    api_launches = phase_api(models, shapes, smi)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
                 + density_launches[k] + analysis_launches[k] + batch_launches[k]
-                + pulse_launches[k] for k in KERNELS}
+                + pulse_launches[k] + api_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -62,7 +62,7 @@ later).
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ import torch
 from qml_essentials_tpu_torch.core import memory
 from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import chains, recipes, simulation
-from qml_essentials_tpu_torch.ops.operations import Operation
+from qml_essentials_tpu_torch.ops.operations import KrausChannel, Operation
 from qml_essentials_tpu_torch.ops.tape import pulse_recording, recording
 from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
 
@@ -363,3 +363,46 @@ class Script:
             return run(rows, shot_gens)
         return memory.execute_chunked(run, (rows, shot_gens), (0, 0), batch, chunk,
                                       clear_caches=memory.CLEAR_CACHES_BETWEEN_CHUNKS)
+
+    # ----------------------------------------------------------------- draw
+    def draw(
+        self,
+        figure: str = "text",
+        args: tuple = (),
+        kwargs: Optional[dict] = None,
+        **draw_kwargs: Any,
+    ) -> Union[str, Any]:
+        """Render the circuit: ``"text"`` | ``"mpl"`` | ``"tikz"`` | ``"pulse"``
+        (noise channels are left out of the drawing; ``"mpl"`` and
+        ``"pulse"`` need matplotlib)."""
+        if figure not in ("text", "mpl", "tikz", "pulse"):
+            raise ValueError(
+                f"Invalid figure mode: {figure!r}. "
+                "Must be 'text', 'mpl', 'tikz', or 'pulse'."
+            )
+        if kwargs is None:
+            kwargs = {}
+
+        if figure == "pulse":
+            from qml_essentials_tpu_torch.utils.drawing import draw_pulse_schedule
+
+            with torch.no_grad():
+                events = self.pulse_events(*args, **kwargs)
+            n_qubits = (
+                self._n_qubits
+                or max((w for ev in events for w in ev.wires), default=0) + 1
+            )
+            return draw_pulse_schedule(events, n_qubits, **draw_kwargs)
+
+        from qml_essentials_tpu_torch.utils.drawing import draw_mpl, draw_text, draw_tikz
+
+        with torch.no_grad():
+            tape = self._record(*args, **kwargs)
+        n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, [])
+        ops = [op for op in tape if not isinstance(op, KrausChannel)]
+
+        if figure == "text":
+            return draw_text(ops, n_qubits, **draw_kwargs)
+        if figure == "mpl":
+            return draw_mpl(ops, n_qubits, **draw_kwargs)
+        return draw_tikz(ops, n_qubits, **draw_kwargs)

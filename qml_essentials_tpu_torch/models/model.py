@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import logging
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -697,6 +697,50 @@ class Model(nn.Module):
             for spec in self.output_qubit
         ]
         return "expval", obs
+
+    # ================================================================ drawing
+    def _draw_call_args(self, inputs) -> tuple:
+        """One parameter set and one input, as the drawing records them: the
+        first of each (a drawing shows one circuit, not a batch)."""
+        inputs = self._inputs_validation(inputs)
+        params = self.params[0] if self.params.ndim == 3 else self.params
+        inp = inputs[0] if inputs.ndim == 2 else inputs
+        return params, inp
+
+    def draw(self, inputs=None, figure: str = "text", **kwargs: Any) -> Union[str, Any]:
+        """Render the noise-free circuit: ``text`` | ``mpl`` | ``tikz`` |
+        ``pulse`` (``mpl`` and ``pulse`` need matplotlib)."""
+        if figure == "pulse":
+            return self.draw_pulse(inputs=inputs, **kwargs)
+        params, inp = self._draw_call_args(inputs)
+        saved = self._noise_params
+        self._noise_params = None
+        try:
+            return self.script.draw(
+                figure=figure,
+                args=(params, inp),
+                kwargs={"noise_params": None},
+                **kwargs,
+            )
+        finally:
+            self._noise_params = saved
+
+    def draw_pulse(self, inputs=None, **kwargs: Any) -> Any:
+        """Render the pulse schedule of the circuit (pulse mode; needs
+        matplotlib)."""
+        params, inp = self._draw_call_args(inputs)
+        pulse = self.pulse_params[0] if self.pulse_params.ndim == 3 else self.pulse_params
+        return self.script.draw(
+            figure="pulse",
+            args=(params, inp, pulse),
+            kwargs={"gate_mode": "pulse", "noise_params": None},
+            **kwargs,
+        )
+
+    def __str__(self) -> str:
+        return self.draw(figure="text")
+
+    __repr__ = __str__
 
     # ============================================================= validation
     def _params_validation(self, params) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 The simulator runs in float32 / complex64 by default.  Float64 is chosen
 explicitly per model or per call (``Model(..., dtype=torch.float64)``,
-``simulate_and_measure(..., dtype=torch.float64)``); there is no global
-switch.  Gate matrices follow the dtype of their parameters and are cast to
+``simulate_and_measure(..., dtype=torch.float64)``, ``simulate_pure`` /
+``simulate_mixed``); there is no global switch and no precision read off a
+tape.  Gate matrices follow the dtype of their parameters and are cast to
 the state's complex dtype where they are applied.
 
 Counterpart of ``qml_essentials_tpu/ops/dtypes.py``.
@@ -27,3 +28,6 @@ def cdtype(rdtype: torch.dtype = DEFAULT_RDTYPE) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported real dtype {rdtype}") from None
 
+
+# Reference alias (``qml_essentials/operations.py``'s ``_cdtype``).
+_cdtype = cdtype

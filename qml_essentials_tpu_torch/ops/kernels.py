@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import cuda_kernels
 
 # ---------------------------------------------------------------------------
@@ -102,6 +103,14 @@ def lift_matrix(
         return full
     dest = [all_wires.index(c) for c in current]
     return permute_gate_qubits(full, dest, n)
+
+
+def permute_qubits_matrix(mat: torch.Tensor, perm: List[int], n_qubits: int) -> torch.Tensor:
+    """Reorder qubits of a ``(2**n, 2**n)`` matrix: axis i of the result is
+    qubit ``perm[i]`` of *mat* (the JAX package's ``jnp.transpose``)."""
+    t = mat.reshape((2,) * (2 * n_qubits))
+    t = t.permute(*perm, *[p + n_qubits for p in perm])
+    return t.reshape(2**n_qubits, 2**n_qubits)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +204,39 @@ def apply_matrix_flat(
 # ---------------------------------------------------------------------------
 # Real-split application (the simulation hot path)
 # ---------------------------------------------------------------------------
+
+
+def set_matmul_precision(name: str) -> None:
+    """Set the precision of PyTorch's own float32 matrix products.
+
+    Takes the JAX package's names: ``"highest"`` / ``"float32"`` (full
+    float32), ``"high"`` / ``"tensorfloat32"`` (TF32), ``"default"`` /
+    ``"bfloat16"`` (PyTorch's ``"medium"``); an unknown name raises
+    ``KeyError``.  It goes to ``torch.set_float32_matmul_precision``, which
+    also sets ``torch.backends.cuda.matmul.allow_tf32``, so it only touches
+    plain torch products such as the planner's payload composition.  The
+    hand-written kernels do not read it: their products are float32-grade
+    split TF32 whatever this switch says.
+    """
+    torch.set_float32_matmul_precision(_PRECISION_NAMES[name.lower()])
+
+
+_PRECISION_NAMES = {
+    "default": "medium",
+    "bfloat16": "medium",
+    "high": "high",
+    "tensorfloat32": "high",
+    "highest": "highest",
+    "float32": "highest",
+}
+
+
+def to_ri(psi: torch.Tensor) -> torch.Tensor:
+    """Complex tensor -> stacked (2, ...) real pair (a real tensor gets a
+    zero imaginary part)."""
+    if psi.is_complex():
+        return torch.stack([psi.real, psi.imag])
+    return torch.stack([psi, torch.zeros_like(psi)])
 
 
 def from_ri(psi2: torch.Tensor) -> torch.Tensor:
@@ -776,6 +818,101 @@ def apply_kraus_to_density_flat_ri(
     return out
 
 
+# ---------------------------------------------------------------------------
+# Complex-state entry points (the JAX package's API; the Operation methods,
+# the sharded simulator's rank-n tensors).  Each one splits the state with
+# to_ri, runs the real-split route above (on the card: the window,
+# top-window and rotation kernels) and joins it with from_ri.
+# ---------------------------------------------------------------------------
+
+
+def apply_diagonal_flat(
+    psi: torch.Tensor, diag: torch.Tensor, wires: Sequence[int], n: int
+) -> torch.Tensor:
+    """Diagonal gate on a flat complex state (a broadcast multiply)."""
+    return from_ri(apply_diagonal_flat_ri(to_ri(psi), diag, wires, n))
+
+
+def apply_matrix(tensor: torch.Tensor, mat: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Rank-n ``(2,)*n`` tensor entry point: the flat state in the tensor's
+    axis order (``reshape(-1)``), one gate, the same shape back."""
+    r = tensor.dim()
+    flat = apply_matrix_flat_ri(to_ri(tensor.reshape(-1)), mat, list(axes), r)
+    return from_ri(flat).reshape(tensor.shape)
+
+
+def apply_diagonal(tensor: torch.Tensor, diag: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Rank-n diagonal entry point."""
+    r = tensor.dim()
+    return apply_diagonal_flat(tensor.reshape(-1), diag, list(axes), r).reshape(tensor.shape)
+
+
+def apply_unitary_to_density_flat(
+    rho_flat: torch.Tensor, mat: torch.Tensor, wires: Sequence[int], n_qubits: int
+) -> torch.Tensor:
+    """``rho -> U rho U†`` with rho flat over ``2n`` conceptual qubits (ket
+    wires first, then bra wires)."""
+    return from_ri(apply_unitary_to_density_flat_ri(to_ri(rho_flat), mat, wires, n_qubits))
+
+
+def apply_unitary_to_density(
+    rho_t: torch.Tensor, mat: torch.Tensor, wires: Sequence[int], n_qubits: int
+) -> torch.Tensor:
+    """Rank-2n tensor entry point for ``rho -> U rho U†``."""
+    flat = apply_unitary_to_density_flat(rho_t.reshape(-1), mat, wires, n_qubits)
+    return flat.reshape(rho_t.shape)
+
+
+def apply_kraus_to_density_flat(
+    rho_flat: torch.Tensor,
+    kraus: Sequence[torch.Tensor],
+    wires: Sequence[int],
+    n_qubits: int,
+) -> torch.Tensor:
+    """``rho -> sum_k K_k rho K_k†`` on a flat density state."""
+    return from_ri(apply_kraus_to_density_flat_ri(to_ri(rho_flat), kraus, wires, n_qubits))
+
+
+def apply_kraus_to_density(
+    rho_t: torch.Tensor,
+    kraus: Sequence[torch.Tensor],
+    wires: Sequence[int],
+    n_qubits: int,
+) -> torch.Tensor:
+    """Rank-2n tensor entry point for the Kraus application."""
+    flat = apply_kraus_to_density_flat(rho_t.reshape(-1), kraus, wires, n_qubits)
+    return flat.reshape(rho_t.shape)
+
+
+def _real_of(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype in (torch.complex128, torch.float64) else torch.float32
+
+
+def zero_state(n_qubits: int, dtype: torch.dtype = torch.complex64,
+               device=DEFAULT_DEVICE) -> torch.Tensor:
+    """|0...0> as a flat complex vector (*dtype* complex or its real
+    counterpart), on *device*: the card unless the caller asks for the CPU."""
+    return from_ri(zero_state_ri(n_qubits, _real_of(dtype), resolve_device(device)))
+
+
+def zero_state_tensor(n_qubits: int, dtype: torch.dtype = torch.complex64,
+                      device=DEFAULT_DEVICE) -> torch.Tensor:
+    """|0...0> as a rank-n tensor."""
+    return zero_state(n_qubits, dtype, device).reshape((2,) * n_qubits)
+
+
+def zero_density(n_qubits: int, dtype: torch.dtype = torch.complex64,
+                 device=DEFAULT_DEVICE) -> torch.Tensor:
+    """|0><0| as a flat vector over ``2n`` conceptual qubits."""
+    return zero_state(2 * n_qubits, dtype, device)
+
+
+def zero_density_tensor(n_qubits: int, dtype: torch.dtype = torch.complex64,
+                        device=DEFAULT_DEVICE) -> torch.Tensor:
+    """|0><0| as a rank-2n tensor."""
+    return zero_density(n_qubits, dtype, device).reshape((2,) * (2 * n_qubits))
+
+
 def reduce_diagonal_expectation(
     probs: torch.Tensor, qubit_weights: Sequence[Optional[Tuple[float, float]]]
 ) -> torch.Tensor:
@@ -806,3 +943,10 @@ def marginal_probs_on(probs: torch.Tensor, keep: Sequence[int], n: int) -> torch
         A = 2**q
         v = v.reshape(lead + (A, 2, -1)).sum(dim=-2).reshape(lead + (-1,))
     return v
+
+
+def marginal_qubit_probs(probs_t: torch.Tensor, qubit: int) -> torch.Tensor:
+    """Marginal ``(p0, p1)`` of one qubit from a probability tensor/vector."""
+    flat = probs_t.reshape(-1)
+    A = 2**qubit
+    return flat.reshape(A, 2, -1).sum(dim=(0, 2))

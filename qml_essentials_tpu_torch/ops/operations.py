@@ -24,9 +24,12 @@ symplectic algebra with Clifford conjugation tables, and the dense
 ``pauli_decompose`` / ``evolve_pauli_with_clifford``) serve the analysis
 stack; their tables are host numpy, built from the gates' matrices.
 
-Counterpart of ``qml_essentials_tpu/ops/operations.py`` (Operation up to the
-controlled rotations, the Hamiltonians, the Kraus channels and the Pauli
-helpers).
+The JAX package's complex-state methods (``apply_to_state``,
+``apply_to_state_tensor``, ``apply_to_density``, ``apply_to_density_flat``)
+split the state into its real pair, run the real-split method and join the
+result, so on the card they reach the same kernels as the simulator.
+
+Counterpart of ``qml_essentials_tpu/ops/operations.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.ops import kernels
-from qml_essentials_tpu_torch.ops.dtypes import DEFAULT_RDTYPE, cdtype
+from qml_essentials_tpu_torch.ops.dtypes import DEFAULT_RDTYPE, _cdtype, cdtype  # noqa: F401 (re-export)
 from qml_essentials_tpu_torch.ops.tape import active_tape, recording  # noqa: F401
 
 Wires = Union[int, List[int]]
@@ -242,6 +245,28 @@ class Operation:
         """Full ``(2**n, 2**n)`` embedding via identity-kron + qubit permute."""
         return kernels.lift_matrix(self.matrix, self.wires, list(range(n_qubits)))
 
+    def apply_to_state(self, state: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        """Apply to a flat complex ``(2**n,)`` statevector: split into its
+        real pair, :meth:`apply_to_state_ri` (the kernels on the card), joined
+        back."""
+        return kernels.from_ri(self.apply_to_state_ri(kernels.to_ri(state), n_qubits))
+
+    def apply_to_state_tensor(self, psi: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        """Apply to a ``(2,)*n`` state tensor (its rank gives the qubit count,
+        as in the JAX package)."""
+        return self.apply_to_state(psi.reshape(-1), psi.dim()).reshape(psi.shape)
+
+    def apply_to_density(self, rho: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        """Apply ``rho -> U rho U†`` to a ``(2**n, 2**n)`` density matrix."""
+        flat = self.apply_to_density_flat(rho.reshape(-1), n_qubits)
+        return flat.reshape(2**n_qubits, 2**n_qubits)
+
+    def apply_to_density_flat(self, rho_flat: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        """Apply to a flat complex density state over ``2n`` conceptual
+        qubits (ket wires ``0..n-1``, bra wires ``n..2n-1``), through
+        :meth:`apply_to_density_ri`."""
+        return kernels.from_ri(self.apply_to_density_ri(kernels.to_ri(rho_flat), n_qubits))
+
     def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
         """Apply to a real-split ``(2, 2**n)`` state (simulation hot path)."""
         return kernels.apply_matrix_flat_ri(psi2, self.matrix, self.wires, n_qubits)
@@ -365,7 +390,29 @@ class ParametrizedHamiltonian:
 # ---------------------------------------------------------------------------
 
 
-class Id(Operation):
+class _NoOp:
+    """Every application returns its input unchanged (``Id``, ``Barrier``)."""
+
+    def apply_to_state(self, state: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return state
+
+    def apply_to_state_tensor(self, psi: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return psi
+
+    def apply_to_density(self, rho: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return rho
+
+    def apply_to_density_flat(self, rho_flat: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return rho_flat
+
+    def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return psi2
+
+    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
+        return rho2
+
+
+class Id(_NoOp, Operation):
     """Identity gate on an arbitrary number of wires."""
 
     _matrix = torch.eye(2, dtype=torch.complex128)
@@ -377,12 +424,6 @@ class Id(Operation):
         if k > 1:
             kwargs["matrix"] = torch.eye(2**k, dtype=torch.complex128)
         super().__init__(wires=wires, **kwargs)
-
-    def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
-        return psi2
-
-    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
-        return rho2
 
 
 class PauliX(Operation):
@@ -433,6 +474,30 @@ class SWAP(Operation):
     is_clifford = True
 
 
+class RandomUnitary(Operation):
+    """Gate whose matrix is a random Hermitian draw (Frobenius-normalised).
+
+    *key* is a ``torch.Generator``: ``A = N + i N'`` with both parts drawn
+    from it in float64 on its device, ``H = (A + A†) / 2`` scaled to
+    ``||H||_F = scale`` (the JAX package's law, one reproducible draw per
+    generator state).
+    """
+
+    def __init__(
+        self,
+        wires: Wires,
+        key: torch.Generator,
+        scale: float = 1.0,
+        record: bool = True,
+    ) -> None:
+        dim = 2 ** len(_as_wire_list(wires))
+        draw = dict(generator=key, dtype=torch.float64, device=key.device)
+        A = torch.complex(torch.randn((dim, dim), **draw), torch.randn((dim, dim), **draw))
+        Hm = (A + A.mH) / 2.0
+        Hm = Hm * (scale / torch.linalg.matrix_norm(Hm, ord="fro"))
+        super().__init__(wires, matrix=Hm, record=record)
+
+
 class DiagonalQubitUnitary(Operation):
     """Diagonal unitary ``U = diag(d_0, ..., d_{2^k-1})`` (a batch of
     diagonals ``(Bt, 2^k)`` gives a batch of gates).
@@ -467,16 +532,10 @@ class DiagonalQubitUnitary(Operation):
         )
 
 
-class Barrier(Operation):
+class Barrier(_NoOp, Operation):
     """Visual separator; a no-op for every simulation path."""
 
     _matrix = None
-
-    def apply_to_state_ri(self, psi2: torch.Tensor, n_qubits: int) -> torch.Tensor:
-        return psi2
-
-    def apply_to_density_ri(self, rho2: torch.Tensor, n_qubits: int) -> torch.Tensor:
-        return rho2
 
 
 _PAULI_LABELS = ["I", "X", "Y", "Z"]
@@ -671,6 +730,10 @@ class PauliRot(Operation):
         P = _pauli_word_matrix(pauli_word)
         super().__init__(wires=wires, matrix=_pauli_exponential(theta, P), **kwargs)
 
+    def generator(self) -> Operation:
+        return Hermitian(matrix=_pauli_word_matrix(self.pauli_word), wires=self.wires,
+                         record=False)
+
 
 def _make_pauli_rotation_subclass(name: str, word: str) -> type:
     """Two-qubit Pauli-rotation subclasses RXX/RYY/RZZ/RZX."""
@@ -733,6 +796,13 @@ class ControlledPauliRot(Operation):
         mat = _eye_with_block(dim, dim - d_t, R)
         super().__init__(wires=wires_list, matrix=mat, **kwargs)
 
+    def generator(self) -> Operation:
+        P = _pauli_word_matrix(self.pauli_word)
+        dim = 2**self.n_controls * P.shape[0]
+        gen = torch.zeros((dim, dim), dtype=P.dtype)
+        gen[dim - P.shape[0]:, dim - P.shape[0]:] = P
+        return Hermitian(matrix=gen, wires=self.wires, record=False)
+
 
 def _make_controlled_rotation_subclass(name: str, axis: str) -> type:
     """Single-control rotation subclasses CRX / CRY / CRZ."""
@@ -785,8 +855,11 @@ CRZ = _make_controlled_rotation_subclass("CRZ", "Z")
 class KrausChannel(Operation):
     """Base class for noise channels ``rho -> sum_k K_k rho K_k†``.
 
-    Channels have no single unitary matrix and cannot act on pure states;
-    :meth:`apply_to_density_ri` applies the Kraus operators one by one.
+    Channels have no single unitary matrix and cannot act on pure states
+    (:meth:`apply_to_state` and :meth:`apply_to_state_tensor` raise, through
+    :meth:`apply_to_state_ri`); :meth:`apply_to_density_ri` applies the
+    Kraus operators one by one, and the complex density methods go through
+    it.
     """
 
     def kraus_matrices(self) -> List[torch.Tensor]:

@@ -70,8 +70,9 @@ import numpy as np
 import torch
 
 from qml_essentials_tpu_torch.core import memory
+from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import adjoint, chains, cuda_kernels, kernels, recipes, saved
-from qml_essentials_tpu_torch.ops.dtypes import cdtype
+from qml_essentials_tpu_torch.ops.dtypes import DEFAULT_RDTYPE, cdtype
 from qml_essentials_tpu_torch.ops.recipes import lazy
 from qml_essentials_tpu_torch.ops.operations import (
     Barrier,
@@ -106,6 +107,14 @@ FUSE_LAYOUT_ROT: bool = True
 # in the large-state regime, when the tape allows one.  Off by default, as in
 # the reference, where it was measured slower than the scheduled plan.
 USE_CHAINS: bool = False
+
+
+def set_fusion(max_width: int, min_excess: Optional[int] = None) -> None:
+    """Set the gate-fusion window width (0/1 disables) and n-vs-w threshold."""
+    global FUSE_MAX_WIDTH, FUSE_MIN_EXCESS
+    FUSE_MAX_WIDTH = int(max_width)
+    if min_excess is not None:
+        FUSE_MIN_EXCESS = int(min_excess)
 
 
 def infer_n_qubits(ops: List[Operation], obs: List[Operation]) -> int:
@@ -782,6 +791,16 @@ def simulate_pure_ri(
     return _run_pure(plan, psi2, n_qubits, dtype, device, batch, choice, _elements(tape, rows))
 
 
+def simulate_pure(tape: List[Operation], n_qubits: int, dtype: torch.dtype = DEFAULT_RDTYPE,
+                  device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Statevector simulation from |0...0>; returns the complex ``(2**n,)``
+    (``(Bt, 2**n)`` for a batched tape).  The same plan and kernels as
+    :func:`simulate_pure_ri`, in the real *dtype* (float32 unless the caller
+    asks for float64) on *device* (the card unless the caller asks for the
+    CPU)."""
+    return kernels.from_ri(simulate_pure_ri(tape, n_qubits, dtype, resolve_device(device)))
+
+
 def _run_pure(plan: list, psi2: Optional[torch.Tensor], n_qubits: int, dtype, device,
               batch: int, choice: Optional[BackwardChoice], elements: Optional[int]
               ) -> torch.Tensor:
@@ -972,6 +991,17 @@ def simulate_mixed_ri(
         else:
             rho2 = _apply_step_ri(rho2, kind, payload, wires, n2)
     return rho2
+
+
+def simulate_mixed(tape: List[Operation], n_qubits: int, dtype: torch.dtype = DEFAULT_RDTYPE,
+                   device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Density-matrix simulation from |0><0| on the ket-then-bra engine
+    (:func:`simulate_mixed_ri`); returns the complex ``(2**n, 2**n)``
+    matrix (``(Bt, 2**n, 2**n)`` for a batched tape), in the real *dtype*
+    on *device*, as :func:`simulate_pure`."""
+    dim = 2**n_qubits
+    rho2 = simulate_mixed_ri(tape, n_qubits, dtype, resolve_device(device))
+    return kernels.from_ri(rho2).reshape(rho2.shape[1:-1] + (dim, dim))
 
 
 # ---------------------------------------------------------------------------

@@ -59,3 +59,12 @@ def safe_random_split(
     return tuple(
         torch.Generator(device=device or "cpu").manual_seed(int(s)) for s in seeds
     )
+
+
+def __getattr__(name):
+    # Lazy re-export to avoid a circular import at package-init time.
+    if name == "PauliCircuit":
+        from qml_essentials_tpu_torch.analysis.pauli import PauliCircuit
+
+        return PauliCircuit
+    raise AttributeError(name)
