@@ -3804,6 +3804,262 @@ def phase_api(models: dict, shapes: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5j: the sharded route (parallel/)
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4  # ranks of the gloo group that shares the card
+SHARD_BATCH = 8  # the data=2 x state=2 batch
+SHARD_REPS = 3  # timed calls of each request (best kept), after one that builds the program
+TOL_SHARD_Z = 1e-5  # <Z> / probabilities: sharded vs single-device route on the card (fp32)
+# |g_sharded - g_single| <= 1e-4 max|g| + 1e-6, both with float32 cotangents: a bf16
+# cotangent rounds at each plan's own steps, and the sharded plan (40 windows at 24q)
+# is not the single-device one (14 steps); their bf16 gradients differ by ~2e-3 max|g|.
+TOL_SHARD_GRAD = (1e-4, 1e-6)
+SHARD_TIMEOUT = 600  # seconds the parent waits for the gloo ranks
+# Kernels the sharded route never runs: it fuses its own windows and
+# schedules no layout (B6-B11, B14, B15) and no chains (B17, B18).
+SHARD_NEVER = ("rotmat_apply", "rotmat_apply_bwd", "matrot_apply", "matrot_apply_bwd",
+               "rotwin_apply", "rotwin_apply_bwd", "adjoint_rotmat", "adjoint_matrot",
+               "chain_apply", "adjoint_chain")
+SHARD_ROUTES = ("sharded:state", "sharded:density", "sharded:cached")
+
+
+def _shard_model(params, dtype=torch.float32):
+    from qml_essentials_tpu_torch.models.model import Model
+
+    model = Model(n_qubits=WIDTHS[-1], n_layers=N_LAYERS, circuit_type="Circuit_19",
+                  random_seed=SEED, device=DEVICE, dtype=dtype)
+    model.load_numpy(params)
+    return model
+
+
+def _shard_batch() -> torch.Tensor:
+    return torch.linspace(-1.0, 1.4, SHARD_BATCH, device=DEVICE)
+
+
+def shard_requests(params, dparams, composed: bool) -> dict:
+    """This rank's sharded requests, the same on every rank: the 24q model's
+    forward and forward + gradient on a ``state`` mesh over every rank, and
+    with *composed* the batch on a ``data=2 x state=2`` mesh and the 13q
+    density model's expval and probs on the ``state`` mesh.  Each request
+    runs once to build its program, then ``SHARD_REPS`` times with the
+    launch and exchange counts reset before each; returns per request its
+    answer (on the CPU), best ms, launches, exchanges and bytes sent, and
+    the route logs."""
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+    from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+    world = torch.distributed.get_world_size()
+    model = _shard_model(params)
+    x = REQUESTS[0]
+    meshes = {"state": parallel.make_mesh((world,), ("state",))}
+    requests = [("fwd", "state", lambda: model(inputs=x)),
+                ("grad", "state", lambda: _grad_request(model, x)[1])]
+    if composed:
+        dmodel = density_model(DENSITY_NOISE)
+        dmodel.load_numpy(dparams)
+        meshes["composed"] = parallel.make_mesh((2, world // 2), ("data", "state"))
+        batch = _shard_batch()
+        requests += [("batch", "composed", lambda: model(inputs=batch)),
+                     ("density expval", "state", lambda: dmodel(inputs=x)),
+                     ("density probs", "state",
+                      lambda: dmodel(inputs=x, execution_type="probs"))]
+    out = {"requests": {}, "staged": False}
+    for name, mesh, fn in requests:
+        parallel.set_mesh(meshes[mesh])
+        try:
+            fn()  # builds the program
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(SHARD_REPS):
+                ck.reset_launch_counts()
+                ss.EXCHANGES = ss.EXCHANGE_BYTES = 0
+                t0 = time.perf_counter()
+                answer = fn()
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+            out["requests"][name] = dict(
+                answer=answer.detach().float().cpu().numpy(), ms=best, launches=ck.launch_counts(),
+                exchanges=ss.EXCHANGES, bytes=ss.EXCHANGE_BYTES, mesh=mesh)
+        finally:
+            parallel.set_mesh(None)
+    out["routes"] = {"model": list(model.script.sharding_decisions)}
+    if composed:
+        out["routes"]["density"] = list(dmodel.script.sharding_decisions)
+    out["staged"] = ss._Axis(meshes["state"], "state").staged
+    return out
+
+
+def _shard_rank(rank: int, world: int, store: str, params, dparams, queue) -> None:
+    """One rank of the gloo group on the card (a spawned process)."""
+    import torch.distributed as dist
+
+    try:
+        from qml_essentials_tpu_torch.ops import saved
+
+        torch.cuda.set_device(0)
+        saved.set_lambda_mode("f32")
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        try:
+            queue.put((rank, shard_requests(params, dparams, composed=True)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - the parent reports the rank's traceback
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def _single_refs(model, dmodel) -> dict:
+    """The single-device route's answers and best ms for 5j's requests."""
+    x = REQUESTS[0]
+    batch = _shard_batch()
+    work = {"fwd": lambda: model(inputs=x), "grad": lambda: _grad_request(model, x)[1],
+            "batch": lambda: model(inputs=batch), "density expval": lambda: dmodel(inputs=x),
+            "density probs": lambda: dmodel(inputs=x, execution_type="probs")}
+    refs = {}
+    for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(SHARD_REPS):
+            t0 = time.perf_counter()
+            answer = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        refs[name] = dict(answer=answer.detach().float().cpu().numpy(), ms=best)
+    return refs
+
+
+def _check_shard(res: dict, refs: dict, label: str) -> dict:
+    """Routes, launches and answers of one rank's 5j requests; returns its
+    launches summed over the requests."""
+    for script, routes in res["routes"].items():
+        _check(bool(routes) and all(r.split(" (")[0] in SHARD_ROUTES for _, r in routes),
+               f"{label}: the {script} requests did not all take the sharded route: {routes}")
+    total = dict.fromkeys(KERNELS, 0)
+    for name, r in res["requests"].items():
+        c = r["launches"]
+        for k in total:
+            total[k] += c[k]
+        never = {k: c[k] for k in SHARD_NEVER if c[k]}
+        _check(not never, f"{label} {name}: kernels the sharded route never runs launched: {never}")
+        got, ref = torch.as_tensor(r["answer"]), torch.as_tensor(refs[name]["answer"])
+        _check(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()),
+               f"{label} {name}: shape {tuple(got.shape)} or non-finite answer")
+        d = _maxdiff(got, ref)
+        if name == "grad":
+            _check(c["adjoint_step"] > 0 and c["adjoint_step_top"] > 0,
+                   f"{label} {name}: no B12/B13 launch: {c}")
+            tol = TOL_SHARD_GRAD[0] * ref.abs().max().item() + TOL_SHARD_GRAD[1]
+            _check(d <= tol, f"{label} {name}: max|g - g_single| = {d:.3e} > {tol:.3e}")
+        else:
+            fwd = ("window_apply_batch", "window_apply_top_batch") if name == "batch" else (
+                "window_apply", "window_apply_top")
+            _check(all(c[k] > 0 for k in fwd), f"{label} {name}: no launch of {fwd}: {c}")
+            _check(d <= TOL_SHARD_Z, f"{label} {name}: max|delta| = {d:.3e} > {TOL_SHARD_Z}")
+        r["delta"] = d
+    return total
+
+
+def phase_shard(models: dict, dmodel, smi: str) -> dict:
+    """The sharded route on the card: a one-rank NCCL group in this process
+    (``state=1``: the route's plumbing, no exchange) and a group of
+    ``SHARD_RANKS`` gloo processes sharing the card (``state=4``, exchanges
+    staged through pinned host memory; ``data=2 x state=2``), each request
+    held to the single-device route on the card.  Returns the launches of
+    phase 5j's sharded requests, every rank's summed."""
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck, saved
+
+    t_phase = time.perf_counter()
+    log(f"phase 5j: the sharded route, 1 rank (NCCL) and {SHARD_RANKS} ranks (gloo, one card) "
+        f"({smi}); gradients with float32 cotangents on both routes")
+    lambda_mode = saved.LAMBDA_MODE
+    saved.set_lambda_mode("f32")
+    try:
+        return _phase_shard(models, dmodel, parallel, ck, t_phase)
+    finally:
+        saved.set_lambda_mode(lambda_mode)
+
+
+def _phase_shard(models: dict, dmodel, parallel, ck, t_phase: float) -> dict:
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    model = models[WIDTHS[-1]]
+    params = model.params.detach().cpu().numpy()
+    dparams = dmodel.params.detach().cpu().numpy()
+    refs = _single_refs(_shard_model(params), dmodel)
+    store_dir = ROOT / "build" / "shard"
+    store_dir.mkdir(parents=True, exist_ok=True)
+
+    # One rank: NCCL on this process's card.
+    store1 = store_dir / "store_1"
+    store1.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store1}", rank=0, world_size=1)
+    try:
+        one = shard_requests(params, dparams, composed=False)
+    finally:
+        parallel.set_mesh(None)
+        dist.destroy_process_group()
+    launches = _check_shard(one, refs, "1 rank")
+
+    # SHARD_RANKS gloo ranks on the same card (kernels already built above).
+    store4 = store_dir / f"store_{SHARD_RANKS}"
+    store4.unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_shard_rank, args=(r, SHARD_RANKS, str(store4), params, dparams,
+                                                   queue)) for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        for _ in range(SHARD_RANKS):
+            rank, res = queue.get(timeout=SHARD_TIMEOUT)
+            _check(not isinstance(res, str), f"rank {rank} failed:\n{res}")
+            ranks[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for rank in sorted(ranks):
+        c = _check_shard(ranks[rank], refs, f"rank {rank} of {SHARD_RANKS}")
+        for k in launches:
+            launches[k] += c[k]
+    _check(all(r["staged"] for r in ranks.values()),
+           "the gloo ranks' exchanges were not staged through host memory")
+
+    r0 = ranks[0]
+    log(f"  routes (rank 0 of {SHARD_RANKS}): {r0['routes']}")
+    log(f"  {'request':<16}{'single ms':>11}{'1 rank ms':>11}{'4 ranks ms':>12}"
+        f"{'exch/req':>10}{'MB sent/req':>13}{'max|delta| 1 / 4 ranks':>26}")
+    for name, ref in refs.items():
+        a = one["requests"].get(name)
+        b = r0["requests"][name]
+        mb = sum(ranks[k]["requests"][name]["bytes"] for k in ranks) / 1e6
+        log(f"  {name:<16}{ref['ms']:>11.2f}{(a['ms'] if a else float('nan')):>11.2f}"
+            f"{b['ms']:>12.2f}{b['exchanges']:>10d}{mb:>13.1f}"
+            f"{(a['delta'] if a else float('nan')):>13.2e}{b['delta']:>13.2e}")
+    log(f"  (4 ranks: gloo processes sharing one card, every exchange staged through pinned "
+        f"host memory; 'MB sent/req' sums the ranks; the batch ran on data=2 x state=2, "
+        f"the rest on state={SHARD_RANKS}; 1 rank: state=1, no exchange)")
+    log(f"  launches over phase 5j's sharded requests (every rank): "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    for name in SHARD_NEVER:
+        _check(launches[name] == 0, f"phase 5j launched {name}")
+    ck.reset_launch_counts()
+    log(f"  phase 5j took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -4907,8 +5163,9 @@ def main() -> int:
     # The main path: serving (phase 4), saved-residual training (5),
     # adjoint training (5b), the chain route (5d), the noisy density
     # model (5e), the analysis slice (5f), the batch route (5g), pulse
-    # mode (5h) and the API surface (5i), each with the counts reset just
-    # before it and read just after; every kernel must launch over them.
+    # mode (5h), the API surface (5i) and the sharded route (5j), each with
+    # the counts reset just before it and read just after; every kernel must
+    # launch over them.
     models, fwd_launches, refs = phase_slice(shapes)
     grad_launches, g64 = phase_grad(models, shapes)
     model26, adj_launches, batch = phase_adjoint(models, shapes, g64)
@@ -4920,9 +5177,10 @@ def main() -> int:
     batch_launches = phase_batch(models, shapes, batch, smi)
     pulse_launches = phase_pulses(pshapes, smi)
     api_launches = phase_api(models, shapes, smi)
+    shard_launches = phase_shard(models, dmodel, smi)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
                 + density_launches[k] + analysis_launches[k] + batch_launches[k]
-                + pulse_launches[k] + api_launches[k] for k in KERNELS}
+                + pulse_launches[k] + api_launches[k] + shard_launches[k] for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

@@ -55,8 +55,21 @@ Hamiltonian family (:mod:`~qml_essentials_tpu_torch.pulse.evolution`),
 before the plan key or the planner reads a matrix.  A batch's pulse gates
 carry ``(Bt, d, d)`` matrices like any other gate.
 
-Counterpart of ``qml_essentials_tpu/core/executor.py`` (sharding comes
-later).
+*Meshes.*  With a mesh configured
+(:func:`qml_essentials_tpu_torch.parallel.set_mesh`; every rank of the
+process group runs the same requests), a mesh with a ``state`` axis routes
+each request through the sharded simulators
+(:mod:`~qml_essentials_tpu_torch.parallel`): pure tapes through the sharded
+statevector, noisy ones through the sharded doubled register, a batch split
+over a ``data`` axis that divides it.  ``Script.sharding_decisions`` logs
+each routable request's route, newest last (``sharded:state``,
+``sharded:density``, ``sharded:cached`` or ``fallback: <reason>``; a
+fallback runs the single-device path on the script's device and warns once
+per reason).  A mesh with a ``data`` axis and no sharded route splits a
+batch over the data ranks, each running its rows on the ordinary batched
+route, and gathers it back.
+
+Counterpart of ``qml_essentials_tpu/core/executor.py``.
 """
 
 from __future__ import annotations
@@ -109,6 +122,40 @@ def _planner_signature() -> tuple:
            s.fuse_layout_rotations, s.scheduled_plan, s.interleaved_plan, s.mixed_plan,
            s._lower_interleaved_tape, chains.plan_chains)
     return flags + tuple(id(f) for f in fns)
+
+
+def _arg_signature(args: tuple) -> tuple:
+    """Signature of positional args for the sharded program cache: tensors
+    key on (shape, dtype), Python floats and generators on their type
+    (their values do not change the program), anything else on its repr."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append((tuple(a.shape), str(a.dtype)))
+        elif isinstance(a, float):
+            out.append("<pyfloat>")
+        elif isinstance(a, complex):
+            out.append("<pycomplex>")
+        elif isinstance(a, torch.Generator):
+            out.append("<generator>")
+        elif isinstance(a, GeneratorBatch) or (
+                isinstance(a, (list, tuple)) and a
+                and all(isinstance(g, torch.Generator) for g in a)):
+            out.append(("<generators>", len(a)))
+        else:
+            out.append(repr(a))
+    return tuple(out)
+
+
+def _make_hashable(obj):
+    """Recursively convert dicts/lists/sets into hashable cache-key forms."""
+    if isinstance(obj, dict):
+        return tuple(sorted((k, _make_hashable(v)) for k, v in obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_make_hashable(x) for x in obj)
+    if isinstance(obj, set):
+        return frozenset(_make_hashable(x) for x in obj)
+    return obj
 
 
 class _NotVectorisable(Exception):
@@ -165,6 +212,12 @@ class Script:
         self._chunks: Dict[tuple, int] = {}
         # Route of every batched request, newest last.
         self.routes: List[str] = []
+        # Sharded-routing log: (request, "sharded:<route>" | "fallback: <reason>"),
+        # newest last, read by parallel.explain(); fallbacks warn once per reason.
+        self.sharding_decisions: List[Tuple[str, str]] = []
+        self._warned_fallbacks: set = set()
+        # Sharded programs, cached after their first successful call.
+        self._sharded: Dict[tuple, Callable] = {}
 
     # ------------------------------------------------------------ recording
     def _record(self, *args, **kwargs) -> List[Operation]:
@@ -243,6 +296,10 @@ class Script:
         if shots is not None and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         if in_axes is None:
+            sharded = self._try_sharded_state(type, obs, args, kwargs, shots=shots,
+                                              generator=generator)
+            if sharded is not None:
+                return sharded
             return self._run_one(type, obs, args, kwargs, shots=shots, generator=generator)
 
         if len(in_axes) != len(args):
@@ -251,8 +308,26 @@ class Script:
                 "Provide one in_axes entry per positional argument."
             )
         batch = _batch_size(args, in_axes)
-        choice = simulation.BackwardChoice()
+        sharded = self._try_sharded_state(type, obs, args, kwargs, in_axes=in_axes, shots=shots,
+                                          generator=generator)
+        if sharded is not None:
+            return sharded
         shot_gens = list(safe_random_split(generator, batch, device=self.device))
+        dp = self._data_parallel(args, in_axes, batch)
+        if dp is not None:
+            args, rows, dax = dp
+            out = self._execute_batched(type, obs, args, kwargs, in_axes, len(rows), shots,
+                                        [shot_gens[i] for i in rows])
+            from qml_essentials_tpu_torch.parallel.state_sharding import _Gather
+
+            gathered = _Gather.apply(out, dax)
+            return gathered.reshape((-1,) + tuple(gathered.shape[2:]))
+        return self._execute_batched(type, obs, args, kwargs, in_axes, batch, shots, shot_gens)
+
+    def _execute_batched(self, type, obs, args, kwargs, in_axes, batch, shots, shot_gens
+                         ) -> torch.Tensor:
+        """The single-device batched route: vectorised, or a loop."""
+        choice = simulation.BackwardChoice()
         try:
             return self._execute_vectorised(type, obs, args, kwargs, in_axes, batch, choice,
                                             shots, shot_gens)
@@ -265,6 +340,220 @@ class Script:
                           kwargs, batch, choice, shots, shot_gens[i])
             for i in range(batch)
         ])
+
+    # -------------------------------------------------------------- meshes
+    @staticmethod
+    def _data_parallel(args: tuple, in_axes: Tuple, batch: int):
+        """This rank's part of a batch split over the mesh's ``data`` axis
+        (:func:`~qml_essentials_tpu_torch.parallel.state_sharding._split_batch`):
+        ``(args, rows, axis)``, or None without such an axis or when it does
+        not divide the batch."""
+        from qml_essentials_tpu_torch import parallel
+        from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+        mesh = parallel.get_mesh()
+        size = parallel._mesh_shape(mesh).get("data", 1) if mesh is not None else 1
+        if size <= 1 or batch % size != 0:
+            return None
+        part, dax, rows = ss._split_batch(mesh, "data", args, in_axes)
+        return part, rows, dax
+
+    def _try_sharded_state(
+        self,
+        type: str,
+        obs: List[Operation],
+        args: tuple,
+        kwargs: dict,
+        in_axes: Optional[Tuple] = None,
+        shots: Optional[int] = None,
+        generator=None,
+    ) -> Optional[torch.Tensor]:
+        """Route through the distributed statevector backend when the mesh
+        (:func:`qml_essentials_tpu_torch.parallel.get_mesh`) has a ``state``
+        axis and the request is one it runs: ``expval`` over observables with
+        a matrix (I/Z Pauli words fold the probabilities, other Hermitians
+        take an exchange and a local contraction), ``state``, ``probs``,
+        pure-tape ``density`` (the sharded state's outer product), and
+        finite shots for ``expval``/``probs``.  Noisy tapes go to
+        :meth:`_try_sharded_density`.  A batch (``in_axes``) runs on batched
+        shards, split over the mesh's ``data`` axis when that divides it.
+        Returns ``None`` (the single-device path, with a warning once per
+        reason) otherwise.  The program is cached after its first successful
+        call."""
+        from qml_essentials_tpu_torch import parallel
+        from qml_essentials_tpu_torch.parallel import state_sharding
+
+        mesh = parallel.get_mesh()
+        if mesh is None or "state" not in (mesh.mesh_dim_names or ()):
+            return None
+        shape = parallel._mesh_shape(mesh)
+
+        request = f"{type}(in_axes={in_axes is not None}, shots={shots})"
+
+        def note(route: str) -> None:
+            self.sharding_decisions.append((request, route))
+            if len(self.sharding_decisions) > 64:
+                del self.sharding_decisions[:-64]
+
+        def fall_back(reason: str) -> None:
+            note(f"fallback: {reason}")
+            log = logger.warning if reason not in self._warned_fallbacks else logger.info
+            self._warned_fallbacks.add(reason)
+            log(
+                "Sharded route unavailable (%s); falling back to the "
+                "single-device path for %r.",
+                reason,
+                getattr(self.f, "__name__", self.f),
+            )
+
+        if type not in ("expval", "state", "probs", "density"):
+            fall_back(f"measurement type {type!r} not sharded")
+            return None
+        if shots is not None and type not in ("expval", "probs"):
+            fall_back(f"shot sampling is undefined for type {type!r}")
+            return None
+        observables: tuple = ()
+        obs_sig: tuple = ()
+        if type == "expval":
+            norm, sig = [], []
+            for o in obs:
+                w = state_sharding.zword_of(o)
+                if w is not None:
+                    norm.append(w)
+                    sig.append(("zword", w))
+                    continue
+                m = getattr(o, "_matrix", None)
+                if m is None:
+                    fall_back(f"observable {o.name} has no concrete matrix")
+                    return None
+                norm.append(o)
+                sig.append(("gen", o.__class__.__name__, tuple(o.wires),
+                            np.asarray(m.detach().cpu()).tobytes()))
+            observables, obs_sig = tuple(norm), tuple(sig)
+
+        from qml_essentials_tpu_torch.models.unitary import UnitaryGates
+
+        cache_kwargs = _make_hashable(
+            {k: v for k, v in kwargs.items() if not isinstance(v, torch.Tensor)})
+        mesh_key = (tuple(shape.items()), mesh.device_type, tuple(mesh.mesh.flatten().tolist()))
+        cache_key = ("sharded", type, obs_sig, in_axes, shots, _arg_signature(args),
+                     cache_kwargs, mesh_key, UnitaryGates.batch_gate_error, str(self.dtype),
+                     str(self.device))
+        batch_size = _batch_size(args, in_axes) if in_axes is not None else None
+
+        def shot_keys():
+            if in_axes is None:
+                return generator
+            return list(safe_random_split(generator, batch_size, device=self.device))
+
+        cached = self._sharded.get(cache_key)
+        if cached is not None:
+            note("sharded:cached")
+            return cached(shot_keys(), *args) if shots is not None else cached(*args)
+
+        scalar_args = args
+        data_axis = None
+        if in_axes is not None:
+            scalar_args = tuple(_element(a, ax, 0) for a, ax in zip(args, in_axes))
+            if shape.get("data", 1) > 1 and batch_size % shape["data"] == 0:
+                data_axis = "data"
+
+        tape = self._record(*state_sharding._frozen(scalar_args), **kwargs)
+        n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
+        tape_fn = lambda *a: self._record(*a, **kwargs)  # noqa: E731
+
+        if any(isinstance(op, KrausChannel) for op in tape):
+            return self._try_sharded_density(
+                type, observables, tape_fn, args, in_axes, data_axis, shots, shot_keys,
+                n_qubits, mesh, cache_key, fall_back, note)
+
+        if 2**n_qubits < 2 * shape["state"]:
+            fall_back("too few qubits to shard meaningfully")
+            return None
+
+        sim = state_sharding.ShardedStateSim(n_qubits, mesh, dtype=self.dtype,
+                                             device=self.device)
+        try:
+            if shots is not None:
+                fn = sim.build_shot_program(tape_fn, type, observables, shots, args,
+                                            in_axes=in_axes, data_axis=data_axis)
+                out = fn(shot_keys(), *args)
+            elif type == "expval":
+                fn = sim.build_expval_program(tape_fn, observables, args, in_axes=in_axes,
+                                              data_axis=data_axis)
+                out = fn(*args)
+            elif type == "state":
+                fn = sim.build_state_program(tape_fn, args, in_axes=in_axes,
+                                             data_axis=data_axis)
+                out = fn(*args)
+            elif type == "density":
+                # A pure tape: the sharded statevector and one outer product.
+                state_fn = sim.build_state_program(tape_fn, args, in_axes=in_axes,
+                                                   data_axis=data_axis)
+
+                def fn(*a):
+                    psi = state_fn(*a)
+                    return torch.einsum("...i,...j->...ij", psi, psi.conj())
+
+                out = fn(*args)
+            else:
+                fn = sim.build_probs_program(tape_fn, args, in_axes=in_axes,
+                                             data_axis=data_axis)
+                out = fn(*args)
+            self._sharded[cache_key] = fn
+            note("sharded:state" + self._staging_note(sim))
+            return out
+        except state_sharding.ShardingUnavailable as exc:
+            fall_back(str(exc))
+            return None
+
+    @staticmethod
+    def _staging_note(sim) -> str:
+        return " (exchanges staged through host memory)" if sim.staged else ""
+
+    def _try_sharded_density(self, type: str, observables: tuple, tape_fn, args: tuple,
+                             in_axes: Optional[Tuple], data_axis: Optional[str],
+                             shots: Optional[int], shot_keys, n_qubits: int, mesh, cache_key,
+                             fall_back, note) -> Optional[torch.Tensor]:
+        """Route a noisy request through the sharded doubled register:
+        ``expval`` (Z-words off the pair diagonal, other Hermitians by a
+        local ``Tr(O ρ_S)``), ``probs``, ``density`` and finite shots for
+        ``probs``/``expval``, batched or not; a tape with no interleaved
+        doubled form falls back."""
+        from qml_essentials_tpu_torch import parallel
+        from qml_essentials_tpu_torch.parallel import density_sharding, state_sharding
+
+        if type == "state":
+            fall_back("state output is undefined for density tapes")
+            return None
+        if 4**n_qubits < 2 * parallel._mesh_shape(mesh)["state"]:
+            fall_back("too few qubits to shard the density meaningfully")
+            return None
+        sim = density_sharding.ShardedDensitySim(n_qubits, mesh, dtype=self.dtype,
+                                                 device=self.device)
+        try:
+            if shots is not None:
+                fn = sim.build_shot_program(tape_fn, type, observables, shots, args,
+                                            in_axes=in_axes, data_axis=data_axis)
+                out = fn(shot_keys(), *args)
+            elif type == "expval":
+                fn = sim.build_expval_program(tape_fn, observables, args, in_axes=in_axes,
+                                              data_axis=data_axis)
+                out = fn(*args)
+            elif type == "probs":
+                fn = sim.build_probs_program(tape_fn, args, in_axes=in_axes,
+                                             data_axis=data_axis)
+                out = fn(*args)
+            else:  # density
+                fn = sim.build_density_program(tape_fn, args, in_axes=in_axes,
+                                               data_axis=data_axis)
+                out = fn(*args)
+            self._sharded[cache_key] = fn
+            note("sharded:density" + self._staging_note(sim.inner))
+            return out
+        except state_sharding.ShardingUnavailable as exc:
+            fall_back(str(exc))
+            return None
 
     # ----------------------------------------------------------- vectorised
     @staticmethod

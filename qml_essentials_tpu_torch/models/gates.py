@@ -125,6 +125,16 @@ class Gates(metaclass=GatesMeta):
 
     _pulse_mgr = None
 
+    def __getattr__(self, gate_name):
+        if gate_name.startswith("__"):
+            raise AttributeError(gate_name)
+
+        def handler(**kwargs):
+            return self._inner_getattr(gate_name, **kwargs)
+
+        handler.__name__ = gate_name
+        return handler
+
     @classmethod
     def _inner_getattr(cls, gate_name, *args, **kwargs):
         if gate_name == "Barrier":

@@ -242,6 +242,17 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
          g: torch.Tensor):
     """Reverse walk from the final state: returns (boundary cotangent,
     payload grads)."""
+    _, lam2, grads = walk_back(static, n, psi2, payloads, g)
+    return lam2.to(g.dtype), grads
+
+
+def walk_back(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Tensor],
+              g: torch.Tensor):
+    """Undo a normalised plan from its output ``psi2`` and cotangent ``g``:
+    returns the plan's input, the cotangent there (in the working dtype, or
+    in ``g``'s when the plan has no payload step) and the payload grads.
+    The sharded simulator walks its plan back segment by segment with it,
+    between the exchanges."""
     from qml_essentials_tpu_torch.ops import simulation
 
     use16 = saved.LAMBDA_MODE == "bf16" and n >= simulation.LARGE_STATE_MIN_N
@@ -332,7 +343,7 @@ def _bwd(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torch.Ten
             psi2 = kernels.apply_diagonal_pair_ri(psi2, dh, srt, n)
             grads[slot] = _diag_cotangent(lam2, psi2, srt)
             lam2 = kernels.apply_diagonal_pair_ri(lam2, dh, srt, n)
-    return lam2.to(g.dtype), grads
+    return psi2, lam2, grads
 
 
 class _AdjointPlan(torch.autograd.Function):

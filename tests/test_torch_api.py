@@ -50,6 +50,7 @@ X = 0.37
 SHIMS = ("ansaetze", "drawing", "gates", "jaqsi", "memory", "operations", "script",
          "simulation", "tape", "topologies", "unitary")
 UTILS = ("utils", "utils.drawing", "utils.checkpointing", "utils.profiling")
+PARALLEL = ("parallel", "parallel.state_sharding", "parallel.density_sharding")
 
 # JAX names the port does not offer, by module (ROADMAP.md, "Not to port"):
 # the jit switch of the JAX executor and the Pallas regime's fusion width,
@@ -135,7 +136,7 @@ def _public_names(name: str) -> set:
 
 
 @pytest.mark.unittest
-@pytest.mark.parametrize("name", SHIMS + UTILS)
+@pytest.mark.parametrize("name", SHIMS + UTILS + PARALLEL)
 def test_every_public_jax_name_is_ported(name):
     port = importlib.import_module(f"qml_essentials_tpu_torch.{name}")
     missing = {n for n in _public_names(name) if not hasattr(port, n)}
@@ -157,7 +158,7 @@ def test_shims_import_without_matplotlib_or_jax():
         "sys.modules['matplotlib'] = None\n"
         "import importlib\n"
         "import qml_essentials_tpu_torch\n"
-        f"for name in {SHIMS + UTILS!r}:\n"
+        f"for name in {SHIMS + UTILS + PARALLEL!r}:\n"
         "    importlib.import_module('qml_essentials_tpu_torch.' + name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qml_essentials_tpu.'))"
         " or m == 'qml_essentials_tpu']\n"
@@ -478,6 +479,33 @@ def test_set_fusion_changes_the_plan_as_in_jax(tapes, case):
     assert [(kind, list(wires)) for kind, _, wires in got] == plans[case]
     if case != FUSION_CASES[0]:
         assert plans[case] != plans[FUSION_CASES[0]]
+
+
+# ---------------------------------------------------------------------------
+# The Gates accessor
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("gate_mode", ["unitary", "pulse"])
+def test_gates_instance_accessor_records_as_jax(gate_mode):
+    """``Gates().RX(w=0.3, wires=0)`` (keyword arguments on an instance)
+    records the JAX package's tape in both gate modes: the same gates on the
+    same wires, their matrices to 1e-6 (a Python float angle makes a float32
+    gate in both packages; the JAX package's pulse solve runs in float32,
+    the port's in float64)."""
+    from qml_essentials_tpu.models.gates import Gates as JaxGates
+    from qml_essentials_tpu_torch.models.gates import Gates
+
+    with jax_recording() as jt:
+        JaxGates().RX(w=0.3, wires=0, gate_mode=gate_mode)
+    with recording() as tt:
+        Gates().RX(w=0.3, wires=0, gate_mode=gate_mode)
+    assert [(o.name, o.wires) for o in tt] == [(o.name, list(o.wires)) for o in jt]
+    for o, j in zip(tt, jt):
+        _close(o.matrix, j.matrix, 1e-6 if gate_mode == "unitary" else 5e-5)
+    with pytest.raises(AttributeError):
+        Gates().__wrapped__  # noqa: B018 - dunder lookups stay attribute errors
 
 
 # ---------------------------------------------------------------------------
