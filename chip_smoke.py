@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (and, where the
+machine has four, the sharded route on four).
 
     python3 chip_smoke.py
 
@@ -233,6 +234,33 @@ drawing, pulse events, profiling) — and checks it phase by phase:
    kernels' intervals over the traced request, from the Chrome trace of
    ``utils/profiling.xla_trace``) of one 24q forward request and one 4q KL
    batch of 10,000 elements, and ``timed``'s mean of the 24q forward;
+5j. the sharded route (``parallel/``) on this card: a one-rank NCCL group
+   in this process (``state=1``) and four spawned gloo ranks sharing the
+   card (``state=4``, and ``data=2 x state=2`` for a batch of 8; every
+   exchange staged through pinned host memory): the 24q forward and
+   forward + gradient (float32 cotangents on both routes) and the 13q
+   density expval and probs held to the single-device route (1e-5;
+   gradients 1e-4 max|g| + 1e-6), every request on a sharded route,
+   B1/B3 (B12/B13 on gradients, B1b/B3b on the batch) launched on every
+   rank and none of B6-B11, B14, B15, B17, B18;
+5k. with four cards, the sharded route with one NCCL rank a card: four
+   spawned processes, rank r on card r (made current before any
+   allocation and bound to the group, whose collectives fail after
+   ``CARD_TIMEOUT`` s), exchanges card to card (not staged): the 30q
+   Circuit_19 forward and forward + gradient on ``state=4`` held to the
+   single-device route on card 0 as in 5j; the 32q forward and forward +
+   gradient (bfloat16 lambda), which no card holds, held to the closed
+   form cos(2x + the qubit's RX angles) at seeded RX angles, a different
+   one for each qubit and layer, every other angle zero (1e-5), and to central
+   differences along two seeded directions (1e-3 + 2e-2 |g.d|), and to
+   the single-card forward where that fits; 5j's batch of 8 on
+   ``data=2 x state=2`` with both batched exchange forms, and the 13q
+   density expval and probs; on every rank every card tensor the
+   requests make on its own card, no tensor as large as the 30q or 32q
+   register, the routes and launches as in 5j; ms at one card and four,
+   exchanges and GB sent, every rank's peak memory, NCCL's transports
+   and the share of NCCL kernels in rank 0's traced 32q forward.  With
+   fewer than four cards it logs that it did not run;
 6. times: ms per forward request and per forward + gradient request (best
    of 3 after warm-up, and the median of 10), where a gradient request's
    time goes (record, plan, forward run, backward run), the same for the
@@ -282,6 +310,7 @@ with one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -3837,17 +3866,98 @@ def _shard_batch() -> torch.Tensor:
     return torch.linspace(-1.0, 1.4, SHARD_BATCH, device=DEVICE)
 
 
+def _device_watch():
+    """A ``TorchDispatchMode`` that notes the devices of the card tensors
+    every operation returns and the largest tensor (elements, operation)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.devices, self.largest = set(), (0, None)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    if t.is_cuda:
+                        self.devices.add(str(t.device))
+                    if t.numel() > self.largest[0]:
+                        self.largest = (t.numel(), str(func))
+            return out
+
+    return Watch()
+
+
+def _timed(fn, watch: bool = False) -> dict:
+    """fn() once (it builds the program; with *watch* under a device watch),
+    then ``SHARD_REPS`` calls, the launch and exchange counts reset before
+    each and each ending in a synchronise.  Returns the last answer (float,
+    on the CPU), the best and the first ms, the last call's launches,
+    exchanges and bytes sent, the peak memory of the current card since the
+    first call and, with *watch*, the card devices and the largest tensor of
+    the first call."""
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+    from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+    watcher = _device_watch() if watch else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with watcher:
+        fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    best = float("inf")
+    for _ in range(SHARD_REPS):
+        ck.reset_launch_counts()
+        ss.EXCHANGES = ss.EXCHANGE_BYTES = 0
+        t0 = time.perf_counter()
+        answer = fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    out = dict(answer=answer.detach().float().cpu().numpy(), ms=best, first_ms=first,
+               launches=ck.launch_counts(), exchanges=ss.EXCHANGES, bytes=ss.EXCHANGE_BYTES,
+               peak=torch.cuda.max_memory_allocated())
+    if watch:
+        out.update(devices=sorted(watcher.devices), largest=watcher.largest)
+    return out
+
+
+def _run_requests(requests: list, meshes: dict, watch: bool = False) -> dict:
+    """Each of *requests*, ``(name, mesh, fn, lambda mode, batched exchange
+    form, register qubits or None)``, on its mesh of *meshes* under its
+    lambda mode and exchange form, timed by ``_timed``; returns per name the
+    timing with the qubits and the mesh."""
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.ops import saved
+    from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+    out = {}
+    lambda_mode, form = saved.LAMBDA_MODE, ss.BATCHED_EXCHANGE
+    try:
+        for name, mesh, fn, lam, exchange, n in requests:
+            parallel.set_mesh(meshes[mesh])
+            saved.set_lambda_mode(lam)
+            ss.BATCHED_EXCHANGE = exchange
+            try:
+                out[name] = dict(_timed(fn, watch), n=n, mesh=mesh)
+            finally:
+                parallel.set_mesh(None)
+    finally:
+        saved.set_lambda_mode(lambda_mode)
+        ss.BATCHED_EXCHANGE = form
+    return out
+
+
 def shard_requests(params, dparams, composed: bool) -> dict:
     """This rank's sharded requests, the same on every rank: the 24q model's
     forward and forward + gradient on a ``state`` mesh over every rank, and
     with *composed* the batch on a ``data=2 x state=2`` mesh and the 13q
-    density model's expval and probs on the ``state`` mesh.  Each request
-    runs once to build its program, then ``SHARD_REPS`` times with the
-    launch and exchange counts reset before each; returns per request its
-    answer (on the CPU), best ms, launches, exchanges and bytes sent, and
-    the route logs."""
+    density model's expval and probs on the ``state`` mesh, all with
+    float32 cotangents and the all-to-all exchange.  Returns per request its
+    timing (``_timed``), and the route logs."""
     from qml_essentials_tpu_torch import parallel
-    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
     from qml_essentials_tpu_torch.parallel import state_sharding as ss
 
     world = torch.distributed.get_world_size()
@@ -3865,25 +3975,7 @@ def shard_requests(params, dparams, composed: bool) -> dict:
                      ("density expval", "state", lambda: dmodel(inputs=x)),
                      ("density probs", "state",
                       lambda: dmodel(inputs=x, execution_type="probs"))]
-    out = {"requests": {}, "staged": False}
-    for name, mesh, fn in requests:
-        parallel.set_mesh(meshes[mesh])
-        try:
-            fn()  # builds the program
-            torch.cuda.synchronize()
-            best = float("inf")
-            for _ in range(SHARD_REPS):
-                ck.reset_launch_counts()
-                ss.EXCHANGES = ss.EXCHANGE_BYTES = 0
-                t0 = time.perf_counter()
-                answer = fn()
-                torch.cuda.synchronize()
-                best = min(best, (time.perf_counter() - t0) * 1e3)
-            out["requests"][name] = dict(
-                answer=answer.detach().float().cpu().numpy(), ms=best, launches=ck.launch_counts(),
-                exchanges=ss.EXCHANGES, bytes=ss.EXCHANGE_BYTES, mesh=mesh)
-        finally:
-            parallel.set_mesh(None)
+    out = {"requests": _run_requests([(*r, "f32", "a2a", None) for r in requests], meshes)}
     out["routes"] = {"model": list(model.script.sharding_decisions)}
     if composed:
         out["routes"]["density"] = list(dmodel.script.sharding_decisions)
@@ -3891,54 +3983,78 @@ def shard_requests(params, dparams, composed: bool) -> dict:
     return out
 
 
-def _shard_rank(rank: int, world: int, store: str, params, dparams, queue) -> None:
-    """One rank of the gloo group on the card (a spawned process)."""
+def _rank(rank: int, world: int, store: str, nccl: bool, requests, args: tuple,
+          queue) -> None:
+    """One rank of a spawned group: puts ``(rank, requests(*args))``, or the
+    rank's traceback as soon as it fails, on *queue*.  A gloo rank runs on card 0.  With *nccl*,
+    rank r runs on card r, made current before anything is allocated and
+    before the group, which is bound to it and fails a collective that waits
+    over ``CARD_TIMEOUT`` s; NCCL writes how it connects the ranks under
+    ``build/cards``."""
+    import os
+    from datetime import timedelta
+
     import torch.distributed as dist
 
     try:
-        from qml_essentials_tpu_torch.ops import saved
-
-        torch.cuda.set_device(0)
-        saved.set_lambda_mode("f32")
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=world)
-        try:
-            queue.put((rank, shard_requests(params, dparams, composed=True)))
-        finally:
-            dist.destroy_process_group()
-    except Exception:  # noqa: BLE001 - the parent reports the rank's traceback
+        kwargs = {}
+        if nccl:
+            os.environ.update(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT",
+                              NCCL_DEBUG_FILE=str(CARD_DIR / f"nccl.{rank}.log"),
+                              PYTORCH_CUDA_ALLOC_CONF=CARD_ALLOC_CONF)
+            kwargs = dict(timeout=timedelta(seconds=CARD_TIMEOUT),
+                          device_id=torch.device("cuda", rank))
+            torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores
+            torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's plain versions
+            torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(rank if nccl else 0)
+        dist.init_process_group("nccl" if nccl else "gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world, **kwargs)
+        queue.put((rank, requests(*args)))
+    except Exception:  # noqa: BLE001 - the parent reports the traceback and stops the ranks
         import traceback
 
         queue.put((rank, traceback.format_exc()))
+        return  # the other ranks may wait in a collective: no teardown of the group
+    dist.destroy_process_group()
 
 
-def _single_refs(model, dmodel) -> dict:
-    """The single-device route's answers and best ms for 5j's requests."""
-    x = REQUESTS[0]
-    batch = _shard_batch()
-    work = {"fwd": lambda: model(inputs=x), "grad": lambda: _grad_request(model, x)[1],
-            "batch": lambda: model(inputs=batch), "density expval": lambda: dmodel(inputs=x),
-            "density probs": lambda: dmodel(inputs=x, execution_type="probs")}
-    refs = {}
-    for name, fn in work.items():
-        fn()
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(SHARD_REPS):
-            t0 = time.perf_counter()
-            answer = fn()
-            torch.cuda.synchronize()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-        refs[name] = dict(answer=answer.detach().float().cpu().numpy(), ms=best)
-    return refs
+def _spawn(world: int, store: Path, nccl: bool, requests, args: tuple) -> dict:
+    """The results of *world* spawned ``_rank`` processes by rank.  A rank
+    that fails, a wait over ``SHARD_TIMEOUT`` s or a non-zero exit fails the
+    phase; ranks still running then are stopped."""
+    import multiprocessing as mp
+
+    store.unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_rank, args=(r, world, str(store), nccl, requests, args, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        for _ in range(world):
+            rank, res = queue.get(timeout=SHARD_TIMEOUT)
+            _check(not isinstance(res, str), f"rank {rank} failed:\n{res}")
+            ranks[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60 if len(ranks) == world else 1)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    _check(all(p.exitcode == 0 for p in procs),
+           f"rank exit codes {[p.exitcode for p in procs]}")
+    return ranks
 
 
-def _check_shard(res: dict, refs: dict, label: str) -> dict:
-    """Routes, launches and answers of one rank's 5j requests; returns its
-    launches summed over the requests."""
-    for script, routes in res["routes"].items():
-        _check(bool(routes) and all(r.split(" (")[0] in SHARD_ROUTES for _, r in routes),
-               f"{label}: the {script} requests did not all take the sharded route: {routes}")
+def _check_requests(res: dict, refs: dict, label: str) -> dict:
+    """One rank's requests: none of ``SHARD_NEVER`` launched, a finite
+    answer, B12/B13 on a gradient and the window kernels (B1b/B3b on a
+    batch) on the rest, and the answer held to the single-device route's in
+    *refs* where it has one (``TOL_SHARD_Z``, gradients ``TOL_SHARD_GRAD``);
+    notes each request's ``delta`` and returns the launches summed."""
     total = dict.fromkeys(KERNELS, 0)
     for name, r in res["requests"].items():
         c = r["launches"]
@@ -3946,22 +4062,48 @@ def _check_shard(res: dict, refs: dict, label: str) -> dict:
             total[k] += c[k]
         never = {k: c[k] for k in SHARD_NEVER if c[k]}
         _check(not never, f"{label} {name}: kernels the sharded route never runs launched: {never}")
-        got, ref = torch.as_tensor(r["answer"]), torch.as_tensor(refs[name]["answer"])
-        _check(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()),
-               f"{label} {name}: shape {tuple(got.shape)} or non-finite answer")
-        d = _maxdiff(got, ref)
-        if name == "grad":
+        got = torch.as_tensor(r["answer"])
+        _check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite answer")
+        if name.endswith("grad"):
             _check(c["adjoint_step"] > 0 and c["adjoint_step_top"] > 0,
                    f"{label} {name}: no B12/B13 launch: {c}")
-            tol = TOL_SHARD_GRAD[0] * ref.abs().max().item() + TOL_SHARD_GRAD[1]
-            _check(d <= tol, f"{label} {name}: max|g - g_single| = {d:.3e} > {tol:.3e}")
         else:
-            fwd = ("window_apply_batch", "window_apply_top_batch") if name == "batch" else (
-                "window_apply", "window_apply_top")
+            fwd = (("window_apply_batch", "window_apply_top_batch") if name.startswith("batch")
+                   else ("window_apply", "window_apply_top"))
             _check(all(c[k] > 0 for k in fwd), f"{label} {name}: no launch of {fwd}: {c}")
-            _check(d <= TOL_SHARD_Z, f"{label} {name}: max|delta| = {d:.3e} > {TOL_SHARD_Z}")
-        r["delta"] = d
+        r["delta"] = None
+        if name in refs:
+            ref = torch.as_tensor(refs[name]["answer"])
+            _check(tuple(got.shape) == tuple(ref.shape),
+                   f"{label} {name}: shape {tuple(got.shape)}, want {tuple(ref.shape)}")
+            d = _maxdiff(got, ref)
+            tol = (TOL_SHARD_GRAD[0] * ref.abs().max().item() + TOL_SHARD_GRAD[1]
+                   if name.endswith("grad") else TOL_SHARD_Z)
+            _check(d <= tol, f"{label} {name}: max|delta| from the single-device route "
+                             f"= {d:.3e} > {tol:.3e}")
+            r["delta"] = d
     return total
+
+
+def _single_refs(model, dmodel) -> dict:
+    """The single-device route's timings (``_timed``) of 5j's requests."""
+    x = REQUESTS[0]
+    batch = _shard_batch()
+    work = {"fwd": lambda: model(inputs=x), "grad": lambda: _grad_request(model, x)[1],
+            "batch": lambda: model(inputs=batch), "density expval": lambda: dmodel(inputs=x),
+            "density probs": lambda: dmodel(inputs=x, execution_type="probs")}
+    return {name: _timed(fn) for name, fn in work.items()}
+
+
+def _check_shard(res: dict, refs: dict, label: str) -> dict:
+    """Routes, launches and answers of one rank's 5j requests, each held to
+    the single-device route; returns its launches summed over the requests."""
+    for script, routes in res["routes"].items():
+        _check(bool(routes) and all(r.split(" (")[0] in SHARD_ROUTES for _, r in routes),
+               f"{label}: the {script} requests did not all take the sharded route: {routes}")
+    missing = set(res["requests"]) - set(refs)
+    _check(not missing, f"{label}: no single-device reference for {missing}")
+    return _check_requests(res, refs, label)
 
 
 def phase_shard(models: dict, dmodel, smi: str) -> dict:
@@ -3986,8 +4128,6 @@ def phase_shard(models: dict, dmodel, smi: str) -> dict:
 
 
 def _phase_shard(models: dict, dmodel, parallel, ck, t_phase: float) -> dict:
-    import multiprocessing as mp
-
     import torch.distributed as dist
 
     model = models[WIDTHS[-1]]
@@ -4009,26 +4149,8 @@ def _phase_shard(models: dict, dmodel, parallel, ck, t_phase: float) -> dict:
     launches = _check_shard(one, refs, "1 rank")
 
     # SHARD_RANKS gloo ranks on the same card (kernels already built above).
-    store4 = store_dir / f"store_{SHARD_RANKS}"
-    store4.unlink(missing_ok=True)
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [ctx.Process(target=_shard_rank, args=(r, SHARD_RANKS, str(store4), params, dparams,
-                                                   queue)) for r in range(SHARD_RANKS)]
-    for p in procs:
-        p.start()
-    ranks = {}
-    try:
-        for _ in range(SHARD_RANKS):
-            rank, res = queue.get(timeout=SHARD_TIMEOUT)
-            _check(not isinstance(res, str), f"rank {rank} failed:\n{res}")
-            ranks[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.terminate()
-                p.join()
+    ranks = _spawn(SHARD_RANKS, store_dir / f"store_{SHARD_RANKS}", False, shard_requests,
+                   (params, dparams, True))
     for rank in sorted(ranks):
         c = _check_shard(ranks[rank], refs, f"rank {rank} of {SHARD_RANKS}")
         for k in launches:
@@ -4056,6 +4178,339 @@ def _phase_shard(models: dict, dmodel, parallel, ck, t_phase: float) -> dict:
         _check(launches[name] == 0, f"phase 5j launched {name}")
     ck.reset_launch_counts()
     log(f"  phase 5j took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5k: the sharded route on four cards, one NCCL rank a card
+# ---------------------------------------------------------------------------
+
+CARDS = 4  # NCCL ranks of phase 5k, one a card
+# 30 qubits: held to the single-device route on card 0.  32 qubits: a
+# float32 register of 34.4 GB, whose adjoint gradient (psi and lambda, each
+# written out of place) no card holds; held to a closed form and a central
+# difference.
+CARD_WIDTHS = (30, 32)
+CARD_TIMEOUT = 300  # seconds a collective of the NCCL group may wait before the phase fails
+# The ranks' allocator: the 32q gradient holds ~60 GB of 8.6 GB blocks and
+# 256 MiB pieces, and expandable segments keep it from stranding the gaps.
+CARD_ALLOC_CONF = "expandable_segments:True"
+TOL_CLOSED = 1e-5  # 32q <Z> at the closed-form angles against closed_form_z
+FD_DIRECTIONS = 2  # seeded unit directions of the 32q central difference (step FD_EPS)
+TOL_CARD_FD = (1e-3, 2e-2)  # |fd - g.d| <= 1e-3 + 2e-2 |g.d|
+CARD_DIR = ROOT / "build" / "cards"
+
+
+def _card_model(n: int, params=None):
+    """The float32 Circuit_19 model (N_LAYERS layers, seed SEED) at n qubits
+    on the current card, with *params* loaded when given."""
+    from qml_essentials_tpu_torch.models.model import Model
+
+    model = Model(n_qubits=n, n_layers=N_LAYERS, circuit_type="Circuit_19", random_seed=SEED,
+                  device=DEVICE)
+    if params is not None:
+        model.load_numpy(params)
+    return model
+
+
+def closed_form_params(shape: tuple, n: int) -> tuple:
+    """Circuit_19 parameters of *shape* (``(..., layers, 3 n)``: a layer's
+    RX angles, then its RZ and CRX angles) whose only non-zero angles are
+    seeded RX angles, a different one for each qubit and layer; returns
+    (the parameters, the RX angles ``(layers, n)``)."""
+    rx = np.random.default_rng(SEED).uniform(-np.pi, np.pi, (shape[-2], n))
+    p = np.zeros(shape)
+    p[..., :n] = rx
+    return p, rx
+
+
+def closed_form_z(x: float, rx: np.ndarray) -> np.ndarray:
+    """<Z_i> of the Circuit_19 model at ``closed_form_params``: RZ(0) and
+    CRX(0) are identities, so qubit i sees only rotations about X, its
+    N_LAYERS encodings RX(x) (data reuploading) and its angles rx[:, i]:
+    <Z_i> = cos(N_LAYERS x + sum_l rx[l, i]), different on every qubit."""
+    return np.cos(N_LAYERS * x + rx.sum(axis=0))
+
+
+def card_requests(params: dict, dparams, directions: list) -> dict:
+    """This rank's phase 5k requests, the same on every rank: the 30q and
+    32q models' forward and forward + gradient on a ``state`` mesh over
+    every rank (30q with float32 cotangents, as the single-device route it
+    is held to; 32q with the default bfloat16 lambda), 5j's 24q batch on
+    ``data=2 x state=2`` with each batched exchange form, and the 13q
+    density expval and probs on the ``state`` mesh, each timed by
+    ``_timed`` under a device watch.  Then the 32q model at
+    ``closed_form_params``, at the seeded parameters moved +-FD_EPS along
+    each of *directions*, and (rank 0) one forward under the profiler.
+    Returns per request its timing, the rank's card, group and route logs,
+    and the checks' inputs."""
+    import torch.distributed as dist
+
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.ops import saved
+    from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = REQUESTS[0]
+    n30, n32 = CARD_WIDTHS
+    models = {n: _card_model(n, params[n]) for n in CARD_WIDTHS}
+    m24 = _shard_model(params[WIDTHS[-1]])
+    dmodel = density_model(DENSITY_NOISE)
+    dmodel.load_numpy(dparams)
+    meshes = {"state": parallel.make_mesh((world,), ("state",)),
+              "composed": parallel.make_mesh((2, world // 2), ("data", "state"))}
+    batch = _shard_batch()
+    requests = [
+        (f"{n30}q fwd", "state", lambda: models[n30](inputs=x), "f32", "a2a", n30),
+        (f"{n30}q grad", "state", lambda: _grad_request(models[n30], x)[1], "f32", "a2a", n30),
+        (f"{n32}q fwd", "state", lambda: models[n32](inputs=x), "bf16", "a2a", n32),
+        (f"{n32}q grad", "state", lambda: _grad_request(models[n32], x)[1], "bf16", "a2a", n32),
+        ("batch", "composed", lambda: m24(inputs=batch), "f32", "a2a", None),
+        ("batch (ppermute)", "composed", lambda: m24(inputs=batch), "f32", "ppermute", None),
+        ("density expval", "state", lambda: dmodel(inputs=x), "f32", "a2a", None),
+        ("density probs", "state", lambda: dmodel(inputs=x, execution_type="probs"), "f32",
+         "a2a", None),
+    ]
+    out = {"requests": _run_requests(requests, meshes, watch=True),
+           "card": torch.cuda.current_device(), "backend": dist.get_backend(),
+           "name": torch.cuda.get_device_name()}
+
+    # The 32q checks: the closed form, the central difference along each
+    # direction, and rank 0's traced forward (every rank runs it: its
+    # exchanges are collectives).
+    parallel.set_mesh(meshes["state"])
+    lambda_mode = saved.LAMBDA_MODE
+    saved.set_lambda_mode("bf16")
+    try:
+        m = models[n32]
+        p = np.asarray(params[n32], dtype=np.float64)
+        with torch.no_grad():
+            p0, out["closed_rx"] = closed_form_params(p.shape, n32)
+            m.load_numpy(p0)
+            out["closed"] = m(inputs=x).float().cpu().numpy()
+            g = out["requests"][f"{n32}q grad"]["answer"].astype(np.float64)
+            fd = []
+            for d in directions:
+                f = []
+                for sign in (1.0, -1.0):
+                    m.load_numpy(p + sign * FD_EPS * d)
+                    f.append(float(m(inputs=x).double().mean()))
+                fd.append(((f[0] - f[1]) / (2 * FD_EPS), float((g * d).sum())))
+            out["fd"] = fd
+            m.load_numpy(p)
+            if rank == 0:
+                out["trace"] = _traced(f"cards_{n32}q_fwd_rank0", lambda: m(inputs=x))
+            else:
+                m(inputs=x)
+                torch.cuda.synchronize()
+    finally:
+        parallel.set_mesh(None)
+        saved.set_lambda_mode(lambda_mode)
+    out["routes"] = {f"{n}q": list(models[n].script.sharding_decisions) for n in CARD_WIDTHS}
+    out["routes"]["batch"] = list(m24.script.sharding_decisions)
+    out["routes"]["density"] = list(dmodel.script.sharding_decisions)
+    out["staged"] = ss._Axis(meshes["state"], "state").staged
+    dist.barrier()
+    return out
+
+
+def _card_refs(params: dict, dparams) -> tuple:
+    """The single-device route on card 0 for phase 5k's requests: the 30q
+    forward and gradient (float32 cotangent), 5j's batch and density
+    requests, and the 32q forward under ``no_grad`` if it fits.  Returns
+    (refs, what became of the 32q forward)."""
+    import gc
+
+    from qml_essentials_tpu_torch.ops import saved
+
+    x = REQUESTS[0]
+    n30, n32 = CARD_WIDTHS
+    refs = {}
+    lambda_mode = saved.LAMBDA_MODE
+    saved.set_lambda_mode("f32")
+    try:
+        model = _card_model(n30, params[n30])
+        refs[f"{n30}q fwd"] = _timed(lambda: model(inputs=x))
+        refs[f"{n30}q grad"] = _timed(lambda: _grad_request(model, x)[1])
+        del model
+        m24 = _shard_model(params[WIDTHS[-1]])
+        dmodel = density_model(DENSITY_NOISE)
+        dmodel.load_numpy(dparams)
+        batch = _shard_batch()
+        refs["batch"] = refs["batch (ppermute)"] = _timed(lambda: m24(inputs=batch))
+        refs["density expval"] = _timed(lambda: dmodel(inputs=x))
+        refs["density probs"] = _timed(lambda: dmodel(inputs=x, execution_type="probs"))
+        del m24, dmodel
+    finally:
+        saved.set_lambda_mode(lambda_mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _card_model(n32, params[n32])
+    try:
+        with torch.no_grad():
+            refs[f"{n32}q fwd"] = _timed(lambda: model(inputs=x))
+        fits = f"fits on card 0: {refs[f'{n32}q fwd']['ms']:.2f} ms"
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError, or CUDA's own out-of-memory
+        if not isinstance(e, torch.cuda.OutOfMemoryError) and "out of memory" not in str(e):
+            raise
+        fits = "does not fit on card 0 (" + str(e).splitlines()[0][:200] + ")"
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, fits
+
+
+def _check_card(res: dict, refs: dict, rank: int) -> dict:
+    """One rank's phase 5k: its card and group, routes, devices, B16 where
+    a forward rotates, the whole-register check, ``_check_requests`` and
+    the 32q checks; returns its launches summed over the requests."""
+    label = f"rank {rank} of {CARDS}"
+    n32 = CARD_WIDTHS[-1]
+    _check(res["card"] == rank, f"{label}: current card cuda:{res['card']}")
+    _check(res["backend"] == "nccl" and not res["staged"],
+           f"{label}: backend {res['backend']}, staged {res['staged']}: not NCCL card to card")
+    for script, routes in res["routes"].items():
+        want = "sharded:density" if script == "density" else "sharded:state"
+        _check(bool(routes) and all(r in (want, "sharded:cached") for _, r in routes),
+               f"{label}: the {script} requests did not all take {want}: {routes}")
+    for name, r in res["requests"].items():
+        _check(r["devices"] == [f"cuda:{rank}"],
+               f"{label} {name}: card tensors on {r['devices']}, not only cuda:{rank}")
+        if r["n"] is not None:
+            _check(r["largest"][0] < 2 * 2 ** r["n"],
+                   f"{label} {name}: a tensor of {r['largest'][0]} elements ({r['largest'][1]}), "
+                   f"the whole {r['n']}q register or more")
+        if name.endswith("grad"):
+            c, fwd = r["launches"], res["requests"][name.replace("grad", "fwd")]["launches"]
+            _check(c["rotate_pair"] > 0 or fwd["rotate"] == 0,
+                   f"{label} {name}: no B16 launch where the forward rotates: {c}")
+    total = _check_requests(res, refs, label)
+    fwd32 = res["requests"][f"{n32}q fwd"]["answer"]
+    _check(fwd32.shape == (n32,), f"{label}: the {n32}q forward's shape is {fwd32.shape}")
+    res["closed_err"] = float(np.abs(res["closed"] - closed_form_z(REQUESTS[0],
+                                                                    res["closed_rx"])).max())
+    _check(res["closed_err"] <= TOL_CLOSED,
+           f"{label}: {n32}q <Z> at the closed-form angles is {res['closed_err']:.3e} from "
+           f"cos(L x + sum of each qubit's RX angles)")
+    for fd, gd in res["fd"]:
+        tol = TOL_CARD_FD[0] + TOL_CARD_FD[1] * abs(gd)
+        _check(abs(fd - gd) <= tol, f"{label}: {n32}q central difference {fd:.6e} against "
+                                    f"g.d {gd:.6e} (tolerance {tol:.3e})")
+    return total
+
+
+def _nccl_transports() -> dict:
+    """How NCCL connected the ranks, from its INIT logs: counts of the
+    channel lines by transport (``via P2P/...``, ``via SHM/...``, ``via NET/...``)."""
+    import re
+
+    out = {}
+    for path in sorted(CARD_DIR.glob("nccl.*.log")):
+        for line in path.read_text(errors="replace").splitlines():
+            m = re.search(r"\bvia (\S+)", line)
+            if m:
+                out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
+def phase_cards(models: dict, dmodel, smi: str) -> dict:
+    """The sharded route on four cards: ``CARDS`` spawned NCCL ranks, rank r
+    on card r, every exchange card to card; each request held to the
+    single-device route on card 0 where one card holds it, the 32q register
+    to a closed form and a central difference.  With fewer cards it says
+    so and runs nothing.  Returns the launches of phase 5k's requests,
+    every rank's summed."""
+    launches = dict.fromkeys(KERNELS, 0)
+    count = torch.cuda.device_count()
+    if count < CARDS:
+        log(f"phase 5k: the sharded route on {CARDS} cards, one NCCL rank a card, needs {CARDS} "
+            f"cards; this machine shows {count}: not run")
+        return launches
+    t_phase = time.perf_counter()
+    n30, n32 = CARD_WIDTHS
+    log(f"phase 5k: the sharded route on {CARDS} cards, one NCCL rank a card ({smi}): "
+        f"{n30}q and {n32}q Circuit_19 forward and forward + gradient on state={CARDS}, the 24q "
+        f"batch of {SHARD_BATCH} on data=2 x state={CARDS // 2}, the {DENSITY_N}q density")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    for line in (topo.stdout.splitlines() if topo.returncode == 0 else ["(not available)"]):
+        log(f"  topo: {line}")
+    return _phase_cards(models, dmodel, launches, smi, t_phase)
+
+
+def _phase_cards(models: dict, dmodel, launches: dict, smi: str, t_phase: float) -> dict:
+    from qml_essentials_tpu_torch.ops import cuda_kernels as ck
+
+    n30, n32 = CARD_WIDTHS
+    params = {n: _card_model(n).params.detach().cpu().numpy() for n in CARD_WIDTHS}
+    params[WIDTHS[-1]] = models[WIDTHS[-1]].params.detach().cpu().numpy()
+    dparams = dmodel.params.detach().cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    directions = []
+    for _ in range(FD_DIRECTIONS):
+        d = rng.standard_normal(params[n32].shape)
+        directions.append(d / np.linalg.norm(d))
+    refs, fits = _card_refs(params, dparams)
+    log(f"  single-device references on card 0 (best of {SHARD_REPS}): "
+        + ", ".join(f"{k} {v['ms']:.2f} ms" for k, v in refs.items()))
+    log(f"  the {n32}q forward on one card (no_grad): {fits}")
+    free, total = torch.cuda.mem_get_info(0)
+    log(f"  card 0 before the ranks start: {free / 1e9:.2f} of {total / 1e9:.2f} GB free, this "
+        f"process holding {torch.cuda.memory_allocated(0) / 1e9:.3f} GB")
+
+    CARD_DIR.mkdir(parents=True, exist_ok=True)
+    for old in CARD_DIR.glob("nccl.*.log"):
+        old.unlink()
+    ranks = _spawn(CARDS, CARD_DIR / "store", True, card_requests, (params, dparams, directions))
+    for rank in sorted(ranks):
+        c = _check_card(ranks[rank], refs, rank)
+        for k in launches:
+            launches[k] += c[k]
+
+    r0 = ranks[0]
+    log(f"  ranks' cards: {[ranks[r]['card'] for r in sorted(ranks)]} "
+        f"({', '.join(sorted({ranks[r]['name'] for r in ranks}))}); backend "
+        f"{r0['backend']}, exchanges staged: {r0['staged']}")
+    log(f"  NCCL's channels by transport (its INIT logs, all ranks): {_nccl_transports()}")
+    log(f"  routes (rank 0): {r0['routes']}")
+    log(f"  {'request':<18}{'1 card ms':>11}{'4 cards ms':>12}{'first ms':>11}{'exch/req':>10}"
+        f"{'GB sent/req':>13}{'max|delta|':>12}  peak GB a rank (ranks 0-3)")
+    for name, r in r0["requests"].items():
+        ref = refs.get(name)
+        gb = sum(ranks[k]["requests"][name]["bytes"] for k in ranks) / 1e9
+        deltas = [ranks[k]["requests"][name]["delta"] for k in ranks]
+        delta = max(deltas) if None not in deltas else float("nan")
+        peaks = " / ".join(f"{ranks[k]['requests'][name]['peak'] / 1e9:.2f}" for k in sorted(ranks))
+        log(f"  {name:<18}{(ref['ms'] if ref else float('nan')):>11.2f}{r['ms']:>12.2f}"
+            f"{r['first_ms']:>11.1f}{r['exchanges']:>10d}{gb:>13.3f}{delta:>12.2e}  {peaks}")
+    log(f"  ('4 cards ms': rank 0, best of {SHARD_REPS} after the call that builds the program; "
+        f"'GB sent/req' sums the ranks; 'max|delta|' over the ranks, from the single-device "
+        f"route on card 0; nan: no card holds the request; the {n32}q gradient with the default "
+        f"bf16 lambda, the {n30}q one with float32 cotangents on both routes; the ranks' "
+        f"allocator {CARD_ALLOC_CONF})")
+    for name, r in r0["requests"].items():
+        if r["n"] is not None:
+            most = max(ranks[k]["requests"][name]["largest"][0] for k in ranks)
+            log(f"  {name}: the largest tensor a rank made has {most} elements (the whole "
+                f"register {2 * 2 ** r['n']})")
+    log(f"  {n32}q at seeded RX angles, every other angle zero: max|<Z_i> - cos({N_LAYERS} x + "
+        f"sum_l rx[l, i])| over the ranks {max(ranks[k]['closed_err'] for k in ranks):.3e} "
+        f"(<= {TOL_CLOSED})")
+    for i, (fd, gd) in enumerate(r0["fd"]):
+        log(f"  {n32}q central difference, direction {i}: {fd:.6e} against g.d {gd:.6e} "
+            f"(|delta| {abs(fd - gd):.3e})")
+    t = r0["trace"]
+    _log_trace(f"rank 0's traced {n32}q forward", t, smi)
+    if t["busy_ms"] is not None:
+        nccl = sum(us for k, (_, us) in t["by_name"].items() if "nccl" in k.lower()) / 1e3
+        alls = sum(us for _, us in t["by_name"].values()) / 1e3
+        log(f"  rank 0's {n32}q forward: NCCL kernels {nccl:.3f} of {alls:.3f} ms of kernel time, "
+            f"share {nccl / alls:.4f}")
+    log(f"  launches over phase 5k's requests (every rank): "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    for name in SHARD_NEVER:
+        _check(launches[name] == 0, f"phase 5k launched {name}")
+    ck.reset_launch_counts()
+    log(f"  phase 5k took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -5163,7 +5618,8 @@ def main() -> int:
     # The main path: serving (phase 4), saved-residual training (5),
     # adjoint training (5b), the chain route (5d), the noisy density
     # model (5e), the analysis slice (5f), the batch route (5g), pulse
-    # mode (5h), the API surface (5i) and the sharded route (5j), each with
+    # mode (5h), the API surface (5i), the sharded route (5j) and, on four
+    # cards, the sharded route with one NCCL rank a card (5k), each with
     # the counts reset just before it and read just after; every kernel must
     # launch over them.
     models, fwd_launches, refs = phase_slice(shapes)
@@ -5178,9 +5634,11 @@ def main() -> int:
     pulse_launches = phase_pulses(pshapes, smi)
     api_launches = phase_api(models, shapes, smi)
     shard_launches = phase_shard(models, dmodel, smi)
+    card_launches = phase_cards(models, dmodel, smi)
     launches = {k: fwd_launches[k] + grad_launches[k] + adj_launches[k] + chain_launches[k]
                 + density_launches[k] + analysis_launches[k] + batch_launches[k]
-                + pulse_launches[k] + api_launches[k] + shard_launches[k] for k in KERNELS}
+                + pulse_launches[k] + api_launches[k] + shard_launches[k] + card_launches[k]
+                for k in KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")

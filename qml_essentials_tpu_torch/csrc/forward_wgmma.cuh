@@ -473,7 +473,10 @@ inline int encode(CUtensorMap* m, const float* base, int rank, const cuuint64_t*
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The current device's SM count, asked of CUDA once a device and kept.
+// The current device's SM count, asked of CUDA once a device and kept.  The
+// table is process-wide and keyed by device, so a process that changes its
+// current card reads each card's own count; the sharded route runs one
+// process a card (one NCCL rank), whose current card never changes.
 inline int sm_count(int* sms) {
   static int counts[64] = {};
   int dev = 0;

@@ -448,6 +448,9 @@ forward_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
 // CTAs of `fn` an SM at (threads, smem) on the current device, asked of the
 // runtime once, after allowing `fn` all the shared memory the card offers
 // (a smaller limit set for one geometry would refuse a larger one's launch).
+// cudaFuncSetAttribute acts on the current device only, so the entries are
+// keyed by device: a card first seen sets its own limit.  The sharded route
+// runs one process a card (one NCCL rank), whose current card never changes.
 inline int fwd_residency(const void* fn, int threads, size_t smem) {
   struct Entry {
     const void* fn;

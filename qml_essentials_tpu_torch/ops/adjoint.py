@@ -168,39 +168,69 @@ def normalize_plan(
     return tuple(static), tuple(payloads)
 
 
-def _window_view(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both arrays as ``(2, A, 2**k, B)`` views of the support: a scattered
-    support's wires are pulled to the front first (``A = 1``)."""
+# Bytes of each array a support's cotangent reads at once: its plain
+# products make temporaries of a piece of the state, not of the whole (a
+# rank of a 32-qubit register on four cards holds 8.6 GB shards).
+COTANGENT_PIECE_BYTES: int = 1 << 28
+
+
+def _support_pieces(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]):
+    """Both ``(2, 2**n)`` arrays as ``(2, A, 2**k, B)`` blocks of the
+    support, at most ``COTANGENT_PIECE_BYTES`` of each at a time.  Arrays
+    that fit in one piece: one block, views of the support (a scattered
+    one's wires pulled to the front of whole copies first, ``A = 1``).
+    Larger ones: views of a contiguous support cut over ``A`` and ``B``
+    (the qubits above and below it), and for a scattered one the support's
+    qubits (sorted) pulled to the front of each copied piece (``A = 1``)."""
+    n = int(x2.shape[-1]).bit_length() - 1
     srt = [int(w) for w in srt]
     k = len(srt)
-    if not kernels._contiguous(srt):
+    unit = 2 * 2**k * x2.element_size()
+    if x2.numel() * x2.element_size() <= COTANGENT_PIECE_BYTES and not kernels._contiguous(srt):
         pulls, _ = kernels._gather_plan(tuple(srt))
         for p in pulls:
             lam2 = kernels._move_axis_front_ri(lam2, p)
             x2 = kernels._move_axis_front_ri(x2, p)
         srt = list(range(k))
-    A, K = 2 ** srt[0], 2**k
-    return lam2.reshape(2, A, K, -1), x2.reshape(2, A, K, -1)
+    if kernels._contiguous(srt):
+        lv = lam2.reshape(2, 2 ** srt[0], 2**k, -1)
+        xv = x2.reshape(2, 2 ** srt[0], 2**k, -1)
+        for cut in kernels.pieces([lv.shape[1], lv.shape[3]], unit, COTANGENT_PIECE_BYTES):
+            a, b = cut + (slice(None),) * (2 - len(cut))
+            yield lv[:, a, :, b], xv[:, a, :, b]
+        return
+    runs, dims = kernels.bit_runs(n, srt)
+    rest = [1 + i for i in range(len(runs)) if i not in dims]
+    perm = [0] + [1 + i for i in dims] + rest
+    lv = lam2.reshape((2,) + runs).permute(*perm)
+    xv = x2.reshape((2,) + runs).permute(*perm)
+    for cut in kernels.pieces([runs[i - 1] for i in rest], unit, COTANGENT_PIECE_BYTES):
+        part = (slice(None),) * (1 + k) + cut
+        yield lv[part].reshape(2, 1, 2**k, -1), xv[part].reshape(2, 1, 2**k, -1)
 
 
 def _window_cotangent(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]) -> torch.Tensor:
     """Matrix cotangent ``gw = λ conj(x)^T`` restricted to the window, from
     the step-output cotangent ``lam2`` and the rebuilt step input ``x2``;
     the ``(2, K, K)`` (Re, Im) pair."""
-    lv, xv = _window_view(lam2, x2, srt)
-    K = lv.shape[2]
-    lc = lv.transpose(1, 2).reshape(2, K, -1)
-    xc = xv.transpose(1, 2).reshape(2, K, -1)
-    return torch.stack([lc[0] @ xc[0].T + lc[1] @ xc[1].T, lc[1] @ xc[0].T - lc[0] @ xc[1].T])
+    gw = None
+    for lv, xv in _support_pieces(lam2, x2, srt):
+        K = lv.shape[2]
+        lc = lv.transpose(1, 2).reshape(2, K, -1)
+        xc = xv.transpose(1, 2).reshape(2, K, -1)
+        part = torch.stack([lc[0] @ xc[0].T + lc[1] @ xc[1].T, lc[1] @ xc[0].T - lc[0] @ xc[1].T])
+        gw = part if gw is None else gw + part
+    return gw
 
 
 def _diag_cotangent(lam2: torch.Tensor, x2: torch.Tensor, srt: Sequence[int]) -> torch.Tensor:
     """Diagonal cotangent ``gd[j] = sum_{a,b} λ[a,j,b] conj(x)[a,j,b]``."""
-    lv, xv = _window_view(lam2, x2, srt)
-    gr = (lv[0] * xv[0] + lv[1] * xv[1]).sum(dim=(0, 2))
-    gi = (lv[1] * xv[0] - lv[0] * xv[1]).sum(dim=(0, 2))
-    return torch.stack([gr, gi])
+    gd = None
+    for lv, xv in _support_pieces(lam2, x2, srt):
+        part = torch.stack([(lv[0] * xv[0] + lv[1] * xv[1]).sum(dim=(0, 2)),
+                            (lv[1] * xv[0] - lv[0] * xv[1]).sum(dim=(0, 2))])
+        gd = part if gd is None else gd + part
+    return gd
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ Counterpart of ``qml_essentials_tpu/ops/kernels.py``.
 
 from __future__ import annotations
 
+import itertools
 from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
 
@@ -156,6 +157,39 @@ def _gather_plan(wires: Tuple[int, ...]) -> Tuple[Tuple[int, ...], Tuple[int, ..
 
 def _contiguous(srt: List[int]) -> bool:
     return srt == list(range(srt[0], srt[0] + len(srt)))
+
+
+def pieces(dims: Sequence[int], unit: int, limit: int) -> List[tuple]:
+    """Slices over the leading *dims* that cut a block of ``unit *
+    prod(dims)`` bytes into equal pieces of at most *limit* bytes (one
+    piece, ``()``, when the whole fits)."""
+    size = unit * int(np.prod(dims, dtype=np.int64))
+    axes = []
+    for d in dims:
+        if size <= limit:
+            break
+        c = min(d, -(-size // limit))
+        while d % c:
+            c += 1
+        axes.append([slice(i, i + d // c) for i in range(0, d, d // c)])
+        size //= c
+    return list(itertools.product(*axes))
+
+
+def bit_runs(n: int, picked: Sequence[int]) -> Tuple[Tuple[int, ...], List[int]]:
+    """A ``2**n`` axis as few dims: one of 2 for each *picked* qubit
+    position (0 the most significant), one for each run of the others.
+    Returns the dims and each picked position's dim, in *picked*'s order."""
+    runs, dim_of, start = [], {}, 0
+    for v in sorted(picked):
+        if v > start:
+            runs.append(2 ** (v - start))
+        dim_of[v] = len(runs)
+        runs.append(2)
+        start = v + 1
+    if start < n:
+        runs.append(2 ** (n - start))
+    return tuple(runs), [dim_of[v] for v in picked]
 
 
 def apply_matrix_flat(

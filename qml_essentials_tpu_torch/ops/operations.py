@@ -6,9 +6,10 @@ itself on the active recording tape.  Application to a state delegates to
 :mod:`qml_essentials_tpu_torch.ops.kernels`.
 
 Matrices follow their parameters: a gate built from a float64 tensor has a
-complex128 matrix on that tensor's device; parameter-free gates keep
-complex128 class constants on the CPU (as do numpy-built Hermitians), so a
-float64 model computes with them exactly and a float32 one rounds them once.
+complex128 matrix on that tensor's device; a Python or numpy scalar angle
+and parameter-free gates give complex128 matrices on the CPU (as do
+numpy-built Hermitians), so a float64 model computes with them exactly and
+a float32 one rounds them once.
 The simulator casts every matrix to the state's dtype and device where it is
 applied.
 
@@ -78,11 +79,14 @@ def _placed(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> torch.
 
 
 def _param(theta) -> torch.Tensor:
-    """Gate parameter as a real tensor; Python and numpy scalars take the
-    default float32 precision, tensors keep theirs."""
+    """Gate parameter as a real tensor.  Tensors keep their precision;
+    Python and numpy scalars become float64 CPU scalars, so the matrix is
+    exact to double precision and the simulator rounds it once to the
+    working dtype of the script that runs it (as the JAX package does under
+    x64)."""
     if isinstance(theta, torch.Tensor):
         return theta if theta.is_floating_point() else theta.to(DEFAULT_RDTYPE)
-    return torch.as_tensor(float(theta), dtype=DEFAULT_RDTYPE)
+    return torch.as_tensor(float(theta), dtype=torch.float64)
 
 
 class Operation:

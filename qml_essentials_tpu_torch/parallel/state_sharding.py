@@ -20,8 +20,9 @@ ride along as payload of every collective:
   ``2**m`` ranks that differ only in the swapped bits trade one slot each, in
   one ``all_to_all_single`` over the state group whose split sizes are zero
   outside those ranks (or ``2**m - 1`` rounds of paired send/receive,
-  ``BATCHED_EXCHANGE = "ppermute"``, for batched shards).  Slot ``idx`` goes
-  to the rank ``base | spread(idx)``; the slots are put in rank order
+  ``BATCHED_EXCHANGE = "ppermute"``, for batched shards); a shard larger
+  than ``EXCHANGE_PIECE_BYTES`` moves in pieces, one collective a piece.
+  Slot ``idx`` goes to the rank ``base | spread(idx)``; the slots are put in rank order
   explicitly, since that order is not ascending when the pairs' sharded
   positions are not sorted.  A ``gloo`` group with shards on the card stages
   the slots through pinned host memory (``staged``); NCCL takes them as
@@ -89,10 +90,15 @@ CHECKPOINT_MIN_STEPS: int = 16
 # payload) or "ppermute" (2**m - 1 rounds of paired send/receive).
 BATCHED_EXCHANGE: str = "a2a"
 
-# This rank's exchange statistics: collectives run, and bytes sent to other
+# This rank's exchange statistics: exchanges run, and bytes sent to other
 # ranks.  Read and reset by callers that report them.
 EXCHANGES: int = 0
 EXCHANGE_BYTES: int = 0
+
+# An exchange moves its shard in pieces of at most this many bytes, one
+# collective a piece, so that it holds its input, its output and a few
+# pieces at once (a 32-qubit register on four ranks has 8.6 GB shards).
+EXCHANGE_PIECE_BYTES: int = 1 << 28
 
 
 class ShardingUnavailable(NotImplementedError):
@@ -307,12 +313,18 @@ def _members(pairs: Sequence[Tuple[int, int]], g: int, d: int) -> List[int]:
     return out
 
 
+_SLOT_ORDERS: Dict[tuple, torch.Tensor] = {}
+
+
 def _a2a(x: torch.Tensor, members: List[int], ax: _Axis) -> torch.Tensor:
     """Slot ``idx`` of *x* ``(M, C)`` to rank ``members[idx]``; slot ``idx``
     of the result from it.  One ``all_to_all_single`` over the whole group,
     zero rows outside the exchange group, slots put in rank order."""
     order = sorted(range(len(members)), key=members.__getitem__)
-    perm = torch.tensor(order, device=x.device)
+    key = (tuple(order), x.device)
+    perm = _SLOT_ORDERS.get(key)
+    if perm is None:  # one upload an order, not one a piece
+        perm = _SLOT_ORDERS[key] = torch.tensor(order, device=x.device)
     send = _wire(x.index_select(0, perm), ax)
     recv = torch.empty_like(send)
     splits = [0] * ax.D
@@ -344,26 +356,35 @@ def _exchange_bits(local: torch.Tensor, pairs: Sequence[Tuple[int, int]], ax: _A
                    via_ppermute: bool = False) -> torch.Tensor:
     """Swap sharded positions with local ones: ``local`` is ``(..., 2**nl)``
     (Re/Im, a batch, or ψ and λ stacked lead), ``pairs`` ``(global_pos,
-    victim_pos)``.  The victim axes become the slot axis; the leading axes
-    ride along as payload."""
+    victim_pos)``.  The victim axes become the slot axes; the leading axes
+    ride along as payload.  The amplitude axis is viewed as one dim a
+    victim position and one a run of the others (a few dims at any width),
+    and the shard moves in pieces (:data:`EXCHANGE_PIECE_BYTES`), each
+    gathered from that view with its slot dims first and written back
+    through the same view of the result."""
     global EXCHANGES, EXCHANGE_BYTES
     g = int(math.log2(ax.D))
     nl = int(local.shape[-1]).bit_length() - 1
     lead = tuple(local.shape[:-1])
     o = len(lead)
     m = len(pairs)
-    laxes = [v - g for _, v in pairs]
-    perm = [o + a for a in laxes] + list(range(o)) + [o + a for a in range(nl) if a not in laxes]
-    x = local.reshape(lead + (2,) * nl).permute(*perm).reshape(2**m, -1)
+    runs, dims = kernels.bit_runs(nl, [v - g for _, v in pairs])
+    slots = [o + i for i in dims]
+    perm = slots + list(range(o)) + [o + i for i in range(len(runs)) if o + i not in slots]
+    shape = lead + tuple(runs)
+    x = local.reshape(shape).permute(*perm)
+    out = torch.empty(local.shape, dtype=local.dtype, device=local.device)
+    y = out.view(shape).permute(*perm)
     members = _members(pairs, g, ax.d)
-    if via_ppermute and BATCHED_EXCHANGE == "ppermute":
-        y = _rounds(x, members, ax)
-    else:
-        y = _a2a(x, members, ax)
+    move = _rounds if via_ppermute and BATCHED_EXCHANGE == "ppermute" else _a2a
+    for cut in kernels.pieces(tuple(x.shape[m:]), 2**m * local.element_size(),
+                              EXCHANGE_PIECE_BYTES):
+        part = (slice(None),) * m + cut
+        xs = x[part]
+        y[part] = move(xs.reshape(2**m, -1), members, ax).view(xs.shape)
     EXCHANGES += 1
-    EXCHANGE_BYTES += (2**m - 1) * x.shape[1] * x.element_size()
-    inv = [int(i) for i in np.argsort(perm)]
-    return y.reshape((2,) * m + lead + (2,) * (nl - m)).permute(*inv).reshape(local.shape)
+    EXCHANGE_BYTES += (2**m - 1) * (local.numel() >> m) * local.element_size()
+    return out
 
 
 class _Exchange(torch.autograd.Function):
@@ -439,8 +460,9 @@ class _ShardedPlan(torch.autograd.Function):
             psi, lam, gs = adjoint.walk_back(meta.static[s:e], meta.nl, psi, payloads[s:e], lam)
             grads[s:e] = gs
             if meta.exchanges[s]:
-                both = _exchange_bits(torch.cat([psi, lam.to(psi.dtype)]), meta.exchanges[s],
-                                      meta.ax, meta.via_ppermute)
+                both = torch.cat([psi, lam.to(psi.dtype)])
+                psi = lam = None  # the exchange holds ψ and λ once, stacked
+                both = _exchange_bits(both, meta.exchanges[s], meta.ax, meta.via_ppermute)
                 psi, lam = both[:2], both[2:]
         return (None, None, *_all_reduce_list(grads, meta.ax, payloads))
 
@@ -563,10 +585,16 @@ class ShardedStateSim:
             raise ValueError("more state shards than qubits")
         self.g = g
         self.dtype = dtype
-        if device is None:
-            device = (torch.device("cuda", torch.cuda.current_device())
-                      if mesh.device_type == "cuda" else torch.device(mesh.device_type))
-        self.device = torch.device(device)
+        device = torch.device(mesh.device_type if device is None else device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if (device.type == "cuda" and dist.get_backend(self.comm.group) == "nccl"
+                and device.index != torch.cuda.current_device()):
+            raise ValueError(
+                f"shards on {device}, but this rank's current card is "
+                f"cuda:{torch.cuda.current_device()}: NCCL exchanges on the current card "
+                "(call torch.cuda.set_device(rank) before init_process_group)")
+        self.device = device
         # The adjoint walk undoes each window by its dagger: unitary tapes
         # only.  The density engine clears this.
         self.adjointable = True

@@ -547,6 +547,35 @@ def test_scattered_windows_in_the_large_regime_match_jax(monkeypatch, lam):
         assert np.abs(g.numpy() - r).max() <= tol * np.abs(r).max()
 
 
+@pytest.mark.unittest
+@pytest.mark.parametrize("piece_bytes", [64, 256])
+def test_scattered_cotangents_in_pieces_match_the_whole(monkeypatch, piece_bytes):
+    """Scattered and contiguous windows' and diagonals' cotangents read
+    both arrays a piece at a time (``COTANGENT_PIECE_BYTES``): the same
+    gradients as in one piece, to rounding."""
+    n = 7
+    static = (("mat", (0, 2, 5)), ("diag", (1, 6)), ("mat", (3, 4)), ("diag", (4, 5)))
+    rng = np.random.default_rng(8)
+
+    def phases(k):
+        return np.stack([np.cos(rng.uniform(0, 6, 2**k)), np.sin(rng.uniform(0, 6, 2**k))])
+
+    pays = [_unitary_pair(rng, 3), phases(2), _unitary_pair(rng, 2), phases(2)]
+    psi = rng.normal(size=(2, 2**n))
+    tgt = torch.from_numpy(rng.normal(size=(2, 2**n)))
+
+    def grads():
+        ps = torch.from_numpy(psi).requires_grad_()
+        ws = [torch.from_numpy(w).requires_grad_() for w in pays]
+        out = adjoint.execute_plan_ri(ps, ws, static, n)
+        return torch.autograd.grad((out * tgt).sum(), [ps, *ws])
+
+    whole = grads()
+    monkeypatch.setattr(adjoint, "COTANGENT_PIECE_BYTES", piece_bytes)
+    for g, w in zip(grads(), whole):
+        assert np.abs(g.numpy() - w.numpy()).max() <= 1e-12 * np.abs(w.numpy()).max()
+
+
 # ---------------------------------------------------------------------------
 # The backward rule, and one decision per batch
 # ---------------------------------------------------------------------------

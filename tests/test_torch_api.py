@@ -72,8 +72,11 @@ def jax_pulse_state():
 @contextmanager
 def jax_x64():
     """JAX with x64 enabled and the operation classes' constant matrices in
-    complex128, as they are when the package is imported under x64."""
-    promoted = {}
+    complex128, as they are when the package is imported under x64: the
+    classes' own, and the Pauli matrices the rotation classes keep in their
+    closures and in tables (exact in complex64, so promoting them changes no
+    value; left complex64, they would round a Python-float angle's sine)."""
+    promoted, cells, entries = {}, [], []
     jax.config.update("jax_enable_x64", True)
     try:
         for cls in vars(jo).values():
@@ -81,8 +84,27 @@ def jax_x64():
             if m is not None and getattr(m, "dtype", None) == jnp.complex64:
                 promoted[cls] = m
                 cls._matrix = m.astype(jnp.complex128)
+        tables = [vars(c) for c in vars(jo).values() if isinstance(c, type)] + [vars(jo)]
+        for table in tables:
+            for v in list(table.values()):
+                if isinstance(v, (dict, list)):
+                    for k in (v.keys() if isinstance(v, dict) else range(len(v))):
+                        if getattr(v[k], "dtype", None) == jnp.complex64:
+                            entries.append((v, k, v[k]))
+                            v[k] = v[k].astype(jnp.complex128)
+        for cls in vars(jo).values():
+            init = vars(cls).get("__init__") if isinstance(cls, type) else None
+            for cell in getattr(init, "__closure__", None) or ():
+                v = cell.cell_contents
+                if getattr(v, "dtype", None) == jnp.complex64:
+                    cells.append((cell, v))
+                    cell.cell_contents = v.astype(jnp.complex128)
         yield
     finally:
+        for cell, v in cells:
+            cell.cell_contents = v
+        for v, k, m in reversed(entries):
+            v[k] = m
         for cls, m in promoted.items():
             cls._matrix = m
         jax.config.update("jax_enable_x64", False)
@@ -506,6 +528,88 @@ def test_gates_instance_accessor_records_as_jax(gate_mode):
         _close(o.matrix, j.matrix, 1e-6 if gate_mode == "unitary" else 5e-5)
     with pytest.raises(AttributeError):
         Gates().__wrapped__  # noqa: B018 - dunder lookups stay attribute errors
+
+
+# ---------------------------------------------------------------------------
+# Scalar angles take the script's precision
+# ---------------------------------------------------------------------------
+
+# Every gate class that takes an angle, by the route its angle comes by
+# (``_pauli_exponential``, ``ControlledPhaseShift``, ``ControlledPauliRot``,
+# ``Rot``'s three, ``PauliRot`` and its fixed-word subclasses).
+ANGLE_GATES = {
+    "RX": lambda m, a: m.RX(a, wires=1),
+    "RY": lambda m, a: m.RY(a, wires=1),
+    "RZ": lambda m, a: m.RZ(a, wires=1),
+    "ControlledPhaseShift": lambda m, a: m.ControlledPhaseShift(a, wires=[0, 2]),
+    "CRX": lambda m, a: m.CRX(a, wires=[2, 0]),
+    "CRY": lambda m, a: m.CRY(a, wires=[2, 0]),
+    "CRZ": lambda m, a: m.CRZ(a, wires=[2, 0]),
+    "Rot": lambda m, a: m.Rot(a, a * 0.5 + 0.25, a - 1.5, wires=1),
+    "PauliRot": lambda m, a: m.PauliRot(a, "XZY", wires=[0, 1, 2]),
+    "RXX": lambda m, a: m.RXX(a, wires=[1, 2]),
+    "RYY": lambda m, a: m.RYY(a, wires=[1, 2]),
+    "RZZ": lambda m, a: m.RZZ(a, wires=[1, 2]),
+    "RZX": lambda m, a: m.RZX(a, wires=[1, 2]),
+}
+SCALARS = {"python": float, "numpy": np.float64}
+
+
+def _scalar_circuit(m, name, scalar):
+    """RY(scalar) on every wire, then the gate under test with a scalar
+    angle (every angle a Python or numpy scalar)."""
+    def circuit():
+        for w in range(3):
+            m.RY(scalar(0.3 + 0.4 * w), wires=w)
+        ANGLE_GATES[name](m, scalar(0.7))
+    return circuit
+
+
+def _scalar_answers(name, scalar, dtype):
+    """(state, <Z> on every wire) of the circuit in the port (*dtype*) and
+    in the JAX package (x64 for float64)."""
+    from qml_essentials_tpu.core.executor import Script as JaxScript
+    from qml_essentials_tpu_torch.core.executor import Script
+
+    def jax_run():
+        s = JaxScript(_scalar_circuit(jo, name, scalar), n_qubits=3)
+        return (_np(s.execute(type="state")),
+                _np(s.execute(type="expval", obs=[jo.PauliZ(w, record=False)
+                                                   for w in range(3)])))
+
+    s = Script(_scalar_circuit(to, name, scalar), n_qubits=3, device="cpu", dtype=dtype)
+    got = (s.execute(type="state"),
+           s.execute(type="expval", obs=[to.PauliZ(w, record=False) for w in range(3)]))
+    if dtype == torch.float64:
+        with jax_x64():
+            ref = jax_run()
+    else:
+        ref = jax_run()
+    return got, ref
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("scalar", list(SCALARS))
+@pytest.mark.parametrize("name", list(ANGLE_GATES))
+def test_scalar_angles_run_at_float64(name, scalar):
+    """A float64 script whose gates take Python or numpy scalar angles
+    computes them in float64, as the JAX package does under x64 (a float32
+    angle would leave the state ~5e-9 off)."""
+    (state, z), (ref_state, ref_z) = _scalar_answers(name, SCALARS[scalar], torch.float64)
+    assert state.dtype == torch.complex128 and z.dtype == torch.float64
+    _close(state, ref_state)
+    _close(z, ref_z)
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("name", ["RX", "CRY", "Rot", "RZX"])
+def test_scalar_angles_in_float32_scripts_match_jax(name):
+    """A float32 script rounds the float64 scalar gate once to complex64: it
+    agrees with the JAX package's float32 path at the float32 tolerance."""
+    (state, z), (ref_state, ref_z) = _scalar_answers(name, float, torch.float32)
+    assert state.dtype == torch.complex64 and z.dtype == torch.float32
+    _close(state, ref_state, 1e-6)
+    _close(z, ref_z, 1e-6)
 
 
 # ---------------------------------------------------------------------------

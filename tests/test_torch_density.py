@@ -492,7 +492,7 @@ def test_gate_error_zero_is_noise_free():
     """sigma = 0 leaves every angle as it was: the same gates, the same
     answers as without the knob."""
     thetas = _perturbed(0.0, 5, w=0.37)
-    assert (thetas == torch.tensor(0.37, dtype=torch.float32).double()).all()
+    assert (thetas == torch.tensor(0.37, dtype=torch.float64)).all()  # the Python float, exactly
     _, tm = _models(4)
     ref = tm(inputs=X, noise_params={"BitFlip": 0.02}).detach()
     got = tm(inputs=X, noise_params={"BitFlip": 0.02, "GateError": 0.0}).detach()

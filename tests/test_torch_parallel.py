@@ -349,6 +349,49 @@ def test_exchanges_swap_the_positions(ranks):
         assert errs == [0.0] * len(cases)
 
 
+@pytest.mark.unittest
+@pytest.mark.parametrize("piece_bytes", [64, 16])
+def test_exchanges_in_pieces_swap_the_positions(ranks, piece_bytes):
+    """A shard larger than ``EXCHANGE_PIECE_BYTES`` moves in pieces, one
+    collective a piece: 64 bytes cuts the Re/Im and batch dims, 16 bytes
+    the runs of local positions too."""
+    pairs = ([[0, 2]], [[0, 3], [1, 2]], [[1, 4], [0, 3]], [[1, 5], [0, 6]])
+    cases = [(p, b, f) for p in pairs for b in (None, 3) for f in ("a2a", "ppermute")]
+    for errs in ranks.run("exchanges", 7, 4, cases, piece_bytes):
+        assert errs == [0.0] * len(cases)
+
+
+@pytest.mark.unittest
+def test_every_rank_holds_only_its_shard(ranks):
+    """At 14 qubits on ``state=4`` no rank creates a tensor as large as the
+    whole real-split register (2 * 2**14 elements) while it builds the
+    model, runs a forward and a forward + gradient; and the exchanges in
+    1 KiB pieces give the same answers, bit for bit."""
+    n = 14
+    params = np.random.default_rng(3).uniform(0, 2 * np.pi, (3, 3 * n))
+    for a in ranks.run("largest_tensors", n, params, 0.37):
+        assert a["decisions"] and all(r == "sharded:state" or r == "sharded:cached"
+                                      for _, r in a["decisions"])
+        for what in ("forward", "gradient"):
+            numel, op = a[what]
+            assert numel < 2 * 2**n, (what, numel, op)
+        whole, pieces = a["answers"][None], a["answers"][1024]
+        np.testing.assert_array_equal(whole[0], pieces[0])
+        np.testing.assert_array_equal(whole[1], pieces[1])
+
+
+@pytest.mark.unittest
+def test_sharded_routes_read_no_free_memory(ranks):
+    """No sharded request reads free memory: each rank's would differ, and
+    a choice made from it could send the ranks down different collectives."""
+    params = np.random.default_rng(5).uniform(0, 2 * np.pi, (2, 12))
+    inputs = np.linspace(-1.0, 1.0, 4).reshape(-1, 1)
+    for a in ranks.run("free_memory_reads", 4, params, inputs):
+        assert a["reads"] == 0
+        assert len(a["decisions"]) == 3
+        assert all(r.startswith("sharded:") for _, r in a["decisions"]), a["decisions"]
+
+
 # ---------------------------------------------------------------------------
 # Outputs and gradients
 # ---------------------------------------------------------------------------

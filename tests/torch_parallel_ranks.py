@@ -371,13 +371,19 @@ def model_requests(n_qubits: int, n_layers: int, params, inputs, mesh_spec, nois
     return {"out": _np(out), "grad": _np(g), "decisions": list(m.script.sharding_decisions)}
 
 
-def exchanges(n: int, seed: int, cases) -> list:
+def exchanges(n: int, seed: int, cases, piece_bytes=None) -> list:
     """:func:`_exchange_bits` on a 4-rank state mesh against the definition
     (the physical positions of each pair swapped), for each ``(pairs,
-    batch, form)``; returns max|error| per case."""
+    batch, form)``, in pieces of at most *piece_bytes* when given; returns
+    max|error| per case."""
     import torch
 
     from qml_essentials_tpu_torch.parallel import state_sharding as ss
+
+    if piece_bytes is not None:
+        with _Knobs({"qml_essentials_tpu_torch.parallel.state_sharding.EXCHANGE_PIECE_BYTES":
+                     piece_bytes}):
+            return exchanges(n, seed, cases)
 
     ax = ss._Axis(_mesh(((4,), ("state",))), "state")
     g = 2
@@ -444,3 +450,96 @@ def direct_sims(n: int) -> dict:
         raised = True
     return {"psi": _np(psi), "zz": _np(zz), "z": _np(z_helper), "rho": _np(rho),
             "noise_raises": raised}
+
+
+def largest_tensors(n: int, params, x: float) -> dict:
+    """The largest tensor (elements, and the operation that made it) this
+    rank creates while it builds a float64 Circuit_19 ``Model`` (2 layers)
+    on a 4-rank ``state`` mesh and runs a forward, then a forward +
+    gradient (a ``TorchDispatchMode`` sees every tensor an operation
+    returns); and the answers with the exchanges in whole shards and in
+    pieces of 1 KiB."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.models.model import Model
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel, self.op = 0, None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.numel() > self.numel:
+                    self.numel, self.op = t.numel(), str(func)
+            return out
+
+    parallel.set_mesh(_mesh(((4,), ("state",))))
+    try:
+        fwd, grad = Largest(), Largest()
+        with fwd:
+            m = Model(n_qubits=n, n_layers=2, circuit_type="Circuit_19", device="cpu",
+                      dtype=torch.float64)
+            m.load_numpy(np.asarray(params))
+            m(inputs=x)
+        with grad:
+            out = m(inputs=x)
+            out.mean().backward()
+        answers = {}
+        for piece in (None, 1024):
+            knob = {} if piece is None else {
+                "qml_essentials_tpu_torch.parallel.state_sharding.EXCHANGE_PIECE_BYTES": piece}
+            with _Knobs(knob):
+                m.zero_grad()
+                out = m(inputs=x)
+                out.mean().backward()
+                answers[piece] = (_np(out), _np(m.params.grad))
+    finally:
+        parallel.set_mesh(None)
+    return {"forward": (fwd.numel, fwd.op), "gradient": (grad.numel, grad.op),
+            "answers": answers, "decisions": list(m.script.sharding_decisions)}
+
+
+def free_memory_reads(n: int, params, inputs) -> dict:
+    """How often the executor reads free memory (``memory.available_memory_bytes``)
+    while a float64 Circuit_19 ``Model`` (1 layer) runs a forward +
+    gradient on ``state=4`` and a batch forward + gradient on ``data=2 x
+    state=2``, and a noisy forward on ``state=4``: a choice read off one
+    rank's free memory could send the ranks down different collectives."""
+    import torch
+
+    from qml_essentials_tpu_torch import parallel
+    from qml_essentials_tpu_torch.core import memory
+    from qml_essentials_tpu_torch.models.model import Model
+
+    reads = []
+    read = memory.available_memory_bytes
+
+    def counted(*a, **k):
+        reads.append(1)
+        return read(*a, **k)
+
+    m = Model(n_qubits=n, n_layers=1, circuit_type="Circuit_19", device="cpu",
+              dtype=torch.float64)
+    m.load_numpy(np.asarray(params))
+    memory.available_memory_bytes = counted
+    decisions = []
+    try:
+        for spec, x, noise in ((((4,), ("state",)), inputs[:1], None),
+                               ((((2, 2), ("data", "state"))), inputs, None),
+                               (((4,), ("state",)), inputs[:1], {"BitFlip": 0.05})):
+            parallel.set_mesh(_mesh(spec))
+            try:
+                m.zero_grad()
+                out = m(inputs=torch.as_tensor(x), noise_params=noise)
+                out.sum().backward()
+            finally:
+                parallel.set_mesh(None)
+        decisions = list(m.script.sharding_decisions)
+    finally:
+        memory.available_memory_bytes = read
+    return {"reads": len(reads), "decisions": decisions}
