@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: ``python -m pytest benchmark/tests -q`` from the
+checkout's root.  They import the harness as the package ``benchmark``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
