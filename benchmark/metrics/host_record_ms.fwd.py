@@ -1,0 +1,11 @@
+"""Per-layer: the program's ``script.record`` spans, milliseconds a request
+(the circuit's recording; a batch's includes the check of its last element).
+Read under the profiler, which slows the host about 3x: a comparison
+between versions of the program, as ``idle_share.*`` is, not the untraced
+window's time (:mod:`benchmark.lib.program_spans`)."""
+
+from benchmark.lib import program_spans
+
+
+def read(run: dict):
+    return program_spans.host_ms(run, ("script.record",))

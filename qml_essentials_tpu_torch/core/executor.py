@@ -85,7 +85,7 @@ from qml_essentials_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from qml_essentials_tpu_torch.ops import chains, recipes, simulation
 from qml_essentials_tpu_torch.ops.operations import KrausChannel, Operation
 from qml_essentials_tpu_torch.ops.tape import pulse_recording, recording
-from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
+from qml_essentials_tpu_torch.utils import GeneratorBatch, profiling, safe_random_split
 
 logger = logging.getLogger(__name__)
 
@@ -256,10 +256,13 @@ class Script:
                  batch: int = 1, choice: Optional[simulation.BackwardChoice] = None,
                  shots: Optional[int] = None, generator: Optional[torch.Generator] = None,
                  ) -> torch.Tensor:
-        tape = self._record(*args, **kwargs)
-        n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
-        use_density = simulation.uses_density(tape, type)
-        _, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
+        with profiling.span("script.record"):
+            tape = self._record(*args, **kwargs)
+        with profiling.span("plan.prepare"):
+            n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
+            use_density = simulation.uses_density(tape, type)
+            _, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
+            simulation.engine(tape, slot, n_qubits, use_density, self.dtype, self.device)
         return simulation.simulate_and_measure(
             tape, n_qubits, type, obs, use_density, shots=shots, generator=generator,
             dtype=self.dtype, device=self.device, batch=batch, choice=choice, plans=slot,
@@ -607,14 +610,16 @@ class Script:
 
     def _execute_vectorised(self, type, obs, args, kwargs, in_axes, batch, choice, shots,
                             shot_gens) -> torch.Tensor:
-        tape = self._record_batch(args, in_axes, kwargs, batch)
-        n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
-        use_density = simulation.uses_density(tape, type)
-        key, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
-        chunk = self._chunk_size(key, slot, tape, n_qubits, type, len(obs), use_density, batch,
-                                 choice)
-        self._log_route(simulation.batch_route(tape, slot, n_qubits, type, use_density,
-                                               self.dtype, self.device, batch, choice))
+        with profiling.span("script.record"):
+            tape = self._record_batch(args, in_axes, kwargs, batch)
+        with profiling.span("plan.prepare"):
+            n_qubits = self._n_qubits or simulation.infer_n_qubits(tape, obs)
+            use_density = simulation.uses_density(tape, type)
+            key, slot = self._slot(tape, n_qubits, type, obs, use_density, shots)
+            chunk = self._chunk_size(key, slot, tape, n_qubits, type, len(obs), use_density,
+                                     batch, choice)
+            self._log_route(simulation.batch_route(tape, slot, n_qubits, type, use_density,
+                                                   self.dtype, self.device, batch, choice))
 
         def run(rows: torch.Tensor, gens: list) -> torch.Tensor:
             start = int(rows[0])

@@ -55,7 +55,7 @@ from qml_essentials_tpu_torch.models.gates import Gates, PulseInformation
 from qml_essentials_tpu_torch.ops import operations as op
 from qml_essentials_tpu_torch.ops.operations import KrausChannel
 from qml_essentials_tpu_torch.ops.tape import recording
-from qml_essentials_tpu_torch.utils import GeneratorBatch, safe_random_split
+from qml_essentials_tpu_torch.utils import GeneratorBatch, profiling, safe_random_split
 
 log = logging.getLogger(__name__)
 
@@ -851,8 +851,11 @@ class Model(nn.Module):
 
     # ================================================================ forward
     def forward(self, params=None, inputs=None, **kwargs) -> torch.Tensor:
-        """Execute the model; see :meth:`_forward`."""
-        return self._forward(params=params, inputs=inputs, **kwargs)
+        """Execute the model; see :meth:`_forward`.  Under a profiler the
+        call is a ``model.forward`` span, the request of every span inside it
+        (:mod:`~qml_essentials_tpu_torch.utils.profiling`)."""
+        with profiling.span("model.forward", opens_request=True):
+            return self._forward(params=params, inputs=inputs, **kwargs)
 
     def _forward(
         self,

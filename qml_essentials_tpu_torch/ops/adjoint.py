@@ -74,6 +74,7 @@ from qml_essentials_tpu_torch.ops.operations import (
     KrausChannel,
     Operation,
 )
+from qml_essentials_tpu_torch.utils import profiling
 
 # Session flag (the reference's switch).  ``BACKWARD_MODE`` alone picks the
 # executor; with the flag off, a gradient that a forced mode or the residual
@@ -377,20 +378,23 @@ def walk_back(static: tuple, n: int, psi2: torch.Tensor, payloads: Sequence[torc
 
 
 class _AdjointPlan(torch.autograd.Function):
-    """``(psi2, *payloads) -> final state`` with the adjoint-state backward."""
+    """``(psi2, *payloads) -> final state`` with the adjoint-state backward,
+    a ``run.backward`` span under a profiler, with its forward's request."""
 
     @staticmethod
     def forward(ctx, psi2, static, n, *payloads):
         out = _forward(psi2, payloads, static, n)
         ctx.static, ctx.n = static, n
+        ctx.request = profiling.current_request()
         ctx.save_for_backward(out, *payloads)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        out, *payloads = ctx.saved_tensors
-        lam, grads = _bwd(ctx.static, ctx.n, out, payloads, g.contiguous())
+        with profiling.span("run.backward", request=ctx.request):
+            out, *payloads = ctx.saved_tensors
+            lam, grads = _bwd(ctx.static, ctx.n, out, payloads, g.contiguous())
         return (lam, None, None, *grads)
 
 

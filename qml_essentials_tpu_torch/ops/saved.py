@@ -39,6 +39,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from qml_essentials_tpu_torch.ops import cuda_kernels, kernels
+from qml_essentials_tpu_torch.utils import profiling
 
 # Escape hatch: route large-state gradients through the per-kernel autograd
 # Functions instead of the plan-level executor.
@@ -173,21 +174,24 @@ def _bwd(static: tuple, n: int, saves: Sequence[torch.Tensor],
 
 
 class _SavedPlan(torch.autograd.Function):
-    """``(psi2, *payloads) -> final state`` with the saved-residual backward."""
+    """``(psi2, *payloads) -> final state`` with the saved-residual backward,
+    a ``run.backward`` span under a profiler, with its forward's request."""
 
     @staticmethod
     def forward(ctx, psi2, static, n, *payloads):
         out, saves = _forward_saving(psi2, payloads, static, n)
         ctx.static, ctx.n, ctx.n_saves = static, n, len(saves)
+        ctx.request = profiling.current_request()
         ctx.save_for_backward(*saves, *payloads)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        tensors = ctx.saved_tensors
-        saves, payloads = tensors[: ctx.n_saves], tensors[ctx.n_saves:]
-        lam, grads = _bwd(ctx.static, ctx.n, saves, payloads, g.contiguous())
+        with profiling.span("run.backward", request=ctx.request):
+            tensors = ctx.saved_tensors
+            saves, payloads = tensors[: ctx.n_saves], tensors[ctx.n_saves:]
+            lam, grads = _bwd(ctx.static, ctx.n, saves, payloads, g.contiguous())
         return (lam, None, None, *grads)
 
 

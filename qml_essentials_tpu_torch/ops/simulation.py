@@ -81,7 +81,7 @@ from qml_essentials_tpu_torch.ops.operations import (
     KrausChannel,
     Operation,
 )
-from qml_essentials_tpu_torch.utils import safe_random_split
+from qml_essentials_tpu_torch.utils import profiling, safe_random_split
 
 # Maximum combined support (in qubits) of a fused gate block below the
 # large-state regime.  Set to 0/1 to disable fusion.
@@ -744,12 +744,15 @@ class PlanSlot:
 
     def skeleton(self, kind: str, build, tape: List[Operation]):
         if kind not in self.skeletons:
-            self.skeletons[kind] = build(recipes.proxy_tape(tape))
+            with profiling.span("plan.build"):
+                self.skeletons[kind] = build(recipes.proxy_tape(tape))
         return self.skeletons[kind]
 
     def get(self, kind: str, build, tape: List[Operation], rows=None):
-        """The engine's plan for *tape* (its rows *rows* of a batch)."""
-        return recipes.materialize(self.skeleton(kind, build, tape), tape, rows)
+        """The engine's plan for *tape* (its rows *rows* of a batch): a
+        ``plan.materialize`` span under a profiler."""
+        with profiling.span("plan.materialize"):
+            return recipes.materialize(self.skeleton(kind, build, tape), tape, rows)
 
 
 def _elements(tape: List[Operation], rows) -> Optional[int]:
@@ -982,9 +985,18 @@ def simulate_mixed_ri(
     what it cannot lower.
     """
     slot = PlanSlot() if plans is None else plans
-    plan = slot.get("mixed", lambda t: mixed_plan(t, n_qubits, dtype, device), tape, rows)
+    plan = slot.get("mixed", _mixed_build(n_qubits, dtype, device), tape, rows)
+    return _run_mixed(plan, n_qubits, dtype, device, _elements(tape, rows))
+
+
+def _mixed_build(n_qubits: int, dtype, device):
+    return lambda t: mixed_plan(t, n_qubits, dtype, device)
+
+
+def _run_mixed(plan: list, n_qubits: int, dtype, device, elements: Optional[int]
+               ) -> torch.Tensor:
     n2 = 2 * n_qubits
-    rho2 = kernels.zero_density_ri(n_qubits, dtype, device, _elements(tape, rows))
+    rho2 = kernels.zero_density_ri(n_qubits, dtype, device, elements)
     for kind, payload, wires in plan:
         if kind == "dens_op":
             rho2 = payload.apply_to_density_ri(rho2, n_qubits)
@@ -1276,8 +1288,8 @@ def simulate_and_measure(
     ])
 
 
-def _engine(tape: List[Operation], slot: PlanSlot, n_qubits: int, use_density: bool,
-            dtype, device) -> Tuple[str, int]:
+def engine(tape: List[Operation], slot: PlanSlot, n_qubits: int, use_density: bool,
+           dtype, device) -> Tuple[str, int]:
     """The engine a tape runs on and its register width: ``"pure"`` (n),
     ``"outer"`` (a noise-free density: the statevector, n), ``"interleaved"``
     or ``"mixed"`` (2n)."""
@@ -1296,14 +1308,14 @@ def payload_bytes(slot: PlanSlot, tape: List[Operation], n_qubits: int, use_dens
     each step's complex matrix (or diagonal) and its real-split pair, alive
     for the whole run (the executor's memory estimate adds them per
     element)."""
-    engine, _ = _engine(tape, slot, n_qubits, use_density, dtype, device)
-    if engine in ("pure", "outer"):
+    eng, _ = engine(tape, slot, n_qubits, use_density, dtype, device)
+    if eng in ("pure", "outer"):
         plan = slot.skeleton("pure", _pure_build(n_qubits, dtype, device), tape)[0]
-    elif engine == "interleaved":
+    elif eng == "interleaved":
         plan = slot.skeleton("interleaved", _interleaved_build(n_qubits, dtype, device),
                              tape)[0]
     else:
-        plan = slot.skeleton("mixed", lambda t: mixed_plan(t, n_qubits, dtype, device), tape)
+        plan = slot.skeleton("mixed", _mixed_build(n_qubits, dtype, device), tape)
     per = 4 * torch.empty((), dtype=dtype).element_size()  # complex + real-split pair
     total = 0
     for kind, payload, wires in plan:
@@ -1334,10 +1346,10 @@ def batch_route(tape: List[Operation], slot: PlanSlot, n_qubits: int, type: str,
     (*choice*, made here from the plan's length and *batch*) sends to the
     adjoint executor.  The executor logs what this returns, and
     :func:`simulate_and_measure` runs it."""
-    engine, width = _engine(tape, slot, n_qubits, use_density, dtype, device)
+    kind, width = engine(tape, slot, n_qubits, use_density, dtype, device)
     if width >= LARGE_STATE_MIN_N:
         return f"per element: {width} wires, from LARGE_STATE_MIN_N = {LARGE_STATE_MIN_N}"
-    if engine in ("pure", "outer") and _tape_needs_grad(tape):
+    if kind in ("pure", "outer") and _tape_needs_grad(tape):
         plan, _ = slot.skeleton("pure", _pure_build(n_qubits, dtype, device), tape)
         if choice.use_adjoint(plan, n_qubits, batch, device):
             return "per element: the adjoint backward"
@@ -1347,35 +1359,42 @@ def batch_route(tape: List[Operation], slot: PlanSlot, n_qubits: int, type: str,
 def _simulate(tape, slot, rows, elements, n_qubits, type, obs, use_density, shots, generator,
               dtype, device, batch, choice) -> torch.Tensor:
     """One simulation: a single tape, one row of a batched tape (*rows* an
-    int), or a batch of *elements* rows run vectorised."""
+    int), or a batch of *elements* rows run vectorised.  The plan is
+    materialized first; the run and the readout are one ``run.forward``
+    span under a profiler."""
     dim = 2**n_qubits
     sampled = shots is not None and type in ("probs", "expval")
-    if use_density:
-        engine, _ = _engine(tape, slot, n_qubits, use_density, dtype, device)
-        if engine == "interleaved":
-            plan, psi2 = slot.get("interleaved", _interleaved_build(n_qubits, dtype, device),
-                                  tape, rows)
+    kind = engine(tape, slot, n_qubits, use_density, dtype, device)[0] if use_density else "pure"
+    if kind == "interleaved":
+        plan, psi2 = slot.get("interleaved", _interleaved_build(n_qubits, dtype, device),
+                              tape, rows)
+    elif kind == "mixed":
+        plan = slot.get("mixed", _mixed_build(n_qubits, dtype, device), tape, rows)
+    else:
+        plan, psi2 = slot.get("pure", _pure_build(n_qubits, dtype, device), tape, rows)
+    with profiling.span("run.forward"):
+        if kind == "interleaved":
             rho2il = _run_interleaved(plan, psi2, 2 * n_qubits, dtype, device, elements)
             if sampled:
                 exact = _pair_diag(rho2il[0], n_qubits)
                 return sample_shots(exact, n_qubits, type, obs, shots, generator)
             return _measure_interleaved_ri(rho2il, n_qubits, type, obs)
-        if engine == "mixed":
-            rho2 = simulate_mixed_ri(tape, n_qubits, dtype, device, slot, rows)
+        if kind == "mixed":
+            rho2 = _run_mixed(plan, n_qubits, dtype, device, _elements(tape, rows))
         else:
-            rho2 = _outer_ri(simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice,
-                                              slot, rows))
+            psi2 = _run_pure(plan, psi2, n_qubits, dtype, device, batch, choice,
+                             _elements(tape, rows))
+            if not use_density:
+                if sampled:
+                    exact = psi2[0] ** 2 + psi2[1] ** 2
+                    return sample_shots(exact, n_qubits, type, obs, shots, generator)
+                return measure_state_ri(psi2, n_qubits, type, obs)
+            rho2 = _outer_ri(psi2)
         if sampled:
             exact = torch.diagonal(rho2[0].reshape(rho2.shape[1:-1] + (dim, dim)),
                                    dim1=-2, dim2=-1)
             return sample_shots(exact, n_qubits, type, obs, shots, generator)
         return measure_density_ri(rho2, n_qubits, type, obs)
-
-    psi2 = simulate_pure_ri(tape, n_qubits, dtype, device, batch, choice, slot, rows)
-    if sampled:
-        exact = psi2[0] ** 2 + psi2[1] ** 2
-        return sample_shots(exact, n_qubits, type, obs, shots, generator)
-    return measure_state_ri(psi2, n_qubits, type, obs)
 
 
 # ---------------------------------------------------------------------------
