@@ -19,6 +19,13 @@ chain grouping) and only recomposes the payloads.  Materializing with
 ``rows`` picks the rows of a batched tape (an int: one element; a slice: a
 chunk) before composing.
 
+:class:`RowPlans` serves a batch that runs element by element: it composes
+the skeleton once for the chunk's rows (a payload no batched gate reaches
+once, shared by every element; the others once with their batch axis, each
+split into its rows by one ``unbind``) and hands each element its row.  A
+state-sized payload (:func:`per_element`) is built for one element at a
+time, from that element's rows of its arguments, never for the chunk.
+
 The JAX package has no counterpart: its plans are traced once under ``jit``.
 """
 
@@ -68,6 +75,22 @@ def lazy(fn: Callable, *args: Any) -> Any:
     return fn(*args)
 
 
+class PerElement(Lazy):
+    """A :class:`Lazy` node whose value is state-sized: :class:`RowPlans`
+    evaluates it for one element at a time, never for a chunk."""
+
+    __slots__ = ()
+
+
+def per_element(fn: Callable, *args: Any) -> Any:
+    """:func:`lazy` for a state-sized payload (*fn* takes one element's
+    arguments only): a :class:`PerElement` node when an argument is
+    deferred."""
+    if any(_deferred(a) for a in args):
+        return PerElement(fn, args)
+    return fn(*args)
+
+
 class _Proxy:
     """Marker base of the proxy operations :func:`proxy_tape` builds."""
 
@@ -114,12 +137,35 @@ def derived(cls: type, name: str, wires: List[int], **attrs: Any) -> Operation:
     return op
 
 
+def _batched(t: Any, base: int) -> bool:
+    """Whether *t* is a batched tensor: of rank ``base + 1``, one above its
+    rank per element."""
+    return isinstance(t, torch.Tensor) and t.dim() > base
+
+
 def _rows(t: torch.Tensor, base: int, rows) -> torch.Tensor:
     """Rows *rows* of a batched tensor (rank ``base + 1``); a tensor of the
     per-element rank is shared by every element and returned whole."""
-    if rows is None or t.dim() <= base:
+    if rows is None or not _batched(t, base):
         return t
     return t[rows]
+
+
+def _tape_op(p: Operation, tape: List[Operation]) -> Optional[Operation]:
+    """The tape's operation that proxy *p* stands for; None for a derived
+    operation."""
+    i = p.__dict__.get("_tape_index")
+    if i is not None and isinstance(tape[i], type(p).__mro__[1]):
+        return tape[i]
+    return None
+
+
+def _with(op: Operation, attrs: Dict[str, Any]) -> Operation:
+    """A copy of *op* with its attributes *attrs* replaced."""
+    out = object.__new__(op.__class__)
+    out.__dict__.update(op.__dict__)
+    out.__dict__.update(attrs)
+    return out
 
 
 class _Materializer:
@@ -130,17 +176,13 @@ class _Materializer:
     def op(self, p: Operation) -> Operation:
         """The operation a proxy stands for: the tape's own (its tensors cut
         to *rows*), or a derived one with its deferred attributes evaluated."""
-        i = p.__dict__.get("_tape_index")
-        if i is not None and isinstance(self.tape[i], type(p).__mro__[1]):
-            real = self.tape[i]
+        real = _tape_op(p, self.tape)
+        if real is not None:
             if self.rows is None:
                 return real
-            cut = object.__new__(real.__class__)
-            for k, v in real.__dict__.items():
-                if isinstance(v, torch.Tensor) and k in _BASE_RANK:
-                    v = _rows(v, _BASE_RANK[k], self.rows)
-                cut.__dict__[k] = v
-            return cut
+            return _with(real, {k: _rows(v, _BASE_RANK[k], self.rows)
+                                for k, v in real.__dict__.items()
+                                if isinstance(v, torch.Tensor) and k in _BASE_RANK})
         out = object.__new__(type(p).__mro__[1])
         for k, v in p.__dict__.items():
             if k != "_tape_index":
@@ -176,6 +218,80 @@ def materialize(skeleton: Any, tape: List[Operation], rows=None) -> Any:
     skeleton was planned for.  *rows*: ``None`` (the whole batch), an int
     (one element) or a slice (a chunk) of a batched tape."""
     return _Materializer(tape, rows)(skeleton)
+
+
+class _PerRow(tuple):
+    """A payload's value for each row of a chunk, in :class:`RowPlans`."""
+
+
+class RowPlans:
+    """A skeleton composed once for the rows *rows* of a batched tape
+    (``None``: the whole batch; a slice: a chunk) and handed out element by
+    element (:meth:`element`).
+
+    Each payload is composed by one :func:`materialize` of the chunk.  One
+    that no batched gate reaches is the same tensor in every element's plan;
+    a batched one is split into its rows by one ``unbind`` (one autograd
+    node a payload), as are the batched tensors of the tape's operations.
+    A :class:`PerElement` node and a derived operation are composed here
+    down to their arguments only: :meth:`element` builds them for that
+    element from its rows of them."""
+
+    def __init__(self, skeleton: Any, tape: List[Operation], rows=None) -> None:
+        self.skeleton, self.tape = skeleton, tape
+        self.first = 0 if rows is None else range(batch_of(tape))[rows][0]
+        self._chunk = _Materializer(tape, rows)
+        self._batched: Dict[int, bool] = {}
+        self._seen: set = set()
+        # id of a node -> its value for the chunk, or a _PerRow of its rows
+        self._parts: Dict[int, Any] = {}
+        self._compose(skeleton)
+        del self._chunk, self._batched, self._seen  # keep the payloads only
+
+    def _is_batched(self, x: Any) -> bool:
+        """Whether a batched gate reaches the node *x*."""
+        if isinstance(x, (tuple, list)):
+            return any(self._is_batched(v) for v in x)
+        if not isinstance(x, (Ref, Lazy)):
+            return False
+        key = id(x)
+        if key not in self._batched:
+            if isinstance(x, Ref):
+                self._batched[key] = _batched(getattr(self.tape[x.index], x.attr), x.base)
+            else:
+                self._batched[key] = any(self._is_batched(a) for a in x.args)
+        return self._batched[key]
+
+    def _compose(self, x: Any) -> None:
+        if isinstance(x, (tuple, list)):
+            for v in x:
+                self._compose(v)
+            return
+        if not isinstance(x, (Ref, Lazy, _Proxy)) or id(x) in self._seen:
+            return
+        self._seen.add(id(x))
+        if isinstance(x, PerElement):
+            self._compose(x.args)
+        elif isinstance(x, (Ref, Lazy)):
+            v = self._chunk(x)
+            self._parts[id(x)] = _PerRow(v.unbind(0)) if self._is_batched(x) else v
+        elif _tape_op(x, self.tape) is None:  # a derived operation
+            self._compose(list(x.__dict__.values()))
+        else:
+            op = self._chunk(x)
+            cols = {k: v.unbind(0) for k, v in op.__dict__.items()
+                    if k in _BASE_RANK and _batched(v, _BASE_RANK[k])}
+            self._parts[id(x)] = _PerRow(_with(op, dict(zip(cols, row)))
+                                         for row in zip(*cols.values())) if cols else op
+
+    def element(self, row: int) -> Any:
+        """The skeleton for the tape's row *row* (an index into the whole
+        batch, within the chunk): materialized for that row with the chunk's
+        payloads in hand, shared or that row's."""
+        i = row - self.first
+        m = _Materializer(self.tape, row)
+        m.memo = {k: v[i] if isinstance(v, _PerRow) else v for k, v in self._parts.items()}
+        return m(self.skeleton)
 
 
 def _hashable(v: Any) -> Any:

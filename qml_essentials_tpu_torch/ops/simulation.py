@@ -57,7 +57,8 @@ against each tape recorded with the same structure.  A batched tape (gate
 matrices ``(Bt, K, K)``) runs vectorised below the large-state regime: one
 kernel launch per step on the ``(2, Bt, 2**n)`` state; from it (or when its
 gradient goes to the adjoint executor) its elements run one by one on the
-plan's payload rows (:func:`batch_route`).
+rows of the plan's payloads, composed once for the chunk (:func:`batch_route`,
+:meth:`PlanSlot.each`).
 
 Counterpart of ``qml_essentials_tpu/ops/simulation.py``.
 """
@@ -581,7 +582,7 @@ def _zero_state_prefix(plan: list, n: int) -> Tuple[list, Optional[torch.Tensor]
         else:
             layout.append(None)
             w += 1
-    return peeled, lazy(_outer_start, mats, layout, n)
+    return peeled, recipes.per_element(_outer_start, mats, layout, n)
 
 
 def _outer_start(mats: List[torch.Tensor], layout: list, n: int) -> torch.Tensor:
@@ -753,6 +754,13 @@ class PlanSlot:
         ``plan.materialize`` span under a profiler."""
         with profiling.span("plan.materialize"):
             return recipes.materialize(self.skeleton(kind, build, tape), tape, rows)
+
+    def each(self, kind: str, build, tape: List[Operation], rows=None) -> recipes.RowPlans:
+        """The engine's plans for the elements of *rows* of a batched tape,
+        composed once for them (:class:`~qml_essentials_tpu_torch.ops.recipes.RowPlans`):
+        one ``plan.materialize`` span under a profiler."""
+        with profiling.span("plan.materialize"):
+            return recipes.RowPlans(self.skeleton(kind, build, tape), tape, rows)
 
 
 def _elements(tape: List[Operation], rows) -> Optional[int]:
@@ -1267,23 +1275,26 @@ def simulate_and_measure(
     the large-state regime the batch runs vectorised: each plan step once on
     the ``(2, Bt, 2**n)`` state (:func:`batch_route`).  From
     ``LARGE_STATE_MIN_N`` qubits (doubled wires for a density), or when its
-    gradient goes to the adjoint or the saved executor, the plan built once
-    for the batch runs element by element on the payloads' rows."""
+    gradient goes to the adjoint executor, the plan built once for the batch
+    runs element by element: its payloads composed once for the chunk, each
+    element on their rows, handed out with its outer-product start before
+    its ``run.forward`` span opens (:meth:`PlanSlot.each`)."""
     slot = PlanSlot() if plans is None else plans
     elements = _elements(tape, rows)
     if elements is None:
         return _simulate(tape, slot, rows, None, n_qubits, type, obs, use_density, shots,
                          generator, dtype, device, batch, choice)
     choice = BackwardChoice() if choice is None else choice
-    first = 0 if rows is None else range(recipes.batch_of(tape))[rows][0]
     gens = [None] * elements if generator is None else list(generator)
     if batch_route(tape, slot, n_qubits, type, use_density, dtype, device, batch, choice
                    ) == "vectorised":
         return _simulate(tape, slot, rows, elements, n_qubits, type, obs, use_density, shots,
                          gens, dtype, device, batch, choice)
+    kind = _engine_kind(tape, slot, n_qubits, use_density, dtype, device)
+    each = slot.each(*_planner(kind, n_qubits, dtype, device), tape, rows)
     return torch.stack([
-        _simulate(tape, slot, first + i, None, n_qubits, type, obs, use_density, shots,
-                  gens[i], dtype, device, batch, choice)
+        _simulate(tape, slot, each.first + i, None, n_qubits, type, obs, use_density, shots,
+                  gens[i], dtype, device, batch, choice, (kind, each.element(each.first + i)))
         for i in range(elements)
     ])
 
@@ -1356,23 +1367,38 @@ def batch_route(tape: List[Operation], slot: PlanSlot, n_qubits: int, type: str,
     return "vectorised"
 
 
+def _engine_kind(tape: List[Operation], slot: PlanSlot, n_qubits: int, use_density: bool,
+                 dtype, device) -> str:
+    """The engine a simulation runs on: :func:`engine`'s, ``"pure"`` without
+    a density."""
+    return engine(tape, slot, n_qubits, use_density, dtype, device)[0] if use_density else "pure"
+
+
+def _planner(kind: str, n_qubits: int, dtype, device) -> tuple:
+    """The slot key of engine *kind*'s skeleton, and its planner."""
+    if kind == "interleaved":
+        return kind, _interleaved_build(n_qubits, dtype, device)
+    if kind == "mixed":
+        return kind, _mixed_build(n_qubits, dtype, device)
+    return "pure", _pure_build(n_qubits, dtype, device)
+
+
 def _simulate(tape, slot, rows, elements, n_qubits, type, obs, use_density, shots, generator,
-              dtype, device, batch, choice) -> torch.Tensor:
+              dtype, device, batch, choice, planned: Optional[tuple] = None) -> torch.Tensor:
     """One simulation: a single tape, one row of a batched tape (*rows* an
     int), or a batch of *elements* rows run vectorised.  The plan is
-    materialized first; the run and the readout are one ``run.forward``
-    span under a profiler."""
+    materialized first, unless *planned* brings it: the engine's kind and a
+    row's plan, handed out by :meth:`PlanSlot.each`.  The run and the
+    readout are one ``run.forward`` span under a profiler."""
     dim = 2**n_qubits
     sampled = shots is not None and type in ("probs", "expval")
-    kind = engine(tape, slot, n_qubits, use_density, dtype, device)[0] if use_density else "pure"
-    if kind == "interleaved":
-        plan, psi2 = slot.get("interleaved", _interleaved_build(n_qubits, dtype, device),
-                              tape, rows)
-    elif kind == "mixed":
-        plan = slot.get("mixed", _mixed_build(n_qubits, dtype, device), tape, rows)
+    if planned is None:
+        kind = _engine_kind(tape, slot, n_qubits, use_density, dtype, device)
+        planned = slot.get(*_planner(kind, n_qubits, dtype, device), tape, rows)
     else:
-        plan, psi2 = slot.get("pure", _pure_build(n_qubits, dtype, device), tape, rows)
+        kind, planned = planned
     with profiling.span("run.forward"):
+        plan, psi2 = (planned, None) if kind == "mixed" else planned
         if kind == "interleaved":
             rho2il = _run_interleaved(plan, psi2, 2 * n_qubits, dtype, device, elements)
             if sampled:

@@ -26,6 +26,7 @@ from qml_essentials_tpu_torch.core import executor, memory
 from qml_essentials_tpu_torch.core.executor import Script
 from qml_essentials_tpu_torch.models.model import Model
 from qml_essentials_tpu_torch.ops import operations as to
+from qml_essentials_tpu_torch.ops import kernels, recipes
 from qml_essentials_tpu_torch.ops import simulation as tsim
 
 torch.set_num_threads(2)
@@ -406,6 +407,152 @@ def test_large_regime_batch_runs_each_element_on_one_plan(monkeypatch):
     with torch.no_grad(), loop_route():
         loop = tm(inputs=x)
     assert torch.allclose(got, loop, atol=LOOP_TOL)
+
+
+# case: data qubits, noise, the register width the per-element route starts
+# at (None: the default, the adjoint backward's route), the forced chunk
+# size, the backward mode
+PER_ELEMENT_CASES = {
+    "outer_start": (16, None, 16, None, "auto"),
+    "chunked": (16, None, 16, 2, "auto"),
+    "interleaved": (7, {"Depolarizing": 0.01}, 14, None, "auto"),
+    "adjoint": (16, None, None, None, "adjoint"),
+}
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("case", list(PER_ELEMENT_CASES))
+def test_per_element_batches_match_the_vectorised_route(case, monkeypatch):
+    """A batch run element by element, its chunk's payloads composed once,
+    gives the vectorised route's outputs and parameter gradients."""
+    n, noise, wires, chunk, mode = PER_ELEMENT_CASES[case]
+    x = torch.tensor([0.3, -0.8, 1.7], dtype=torch.float64)
+
+    def run():
+        tm = Model(n_qubits=n, n_layers=1, circuit_type="Circuit_19", device="cpu",
+                   dtype=torch.float64, random_seed=3)
+        out = tm(inputs=x, noise_params=noise)
+        (grad,) = torch.autograd.grad((out**2).sum(), tm.params)
+        return tm, out.detach(), grad
+
+    ref_model, ref, g_ref = run()
+    assert ref_model.script.routes[-1] == "vectorised"
+    if wires is not None:
+        monkeypatch.setattr(tsim, "LARGE_STATE_MIN_N", wires)
+    if chunk is not None:
+        monkeypatch.setattr(memory, "compute_chunk_size", lambda *a, **k: chunk)
+    monkeypatch.setattr(tsim, "BACKWARD_MODE", tsim.BACKWARD_MODE)
+    tsim.set_backward_mode(mode)
+    # the saved executor's cotangent in the state's precision, not bfloat16
+    monkeypatch.setattr(tsim.saved, "LAMBDA_MODE", "f32")
+    runs = []
+    for module, name in ((tsim.adjoint, "execute_plan_ri"), (tsim.saved, "execute_plan_saved_ri")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _n=name, _f=real: runs.append(_n) or _f(*a))
+    tm, got, grad = run()
+    assert tm.script.routes[-1].startswith("per element")
+    (slot,) = tm.script._plans.values()
+    if case == "outer_start":  # the plan's leading windows peeled into its start
+        assert isinstance(slot.skeletons["pure"][1], recipes.PerElement)
+    executor = "execute_plan_ri" if mode == "adjoint" else "execute_plan_saved_ri"
+    assert runs == [executor] * 3
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= TOL64
+    assert (grad - g_ref).abs().max() <= TOL64
+
+
+def _wide_channel_circuit(theta, w):
+    """A channel on four wires, which the interleaved engine cannot lower."""
+    eye = torch.eye(16, dtype=torch.complex128)
+    x = torch.tensor([[0, 1], [1, 0]], dtype=torch.complex128)
+    xxxx = torch.kron(torch.kron(x, x), torch.kron(x, x))
+    for q in range(6):
+        to.RX(theta * (q + 1), wires=q)
+        to.RY(w[q], wires=q)
+    to.CX(wires=[0, 1])
+    to.CX(wires=[2, 3])
+    to.QubitChannel([np.sqrt(0.95) * eye, np.sqrt(0.05) * xxxx], wires=[0, 1, 2, 3])
+    to.CX(wires=[3, 4])
+    to.RZ(theta, wires=5)
+
+
+@pytest.mark.unittest
+def test_per_element_ket_then_bra_batches_match_the_vectorised_route(monkeypatch):
+    obs = [to.PauliZ(wires=q, record=False) for q in range(6)]
+    theta = torch.tensor([0.3, -0.8, 1.7], dtype=torch.float64)
+
+    def run():
+        w = torch.linspace(0.1, 0.6, 6, dtype=torch.float64).requires_grad_()
+        s = Script(_wide_channel_circuit, n_qubits=6, device="cpu", dtype=torch.float64)
+        out = s.execute(type="expval", obs=obs, args=(theta, w), in_axes=(0, None))
+        (grad,) = torch.autograd.grad((out**2).sum(), w)
+        return s, out.detach(), grad
+
+    s, ref, g_ref = run()
+    assert s.routes[-1] == "vectorised"
+    monkeypatch.setattr(tsim, "LARGE_STATE_MIN_N", 12)
+    s, got, grad = run()
+    assert s.routes[-1] == "per element: 12 wires, from LARGE_STATE_MIN_N = 12"
+    (slot,) = s._plans.values()
+    assert slot.skeletons["interleaved"] is None and "mixed" in slot.skeletons
+    assert (got - ref).abs().max() <= TOL64
+    assert (grad - g_ref).abs().max() <= TOL64
+
+
+@pytest.mark.unittest
+def test_a_chunks_payloads_are_composed_once(monkeypatch):
+    """Every element's plan holds the same tensor for a payload no batched
+    gate reaches, and a row of one composition for a batched one; the
+    outer-product start is built for each element."""
+    n = 16
+    monkeypatch.setattr(tsim, "LARGE_STATE_MIN_N", n)
+    tm = Model(n_qubits=n, n_layers=1, circuit_type="Circuit_19", device="cpu",
+               dtype=torch.float64, random_seed=1)
+    handed = []
+    real = recipes.RowPlans.element
+    monkeypatch.setattr(recipes.RowPlans, "element",
+                        lambda self, row: handed.append(real(self, row)) or handed[-1])
+    with torch.no_grad():
+        tm(inputs=torch.tensor([0.3, -0.8, 1.7], dtype=torch.float64))
+    assert len(handed) == 3
+    shared = batched = 0
+    for steps in zip(*(plan for plan, _ in handed)):
+        payloads = [tsim._payload_tensors(kind, payload) for kind, payload, _ in steps]
+        for ts in zip(*payloads):
+            if all(t is ts[0] for t in ts):
+                shared += 1
+                continue
+            base = ts[0]._base
+            assert base is not None and all(t._base is base for t in ts)
+            assert len({t.storage_offset() for t in ts}) == len(ts)
+            batched += 1
+    assert shared and batched
+    starts = [psi2 for _, psi2 in handed]
+    assert all(s.shape == (2, 2**n) for s in starts)
+    assert len({s.data_ptr() for s in starts}) == len(starts)
+
+
+@pytest.mark.unittest
+@pytest.mark.parametrize("batched", ["state", "gate", "both"])
+@pytest.mark.parametrize("wires", [[0], [3], [0, 1], [2, 5], [7, 0], [15, 0]])
+def test_a_batched_composition_rounds_as_each_row_alone(wires, batched):
+    """Composing a window's unitary for a batch gives each row, bit for bit,
+    what composing that row alone gives, with both operands needing a
+    gradient: so a batch run element by element on its chunk's payloads
+    rounds as single requests do."""
+    n = 16  # an 8-qubit window's flat unitary
+    gen = torch.Generator().manual_seed(5)
+    K = 2 ** len(wires)
+    psi = torch.randn((3, 2**n) if batched != "gate" else (2**n,), dtype=torch.complex64,
+                      generator=gen).requires_grad_()
+    mat = torch.randn((3, K, K) if batched != "state" else (K, K), dtype=torch.complex64,
+                      generator=gen).requires_grad_()
+    out = kernels.apply_matrix_flat(psi, mat, wires, n)
+    assert out.shape == (3, 2**n)
+    for i in range(3):
+        alone = kernels.apply_matrix_flat(psi[i] if psi.dim() > 1 else psi,
+                                          mat[i] if mat.dim() > 2 else mat, wires, n)
+        assert torch.equal(out[i], alone)
 
 
 @pytest.mark.unittest
